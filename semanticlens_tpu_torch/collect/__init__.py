@@ -1,0 +1,7 @@
+"""Collect: per-component concept examples from a subject model."""
+
+from semanticlens_tpu_torch.collect.activation_based import ActivationComponentVisualizer
+from semanticlens_tpu_torch.collect.activation_caching import ActMax, ActMaxCache
+from semanticlens_tpu_torch.collect.engine import CollectEngine
+
+__all__ = ["ActMax", "ActMaxCache", "ActivationComponentVisualizer", "CollectEngine"]

@@ -1,0 +1,225 @@
+"""Activation-based component visualizer — the Collect entry point.
+
+Counterpart of ``semanticlens_tpu.collect.activation_based``: the same public
+API, cache directory layout and on-disk format, on a single CUDA card. When
+one raw-image dataset serves both the subject model and the foundation model,
+``_compute_concept_db`` runs the fused single pass
+(:meth:`~semanticlens_tpu_torch.collect.engine.CollectEngine.run_fused`).
+
+Not ported yet (ROADMAP.md): ``visualize_components`` (needs matplotlib) and the
+sweep checkpoints of the JAX package.
+"""
+
+from __future__ import annotations
+
+import logging
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from semanticlens_tpu_torch.collect.activation_caching import ActMaxCache
+from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
+from semanticlens_tpu_torch.collect.engine import CollectEngine
+from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, iter_batches
+from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
+from semanticlens_tpu_torch.ops import aggregators
+from semanticlens_tpu_torch.utils.helper import get_fallback_name
+
+logger = logging.getLogger(__name__)
+
+
+class MissingNameWarning(UserWarning):
+    """Raised when a model/dataset lacks the ``.name`` needed for stable caching."""
+
+
+class ActivationComponentVisualizer(AbstractComponentVisualizer):
+    """Finds concept examples by activation maximization over a dataset.
+
+    Parameters
+    ----------
+    model : SubjectModel; weights from ``params`` or ``model.params``, run on
+        ``model.device``. A ``.name`` attribute is recommended for caching.
+    dataset_model : dataset for the subject model.
+    dataset_fm : dataset of raw images for the foundation model; must match
+        ``dataset_model`` in length and order.
+    layer_names : taps to analyze (torch-style names, e.g. ``"layer4"``).
+    num_samples : top-k examples kept per component.
+    aggregate_fn : activation reducer; defaults to spatial mean.
+    cache_dir : root for cached artifacts; None disables caching.
+    params : optional explicit parameter dict.
+    model_preprocess : optional device-side fn mapping a raw batch (uint8
+        NHWC) to the subject model's input; defaults to a float32 cast.
+    """
+
+    def __init__(
+        self,
+        model: SubjectModel,
+        dataset_model,
+        dataset_fm,
+        layer_names: list[str],
+        num_samples: int,
+        aggregate_fn=None,
+        cache_dir: str | None = None,
+        params=None,
+        model_preprocess=None,
+    ):
+        self.model = model
+        self.params = params if params is not None else getattr(model, "params", None)
+        if self.params is None:
+            raise ValueError("Model weights required: pass `params=` or set `model.params`.")
+        self.device = model.device
+        self.dataset = dataset_model
+        self.dataset_fm = dataset_fm
+        self._cache_root = None if cache_dir is None else Path(cache_dir)
+        if self._cache_root is not None:
+            self._cache_root.mkdir(parents=True, exist_ok=True)
+        self._validate_args()
+
+        self.layer_names = list(layer_names)
+        validate_layers(self.model, self.layer_names)
+        if aggregate_fn is None:
+            logger.warning("No aggregation_fn provided using default: aggregate_conv_mean")
+            aggregate_fn = aggregators.aggregate_conv_mean
+
+        self.actmax_cache = ActMaxCache(
+            self.layer_names, n_collect=num_samples, aggregation_fn=aggregate_fn, device=self.device
+        )
+        self.engine = CollectEngine(
+            model=self.model,
+            layer_names=self.layer_names,
+            aggregation_fn=aggregate_fn,
+            n_collect=num_samples,
+            input_preprocess=model_preprocess,
+        )
+        if self.caching:
+            try:
+                self.actmax_cache.load(self.storage_dir)
+            except FileNotFoundError:
+                logger.info(f"Results will be stored in {self.storage_dir}")
+
+    # ------------------------------------------------------------- validation
+    def _validate_args(self):
+        """Stable names are required for cache identity; fall back to
+        sha256-of-repr with a warning."""
+        for what, obj in (("Model", self.model), ("Dataset", self.dataset)):
+            if not hasattr(obj, "name"):
+                name = get_fallback_name(obj)
+                if self.caching:
+                    warnings.warn(
+                        f"{what} does not have a name attribute, which is required for reliable "
+                        f"caching.\nUsing a fallback name: {name}.",
+                        MissingNameWarning,
+                        stacklevel=3,
+                    )
+                obj.name = name
+        if len(self.dataset) != len(self.dataset_fm):
+            raise ValueError(
+                "Model and foundation model datasets should have the same length.",
+                (len(self.dataset), len(self.dataset_fm)),
+            )
+
+    # -------------------------------------------------------------- properties
+    @property
+    def caching(self) -> bool:
+        return self._cache_root is not None
+
+    @property
+    def storage_dir(self) -> Path:
+        """``{cache_root}/ActivationComponentVisualizer/{dataset}/{model}``."""
+        if self._cache_root is None:
+            raise ValueError("No cache dir provided")
+        return self._cache_root / self.__class__.__name__ / self.dataset.name / self.model.name
+
+    @property
+    def metadata(self) -> dict[str, str]:
+        return {**self.actmax_cache.metadata, "dataset": self.dataset.name, "model": self.model.name}
+
+    @property
+    def embedding_table(self) -> np.ndarray | None:
+        """(N, D) full-dataset FM embedding table from the last concept-DB
+        computation, or None before one ran."""
+        return getattr(self, "_embedding_table", None)
+
+    # --------------------------------------------------------------- pipeline
+    def run(self, batch_size: int = 32, **kwargs):
+        """Collect per-component top activating samples (cache-or-compute).
+
+        Returns ``{layer: ActMax}``.
+        """
+        if self._cache_root is not None:
+            try:
+                self.actmax_cache.load(self.storage_dir)
+                return self.actmax_cache.cache
+            except FileNotFoundError:
+                pass
+        states, n_seen = self.engine.run(self.params, self.dataset, batch_size)
+        self._ingest(states, n_seen)
+        return self.actmax_cache.cache
+
+    def _ingest(self, states, n_seen: int):
+        for name, state in states.items():
+            act_max = self.actmax_cache[name]
+            act_max.n_latents = int(state.values.shape[0])
+            act_max.state = state
+            self.actmax_cache.sample_idx_counter[name] = n_seen
+        if self._cache_root is not None:
+            self.actmax_cache.store(self.storage_dir)
+
+    def _compute_concept_db(self, fm, batch_size: int = 32, **kwargs):
+        """Collect, embed the full FM dataset, gather per-component embeddings.
+
+        Returns ``{layer: (n_components, n_samples, D) float32 numpy}``; −1
+        sentinel slots become zero rows, as in the JAX package.
+        """
+        if self.dataset_fm is self.dataset and not self._has_collect_cache():
+            embeds = self._run_fused(fm, batch_size)
+        else:
+            self.run(batch_size=batch_size)
+            embeds = self._embed_vision_dataset(fm, batch_size)
+        self._embedding_table = embeds
+        concept_db = {}
+        for layer_name in self.layer_names:
+            ids = self.get_max_reference(layer_name)
+            db = embeds[ids]
+            db[ids < 0] = 0.0
+            concept_db[layer_name] = db
+        return concept_db
+
+    def _has_collect_cache(self) -> bool:
+        if self._cache_root is None:
+            return False
+        return all(
+            (self.storage_dir / self.actmax_cache._layer_fname(name)).exists()
+            for name in self.layer_names
+        )
+
+    def _run_fused(self, fm, batch_size: int) -> np.ndarray:
+        """One pass over the raw dataset: collect top-k AND embed every image."""
+
+        def embed_fn(raw_device_batch):
+            return fm.encode_image(fm.preprocess(raw_device_batch))
+
+        states, embeds, n_seen = self.engine.run_fused(self.params, self.dataset, batch_size, embed_fn)
+        self._ingest(states, n_seen)
+        if embeds.shape[0] != n_seen:
+            raise RuntimeError("Number of embeddings does not match number of ids!")
+        return embeds
+
+    def _embed_vision_dataset(self, fm, batch_size: int) -> np.ndarray:
+        """Embed every sample of ``dataset_fm`` once → (N, D) float32."""
+        n = len(self.dataset_fm)
+        chunks = []
+        with torch.inference_mode():
+            for images, _, _ in device_prefetch_batches(
+                iter_batches(self.dataset_fm, batch_size), fm.device
+            ):
+                chunks.append(fm.encode_image(fm.preprocess(images)).to("cpu", torch.float32))
+        return torch.cat(chunks).numpy()[:n]
+
+    def get_max_reference(self, layer_name: str) -> np.ndarray:
+        """(n_components, n_samples) dataset indices of the top examples."""
+        if layer_name not in self.layer_names:
+            raise ValueError(f"Layer '{layer_name}' not found in model layers: {self.layer_names}")
+        return self.actmax_cache.cache[layer_name].sample_ids

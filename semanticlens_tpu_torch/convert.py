@@ -1,0 +1,54 @@
+"""Carry weights across from the JAX package's layout into the port's.
+
+The JAX package keeps flat parameter dicts with torch names but XLA layouts
+(conv HWIO, linear (in, out)); the port keeps torch's own layouts (conv OIHW,
+linear (out, in)), i.e. plain torch state dicts. These functions are the
+inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``
+and ``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``.
+
+Inputs are numpy arrays (or anything ``np.asarray`` takes, e.g. a JAX array
+on the host); outputs are float32 CPU tensors. The port's own random init
+draws its weights in the JAX layout from a numpy seed and comes through
+here, so one seed gives both packages the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+
+def resnet_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """ResNet: convs HWIO → OIHW, ``fc.weight`` (in, out) → (out, in)."""
+    out = {}
+    for name, value in params.items():
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif name == "fc.weight":
+            arr = arr.T
+        out[name] = _tensor(arr)
+    return out
+
+
+def clip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """CLIP: convs HWIO → OIHW; linear and attention in-proj weights (in, out) → (out, in).
+
+    ``visual.proj``, ``text_projection`` and the embeddings keep their layout
+    (open_clip stores them as the JAX package does).
+    """
+    out = {}
+    for name, value in params.items():
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif name.endswith("weight") and arr.ndim == 2 and "embedding" not in name:
+            arr = arr.T
+        out[name] = _tensor(arr)
+    return out

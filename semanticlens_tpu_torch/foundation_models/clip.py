@@ -1,0 +1,337 @@
+"""CLIP ViT image tower and causal text tower, functional, on torch tensors.
+
+Counterpart of ``semanticlens_tpu.foundation_models.clip`` for the ViT
+presets. Parameter names mirror open_clip state dicts
+(``visual.conv1.weight``, ``transformer.resblocks.0.attn.in_proj_weight``
+…) in torch's layouts, so an open_clip state dict loads as it is and the
+JAX package's parameters come across through
+:func:`semanticlens_tpu_torch.convert.clip_params_from_jax`. Preprocessing
+(resize/crop/normalize) runs on the device.
+
+Not ported yet (ROADMAP.md): the ModifiedResNet tower (RN50/RN101 presets), loading
+pretrained checkpoints from files, and int8 quantization.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from semanticlens_tpu_torch import convert
+from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
+from semanticlens_tpu_torch.foundation_models.common import init_from_specs
+from semanticlens_tpu_torch.foundation_models.tokenizer import ClipBpeTokenizer, HashTokenizer
+from semanticlens_tpu_torch.models.layers import (
+    conv2d,
+    gelu,
+    layer_norm,
+    linear,
+    multi_head_attention,
+    quick_gelu,
+)
+from semanticlens_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, preprocess_images
+from semanticlens_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionCfg:
+    kind: str = "vit"
+    image_size: int = 224
+    patch_size: int = 32
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class TextCfg:
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    embed_dim: int
+    vision: VisionCfg
+    text: TextCfg
+    quick_gelu: bool = True  # OpenAI-pretrained towers use x·σ(1.702x)
+    mean: tuple = CLIP_MEAN
+    std: tuple = CLIP_STD
+
+
+CLIP_PRESETS: dict[str, CLIPConfig] = {
+    "ViT-B-32": CLIPConfig(
+        embed_dim=512,
+        vision=VisionCfg(patch_size=32, width=768, layers=12, heads=12),
+        text=TextCfg(width=512, heads=8, layers=12),
+    ),
+    "ViT-B-16": CLIPConfig(
+        embed_dim=512,
+        vision=VisionCfg(patch_size=16, width=768, layers=12, heads=12),
+        text=TextCfg(width=512, heads=8, layers=12),
+    ),
+    "ViT-L-14": CLIPConfig(
+        embed_dim=768,
+        vision=VisionCfg(patch_size=14, width=1024, layers=24, heads=16),
+        text=TextCfg(width=768, heads=12, layers=12),
+    ),
+    "ViT-L-14-336": CLIPConfig(
+        embed_dim=768,
+        vision=VisionCfg(image_size=336, patch_size=14, width=1024, layers=24, heads=16),
+        text=TextCfg(width=768, heads=12, layers=12),
+    ),
+}
+
+
+# --------------------------------------------------------------------------- #
+# Transformer (shared by the image and text towers)
+# --------------------------------------------------------------------------- #
+def transformer_block(params, prefix, x, n_heads, *, mask=None, quick: bool = True):
+    """open_clip ResidualAttentionBlock: pre-LN attn + pre-LN MLP."""
+    h = layer_norm(x, params[f"{prefix}.ln_1.weight"], params[f"{prefix}.ln_1.bias"])
+    x = x + multi_head_attention(h, params, f"{prefix}.attn", n_heads, mask=mask)
+    h = layer_norm(x, params[f"{prefix}.ln_2.weight"], params[f"{prefix}.ln_2.bias"])
+    h = linear(h, params[f"{prefix}.mlp.c_fc.weight"], params[f"{prefix}.mlp.c_fc.bias"])
+    h = quick_gelu(h) if quick else gelu(h)
+    return x + linear(h, params[f"{prefix}.mlp.c_proj.weight"], params[f"{prefix}.mlp.c_proj.bias"])
+
+
+def transformer_stack(params, prefix, x, layers, n_heads, *, mask=None, quick=True):
+    for i in range(layers):
+        x = transformer_block(params, f"{prefix}.resblocks.{i}", x, n_heads, mask=mask, quick=quick)
+    return x
+
+
+def vit_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
+    """(B, H, W, 3) preprocessed → (B, embed_dim) float32. open_clip VisionTransformer."""
+    v = cfg.vision
+    x = images.permute(0, 3, 1, 2).to(dtype)
+    x = conv2d(x, params["visual.conv1.weight"], stride=v.patch_size)  # (B, width, g, g)
+    x = x.flatten(2).transpose(1, 2)  # (B, g·g, width), row-major over the grid
+    b, _, w = x.shape
+    cls = params["visual.class_embedding"].to(dtype).expand(b, 1, w)
+    x = torch.cat([cls, x], dim=1) + params["visual.positional_embedding"].to(dtype)
+    x = layer_norm(x, params["visual.ln_pre.weight"], params["visual.ln_pre.bias"])
+    x = transformer_stack(params, "visual.transformer", x, v.layers, v.heads, quick=cfg.quick_gelu)
+    pooled = layer_norm(x[:, 0], params["visual.ln_post.weight"], params["visual.ln_post.bias"])
+    return pooled.float() @ params["visual.proj"].float()
+
+
+def clip_encode_text(params, cfg: CLIPConfig, tokens, *, dtype=torch.float32):
+    """(B, T) int tokens → (B, embed_dim) float32. EOT pooling via argmax(token id)."""
+    t = cfg.text
+    tokens = tokens.long()
+    length = tokens.shape[1]
+    x = params["token_embedding.weight"].to(dtype)[tokens]
+    x = x + params["positional_embedding"].to(dtype)[:length]
+    mask = torch.triu(torch.full((length, length), -torch.inf, device=x.device), diagonal=1)
+    x = transformer_stack(params, "transformer", x, t.layers, t.heads, mask=mask, quick=cfg.quick_gelu)
+    x = layer_norm(x, params["ln_final.weight"], params["ln_final.bias"])
+    pooled = x[torch.arange(tokens.shape[0], device=x.device), tokens.argmax(dim=-1)]
+    return pooled.float() @ params["text_projection"].float()
+
+
+# --------------------------------------------------------------------------- #
+# Parameters
+# --------------------------------------------------------------------------- #
+def _transformer_param_specs(prefix, layers, width):
+    specs = []
+    for i in range(layers):
+        p = f"{prefix}.resblocks.{i}"
+        specs += [
+            (f"{p}.ln_1.weight", (width,), "ones"),
+            (f"{p}.ln_1.bias", (width,), "zeros"),
+            (f"{p}.attn.in_proj_weight", (width, 3 * width), "attn"),
+            (f"{p}.attn.in_proj_bias", (3 * width,), "zeros"),
+            (f"{p}.attn.out_proj.weight", (width, width), "proj"),
+            (f"{p}.attn.out_proj.bias", (width,), "zeros"),
+            (f"{p}.ln_2.weight", (width,), "ones"),
+            (f"{p}.ln_2.bias", (width,), "zeros"),
+            (f"{p}.mlp.c_fc.weight", (width, 4 * width), "fc"),
+            (f"{p}.mlp.c_fc.bias", (4 * width,), "zeros"),
+            (f"{p}.mlp.c_proj.weight", (4 * width, width), "proj"),
+            (f"{p}.mlp.c_proj.bias", (width,), "zeros"),
+        ]
+    return specs
+
+
+def clip_param_specs(cfg: CLIPConfig):
+    """All (name, shape, init-kind) of a ViT CLIP, shapes in the JAX package's layout."""
+    v, t = cfg.vision, cfg.text
+    if v.kind != "vit":
+        raise ValueError(f"only ViT image towers are ported, got kind={v.kind!r}")
+    grid = v.image_size // v.patch_size
+    specs = [
+        ("visual.conv1.weight", (v.patch_size, v.patch_size, 3, v.width), "patch"),
+        ("visual.class_embedding", (v.width,), "scaled"),
+        ("visual.positional_embedding", (grid * grid + 1, v.width), "scaled"),
+        ("visual.ln_pre.weight", (v.width,), "ones"),
+        ("visual.ln_pre.bias", (v.width,), "zeros"),
+        ("visual.ln_post.weight", (v.width,), "ones"),
+        ("visual.ln_post.bias", (v.width,), "zeros"),
+        ("visual.proj", (v.width, cfg.embed_dim), "scaled"),
+    ]
+    specs += _transformer_param_specs("visual.transformer", v.layers, v.width)
+    specs += [
+        ("token_embedding.weight", (t.vocab_size, t.width), "embed"),
+        ("positional_embedding", (t.context_length, t.width), "scaled"),
+        ("ln_final.weight", (t.width,), "ones"),
+        ("ln_final.bias", (t.width,), "zeros"),
+        ("text_projection", (t.width, cfg.embed_dim), "scaled"),
+        ("logit_scale", (), "logit_scale"),
+    ]
+    specs += _transformer_param_specs("transformer", t.layers, t.width)
+    return specs
+
+
+def init_clip_params_jax_layout(seed: int, cfg: CLIPConfig) -> dict[str, np.ndarray]:
+    """Random numpy weights in the JAX package's layout (its init scheme, numpy streams)."""
+    return init_from_specs(seed, clip_param_specs(cfg))
+
+
+def _float32_param(name: str) -> bool:
+    """Tensors the towers use in float32: norms and the final projections."""
+    return ".ln_" in name or name.startswith("ln_") or name in (
+        "visual.proj", "text_projection", "logit_scale")
+
+
+def place_clip_params(state_dict: Mapping, cfg: CLIPConfig, dtype, device) -> dict[str, torch.Tensor]:
+    """An open_clip-named torch-layout state dict, placed for the towers.
+
+    Weights the towers cast to the compute dtype on use are stored in it
+    once; norms and projections stay float32. Shapes are checked.
+    """
+    out = {}
+    for name, shape, _ in clip_param_specs(cfg):
+        t = torch.as_tensor(state_dict[name])
+        expected = shape
+        if len(shape) == 4:
+            expected = (shape[3], shape[2], shape[0], shape[1])
+        elif len(shape) == 2 and name.endswith("weight") and "embedding" not in name:
+            expected = shape[::-1]
+        if tuple(t.shape) != tuple(expected):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != expected {expected}")
+        t = t.to(device, torch.float32 if _float32_param(name) else dtype)
+        out[name] = t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# User-facing foundation-model class
+# --------------------------------------------------------------------------- #
+class OpenClip(AbstractVLM):
+    """CLIP foundation model with the reference's ``OpenClip`` API.
+
+    Parameters
+    ----------
+    url : preset name (``"ViT-B-32"``, …) or an open_clip-style id — a
+        leading ``hf-hub:`` or trailing pretraining tag is stripped.
+    cfg : optional tower configuration that replaces the preset's (a
+        cut-down tower, e.g. for tests); ``url`` still names the model.
+    params : optional open_clip state dict (torch layout).
+    jax_params : optional parameter dict in the JAX package's layout.
+    bpe_path : CLIP BPE merges file for real tokenization; without it a
+        HashTokenizer fallback is used (testing only).
+    dtype : tower compute dtype.
+    device : ``None`` → the CUDA card (raises without one), or ``"cpu"``.
+    seed : numpy seed of the random weights used when none are given.
+    """
+
+    def __init__(
+        self,
+        url: str = "ViT-B-32",
+        *,
+        params=None,
+        jax_params=None,
+        bpe_path=None,
+        dtype=torch.bfloat16,
+        device=None,
+        seed: int = 0,
+        quick_gelu: bool | None = None,
+        cfg: CLIPConfig | None = None,
+    ):
+        self.url = url
+        preset = _resolve_preset(url)
+        if preset is None:
+            raise ValueError(f"Unknown CLIP model '{url}'. Presets: {sorted(CLIP_PRESETS)}")
+        self.cfg = cfg or CLIP_PRESETS[preset]
+        if quick_gelu is None:
+            quick_gelu = not any(tag in url for tag in ("laion", "datacomp", "dfn", "metaclip"))
+            if "quickgelu" in url:
+                quick_gelu = True
+        if quick_gelu != self.cfg.quick_gelu:
+            self.cfg = dataclasses.replace(self.cfg, quick_gelu=quick_gelu)
+        self.preset = preset
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.name = f"OpenClip({url})"
+
+        if params is None:
+            if jax_params is None:
+                logger.warning("No weights provided for %s — using random init.", url)
+                jax_params = init_clip_params_jax_layout(seed, self.cfg)
+            params = convert.clip_params_from_jax(jax_params)
+        self.params = place_clip_params(params, self.cfg, dtype, self.device)
+
+        if bpe_path is not None:
+            self.tokenizer = ClipBpeTokenizer(bpe_path, self.cfg.text.context_length)
+        else:
+            self.tokenizer = HashTokenizer(self.cfg.text.vocab_size, self.cfg.text.context_length)
+
+    @property
+    def context_length(self):
+        return self.cfg.text.context_length
+
+    @property
+    def embed_dim(self):
+        return self.cfg.embed_dim
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}(url='{self.url}', preset={self.preset})"
+
+    def preprocess(self, img):
+        """(B, H, W, C) uint8 or [0, 1] float batch (tensor or numpy) → normalized on the device."""
+        x = torch.as_tensor(img).to(self.device)
+        if x.ndim == 3:
+            x = x[None]
+        size = self.cfg.vision.image_size
+        return preprocess_images(x, size=size, crop=size, mean=self.cfg.mean, std=self.cfg.std)
+
+    def encode_image(self, img):
+        return vit_encode_image(self.params, self.cfg, img.to(self.device), dtype=self.dtype)
+
+    def tokenize(self, txt, context_length=None):
+        ids = self.tokenizer(txt, context_length or self.context_length)
+        return torch.as_tensor(ids, dtype=torch.long, device=self.device)
+
+    def encode_text(self, text_input):
+        tokens = torch.as_tensor(text_input, device=self.device)
+        return clip_encode_text(self.params, self.cfg, tokens, dtype=self.dtype)
+
+
+def _resolve_preset(url: str) -> str | None:
+    if url in CLIP_PRESETS:
+        return url
+    stripped = url.split(":")[-1].split("/")[-1]  # hf-hub:org/name → name
+    # Preset followed only by pretraining/activation tags; architecture
+    # suffixes (ViT-B-16-plus-240 …) are different towers and do not match.
+    harmless = ("quickgelu", "laion", "openai", "datacomp", "dfn", "metaclip", "commonpool", "2b", "400m", "80m")
+    best = None
+    for preset in CLIP_PRESETS:
+        if stripped == preset:
+            return preset
+        if stripped.startswith(preset + "-"):
+            tokens = stripped[len(preset) + 1 :].lower().split("-")
+            if all(any(t.startswith(h) or h.startswith(t) for h in harmless) for t in tokens if t):
+                if best is None or len(preset) > len(best):
+                    best = preset
+    return best

@@ -1,0 +1,160 @@
+"""Lens: orchestration of concept-DB computation, probing and scores.
+
+Counterpart of ``semanticlens_tpu.lens``. The Lens owns the foundation model
+and the concept-DB cache; the component visualizer owns the embed loop
+(``cv._compute_concept_db(fm)``). Cache layout and file names are those of
+the JAX package and the reference, so concept DBs interchange.
+
+Scores and probes run on the foundation model's device. Not ported yet (ROADMAP.md):
+``label_components`` and ``cav_probing``.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
+from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
+from semanticlens_tpu_torch.scores import (
+    clarity_score,
+    cosine_probe,
+    polysemanticity_score,
+    redundancy_score,
+)
+from semanticlens_tpu_torch.utils import safetensors_io
+from semanticlens_tpu_torch.utils.helper import get_fallback_name
+
+logger = logging.getLogger(__name__)
+
+
+def compute_concept_db(cv: AbstractComponentVisualizer, fm: AbstractVLM):
+    """Stateless IoC entry point."""
+    return cv._compute_concept_db(fm)
+
+
+def text_probing(fm: AbstractVLM, query, aggregated_concept_db, templates=None, batch_size=None):
+    """Cosine-probe an aggregated concept DB with natural-language queries.
+
+    With ``templates``, each empty template's embedding is subtracted from
+    the filled one before averaging — the reference's prompt-bias correction,
+    including its ``(q t)`` reshape of a template-outer list.
+    """
+    queries = query if isinstance(query, list) else [query]
+    query_embeds = _embed_text_probes(fm, queries, templates, batch_size)
+    if query_embeds.ndim != 2 or query_embeds.shape[0] != len(queries):
+        raise RuntimeError(f"query embeddings have shape {tuple(query_embeds.shape)}")
+    return _probe(query_embeds, aggregated_concept_db)
+
+
+def image_probing(fm: AbstractVLM, query, aggregated_concept_db):
+    """Cosine-probe with image queries; several images mean-pool into one probe."""
+    with torch.inference_mode():
+        query_embed = fm.encode_image(fm.preprocess(query)).float()
+    if query_embed.shape[0] > 1:
+        query_embed = query_embed.mean(0, keepdim=True)
+    return _probe(query_embed, aggregated_concept_db)
+
+
+def _encode_text_chunked(fm: AbstractVLM, texts: list[str], batch_size: int | None) -> torch.Tensor:
+    """tokenize+encode ``texts`` in ``batch_size`` chunks (one batch if None)."""
+    step = batch_size or len(texts)
+    with torch.inference_mode():
+        return torch.cat([
+            fm.encode_text(fm.tokenize(texts[i : i + step])).float()
+            for i in range(0, len(texts), step)
+        ])
+
+
+def _embed_text_probes(fm: AbstractVLM, query: list[str], templates, batch_size):
+    """Templating and embedding of text probes."""
+    if not templates:
+        return _encode_text_chunked(fm, query, batch_size)
+    query_templated = [t.format(q) for t in templates for q in query]
+    templated = _encode_text_chunked(fm, query_templated, batch_size)
+    empty = _encode_text_chunked(fm, [t.format("") for t in templates], None)
+    q, t = len(query), len(templates)
+    # The list is template-outer / query-inner, but the reference splits the
+    # flat axis query-outer ("(q t) d -> q t d"); kept as is for score parity.
+    return (templated.reshape(q, t, -1) - empty[None]).mean(1)
+
+
+def _probe(query, aggregated_concept_db):
+    """(Q, C) cosine scores as float32 numpy, per layer for a dict DB."""
+
+    def one(bank):
+        bank = torch.as_tensor(bank, dtype=torch.float32, device=query.device)
+        return cosine_probe(query, bank).cpu().numpy()
+
+    if isinstance(aggregated_concept_db, dict):
+        return {key: one(value) for key, value in aggregated_concept_db.items()}
+    return one(aggregated_concept_db)
+
+
+class Lens:
+    """Stateful entry point: holds a foundation model, orchestrates the flow.
+
+    Scores run on ``fm.device``.
+    """
+
+    def __init__(self, fm: AbstractVLM):
+        self.fm: AbstractVLM = fm
+        self.device = fm.device
+        if not hasattr(self.fm, "name"):
+            self.fm.name = get_fallback_name(self.fm)
+
+    def compute_concept_db(self, cv: AbstractComponentVisualizer, **kwargs) -> dict[str, np.ndarray]:
+        """Compute or load-from-cache the concept database for ``cv``.
+
+        Cache key: ``{cv.storage_dir}/concept_database/{fm.name}/concept_db-
+        {metadata-values-minus-dataset-and-model}.safetensors``.
+        """
+        if not cv.caching:
+            return cv._compute_concept_db(self.fm, **kwargs)
+        fdir = cv.storage_dir / "concept_database" / self.fm.name
+        fdir.mkdir(parents=True, exist_ok=True)
+        fname = (
+            "concept_db-"
+            + "-".join([v for k, v in cv.metadata.items() if k not in ["dataset", "model"]])
+            + ".safetensors"
+        )
+        fpath = fdir / fname
+        if fpath.exists():
+            return {k: v.numpy() for k, v in safetensors_io.load_file(fpath).items()}
+        concept_db = cv._compute_concept_db(self.fm, **kwargs)
+        safetensors_io.save_file(
+            {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in concept_db.items()},
+            fpath,
+        )
+        return concept_db
+
+    def text_probing(self, query, aggregated_concept_db, templates=None, batch_size=None):
+        """Wrapper over the stateless :func:`text_probing` with the held FM."""
+        return text_probing(self.fm, query, aggregated_concept_db, templates, batch_size)
+
+    def image_probing(self, query, aggregated_concept_db):
+        """Wrapper over the stateless :func:`image_probing` with the held FM."""
+        return image_probing(self.fm, query, aggregated_concept_db)
+
+    def _score_input(self, value) -> torch.Tensor:
+        """float32 tensor on the Lens device (tensors already there stay)."""
+        return torch.as_tensor(value).to(self.device, torch.float32)
+
+    def _per_layer(self, fn, db):
+        if isinstance(db, dict):
+            return {key: fn(self._score_input(value)) for key, value in db.items()}
+        return fn(self._score_input(db))
+
+    def eval_clarity(self, concept_db):
+        """Clarity per component."""
+        return self._per_layer(clarity_score, concept_db)
+
+    def eval_redundancy(self, aggregated_concept_db):
+        """Redundancy across components."""
+        return self._per_layer(redundancy_score, aggregated_concept_db)
+
+    def eval_polysemanticity(self, concept_db):
+        """Polysemanticity per component."""
+        return self._per_layer(polysemanticity_score, concept_db)

@@ -1,0 +1,6 @@
+"""Subject models with named activation taps."""
+
+from semanticlens_tpu_torch.models.base import SubjectModel, TapCollector
+from semanticlens_tpu_torch.models.resnet import ResNet
+
+__all__ = ["ResNet", "SubjectModel", "TapCollector"]

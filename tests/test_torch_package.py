@@ -1,0 +1,106 @@
+"""Package-level contracts of the port, plus the kernel tests that need the card.
+
+- No module of ``semanticlens_tpu_torch`` imports JAX, the JAX package, or
+  the libraries the card machine lacks (checked on the source, by AST).
+- Entry points default to the CUDA card and raise, never fall back, when
+  there is none.
+- Tests marked ``cuda`` run the hand-written kernel on an NVIDIA card and
+  skip elsewhere (``python -m pytest tests/test_torch_package.py -m cuda``
+  on the card machine).
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix, cosine_similarity_matrix_plain
+
+torch.set_num_threads(2)
+
+PKG = Path(__file__).resolve().parent.parent / "semanticlens_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "semanticlens_tpu", "safetensors", "ml_dtypes", "PIL",
+             "transformers", "sklearn"}
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_imports_no_jax_or_missing_libraries():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [f"{f.relative_to(PKG)}:{line} imports {root}"
+           for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
+    assert not bad, "\n".join(bad)
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops.topk import init_topk
+    from semanticlens_tpu_torch.utils import resolve_device
+
+    _no_cuda(monkeypatch)
+    for make in (resolve_device, lambda: ResNet(depth=18), lambda: OpenClip("ViT-B-32"),
+                 lambda: init_topk(3, 2), lambda: resolve_device("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_scores_on_numpy_default_to_the_card(monkeypatch):
+    from semanticlens_tpu_torch import scores
+
+    _no_cuda(monkeypatch)
+    x = np.ones((3, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scores.redundancy_score(x)
+    assert scores.redundancy_score(torch.from_numpy(x)).device.type == "cpu"  # a tensor keeps its device
+
+
+# --------------------------------------------------------------------------- #
+# On the card
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, n, d", [(8, 2048, 512), (300, 513, 130), (1, 1, 1), (65, 64, 17)])
+def test_cuda_kernel_matches_plain_version(cuda_device, m, n, d):
+    """atol 3e-5: fp32 FMA against the fp32 (non-TF32) matmul of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(m * n + d)
+    x = torch.randn(m, d, generator=g, device=cuda_device)
+    y = torch.randn(n, d, generator=g, device=cuda_device)
+    before = cosine_similarity_matrix.launches
+    out = cosine_similarity_matrix(x, y)
+    torch.cuda.synchronize()
+    assert cosine_similarity_matrix.launches == before + 1
+    torch.testing.assert_close(out, cosine_similarity_matrix_plain(x, y), atol=3e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_zero_rows_and_batch(cuda_device):
+    z = cosine_similarity_matrix(torch.zeros(2, 32, device=cuda_device), torch.ones(3, 32, device=cuda_device))
+    assert torch.equal(z, torch.zeros_like(z))
+    x = torch.randn(3, 70, 33, device=cuda_device)
+    y = torch.randn(3, 90, 33, device=cuda_device)
+    torch.testing.assert_close(cosine_similarity_matrix(x, y), cosine_similarity_matrix_plain(x, y),
+                               atol=3e-5, rtol=0)
