@@ -9,10 +9,13 @@ Phases (any failing check raises; the exit code is then non-zero):
 1. build — compile every hand-written CUDA kernel of the main path with nvcc
    (``semanticlens_tpu_torch/csrc/*.cu``), all sources at once;
 2. kernels — call each kernel's wrapper on the card at the shapes the main
-   path gives it, plus ragged and zero-row cases, and hold the result
-   against its plain PyTorch version (atol 3e-5); time kernel, plain
-   version, and one PyTorch library call computing the same function, and
-   compute each kernel's bound from the card's data-sheet rates;
+   path gives it, plus ragged, zero-row, near-duplicate, wide-norm and
+   threshold cases, and hold the result against its plain PyTorch version
+   (atol 3e-5); time kernel, plain version, and one PyTorch library call
+   computing the same function (device time from the replay of a CUDA graph
+   of 20 launches, with the inputs warm in L2 and with them cold, and the
+   host-loop time beside it); compute each kernel's bounds from the card's
+   data-sheet rates;
 3. reference — the slice at full model width on 16 images in float32 on the
    card, held against the same code on the CPU (plain kernel versions);
 4. quickstart — the README quickstart through the port's entry points at
@@ -21,7 +24,7 @@ Phases (any failing check raises; the exit code is then non-zero):
    at batch 256: the fused Collect+Embed pass, the concept DB, text probing,
    clarity, redundancy and polysemanticity. Kernel launch counts are set to
    0 just before and read just after; every kernel of the path must have
-   launched.
+   launched (K1: both its streaming and its tiled kernel).
 
 Prints the kernels' JSON line and the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -33,6 +36,7 @@ temporary directory; the kernel build goes to the package's ignored
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -44,10 +48,14 @@ sys.dont_write_bytecode = True
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM data-sheet rates (dense): fp32 outside the tensor cores, HBM3.
+# H100 SXM data-sheet rates (dense): fp32 outside the tensor cores, TF32 on
+# the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 ATOL = 3e-5
+GRAPH_LAUNCHES = 20
 
 
 def log(msg: str):
@@ -55,7 +63,11 @@ def log(msg: str):
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` runs, by CUDA events."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back host calls, by CUDA events.
+
+    Host enqueue time is inside this number wherever it exceeds the work on
+    the card (small shapes); :func:`graph_ms` is the device time.
+    """
     for _ in range(warmup):
         fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -66,6 +78,43 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, inputs: list, launches: int = GRAPH_LAUNCHES, replays: int = 5) -> float:
+    """Device time of one ``fn(*args)``: CUDA events around replays of a graph of
+    at least ``launches`` calls, the i-th on ``inputs[i % len(inputs)]``."""
+    launches = max(launches, len(inputs))
+    fn(*inputs[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*inputs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (launches * replays)
+
+
+def cold_l2_inputs(x, y) -> list:
+    """Copies of (x, y) that together hold twice the L2, so that a graph cycling
+    through them finds each launch's inputs evicted: they come from HBM."""
+    per_copy = 4 * (x.numel() + (0 if y is x else y.numel()))
+    copies = []
+    for _ in range(math.ceil(2 * L2_BYTES / per_copy)):
+        xc = x.clone()
+        copies.append((xc, xc if y is x else y.clone()))
+    return copies
 
 
 def phase_build():
@@ -81,67 +130,157 @@ def phase_build():
         log(f"[build] {name}.cu: {entry['seconds']:.2f} s")
         for line in entry["compiler_output"].splitlines():
             log(f"[build]   {line}")
+        # ptxas C7518: wgmma serialized (a branch touches its accumulators in the K loop)
+        if "C7518" in entry["compiler_output"]:
+            raise AssertionError(f"{name}.cu: ptxas serializes wgmma (C7518); see the [build] lines")
     log(f"[build] all kernels: {time.perf_counter() - t0:.2f} s")
 
 
-def cosine_bound_ms(batch, m, n, d) -> tuple[float, str]:
-    flops = batch * (2.0 * m * n * d + 2.0 * (m + n) * d)
-    nbytes = 4.0 * batch * (m * d + n * d + m * n)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def cosine_bounds_ms(batch, m, n, d) -> dict:
+    """K1's three bounds on this card, by name (ms).
+
+    - tf32x3_tensor_core: the dot as three TF32 products (the tiled kernel's
+      arithmetic, as precise as fp32) at 495 TFLOP/s;
+    - fp32_cuda_core: the dot and both norms in fp32 FMA (the streaming
+      kernel's arithmetic) at 67 TFLOP/s;
+    - hbm_bytes: each input read once and the output written once at 3.35 TB/s.
+    """
+    dots = 2.0 * batch * m * n * d
+    return {
+        "tf32x3_tensor_core": 1e3 * 3 * dots / PEAK_TF32_FLOPS,
+        "fp32_cuda_core": 1e3 * (dots + 2.0 * batch * (m + n) * d) / PEAK_FP32_FLOPS,
+        "hbm_bytes": 1e3 * 4.0 * batch * (m * d + n * d + m * n) / PEAK_BYTES_PER_S,
+    }
+
+
+def named_bound(variant, bounds) -> tuple[float, str]:
+    """The bound of the kernel that ran: its arithmetic's time or the bytes', whichever is larger."""
+    ops = bounds["tf32x3_tensor_core" if variant == "tiled" else "fp32_cuda_core"]
+    return (ops, "operations") if ops >= bounds["hbm_bytes"] else (bounds["hbm_bytes"], "bytes")
+
+
+def library_cosine(x, y):
+    """One PyTorch formulation of the same function (cuBLAS fp32 matmul + rescale); timed, never used."""
+    return torch.matmul(x, y.transpose(-1, -2)) * (
+        torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12).reciprocal()
+        * torch.linalg.vector_norm(y, dim=-1).clamp_min(1e-12).reciprocal().unsqueeze(-2)
+    )
 
 
 def phase_kernels(dev):
-    """K1 against its plain version at the main path's shapes and edge cases."""
-    from semanticlens_tpu_torch.ops.cosine import (
-        cosine_similarity_matrix,
-        cosine_similarity_matrix_plain,
-    )
+    """K1 against its plain version at the main path's shapes and edge cases; times and bounds."""
+    from semanticlens_tpu_torch.ops import cosine as k1
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
 
+    def near_duplicate_bank(m, d):  # rows in pairs y, y + 1e-3·noise: redundancy takes its max there
+        base = randn(m // 2, d)
+        return torch.cat([base, base + 1e-3 * randn(m // 2, d)])
+
+    def wide_norms(m, n, d):  # row norms spread over 1e-3 .. 1e3
+        def scale(rows):
+            return 10.0 ** (6.0 * torch.rand(rows, 1, generator=gen, device=dev) - 3.0)
+
+        return randn(m, d) * scale(m), randn(n, d) * scale(n)
+
+    def with_zero_rows(m, n, d):
+        x, y = randn(m, d), randn(n, d)
+        x[::7] = 0.0
+        y[::5] = 0.0
+        return x, y
+
+    t = k1.STREAMING_MAX_M
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bank = near_duplicate_bank(2048, 512)
     cases = {
         "probe 8x1024x512": (randn(8, 512), randn(1024, 512)),
         "probe 8x2048x512": (randn(8, 512), randn(2048, 512)),
         "redundancy 1024x1024x512": (randn(1024, 512),) * 2,
         "redundancy 2048x2048x512": (randn(2048, 512),) * 2,
-        "ragged 300x513x130": (randn(300, 130), randn(513, 130)),
+        "audit 4096x8192x512": (randn(4096, 512), randn(8192, 512)),
+        f"threshold M={t} {t}x2048x512": (randn(t, 512), randn(2048, 512)),
+        f"past threshold M={t + 1} {t + 1}x1024x512": (randn(t + 1, 512), randn(1024, 512)),
+        f"past threshold M*N {t}x2049x512": (randn(t, 512), randn(2049, 512)),
+        "near-duplicates 2048x2048x512": (near_duplicate_bank(2048, 512),) * 2,
+        # near-parallel rows at large D: the tiled kernel's accumulation must not drift with D
+        "near-duplicates D=1280 1024x1024x1280": (near_duplicate_bank(1024, 1280),) * 2,
+        "near-duplicates D=4096 1024x1024x4096": (near_duplicate_bank(1024, 4096),) * 2,
+        "near-duplicates probe 8x2048x512": (bank[:8] + 1e-3 * randn(8, 512), bank),
+        "wide norms 1024x1024x512": wide_norms(1024, 1024, 512),
+        "wide norms probe 16x2048x512": wide_norms(16, 2048, 512),
+        "zero rows 300x200x512": with_zero_rows(300, 200, 512),
         "zero rows 2x3x32": (torch.zeros(2, 32, device=dev), torch.ones(3, 32, device=dev)),
+        "ragged 300x513x130": (randn(300, 130), randn(513, 130)),
+        "D=33 probe 5x700x33": (randn(5, 33), randn(700, 33)),
+        "D=130 probe 12x513x130": (randn(12, 130), randn(513, 130)),
+        "D=513 200x300x513": (randn(200, 513), randn(300, 513)),
+        "D=513 probe 8x1000x513": (randn(8, 513), randn(1000, 513)),
         "batched 3x70x90x33": (randn(3, 70, 33), randn(3, 90, 33)),
+        "ragged batch 2x130x130x64": (randn(2, 130, 64), randn(2, 130, 64)),
     }
-    rows, max_err = [], 0.0
+    timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 1024x1024x512",
+             "redundancy 2048x2048x512", "audit 4096x8192x512")
+    rows, max_err = [], {"streaming": 0.0, "tiled": 0.0}
     for label, (x, y) in cases.items():
-        out = cosine_similarity_matrix(x, y)
+        batch = x.shape[0] if x.ndim == 3 else 1
+        m, d = x.shape[-2:]
+        n = y.shape[-2]
+        variant = k1.plan_launch(batch, m, n, d, num_sms).variant
+        out = k1.cosine_similarity_matrix(x, y)
         torch.cuda.synchronize()
-        ref = cosine_similarity_matrix_plain(x, y)
+        ref = k1.cosine_similarity_matrix_plain(x, y)
         if out.shape != ref.shape or not torch.isfinite(out).all():
             raise AssertionError(f"K1 {label}: shape {tuple(out.shape)} / non-finite output")
         err = float((out - ref).abs().max())
         if not err <= ATOL:
-            raise AssertionError(f"K1 {label}: max abs err {err:.3g} > {ATOL}")
-        max_err = max(max_err, err)
-        batch = x.shape[0] if x.ndim == 3 else 1
-        m, d = x.shape[-2:]
-        n = y.shape[-2]
-        bound, bound_by = cosine_bound_ms(batch, m, n, d)
-        row = {"shape": label, "max_abs_err": err, "bound_ms": bound, "bound_by": bound_by}
-        if label.startswith(("probe", "redundancy")):
-
-            def library(x=x, y=y):
-                return torch.matmul(x, y.T) * (
-                    torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp_min(1e-12).reciprocal()
-                    * torch.linalg.vector_norm(y, dim=1).clamp_min(1e-12).reciprocal()
-                )
-
-            row["ms"] = time_ms(lambda x=x, y=y: cosine_similarity_matrix(x, y))
-            row["plain_ms"] = time_ms(lambda x=x, y=y: cosine_similarity_matrix_plain(x, y))
-            row["library_ms"] = time_ms(library)
-            row["ms_again"] = time_ms(lambda x=x, y=y: cosine_similarity_matrix(x, y))
+            raise AssertionError(f"K1 {label} ({variant}): max abs err {err:.3g} > {ATOL}")
+        max_err[variant] = max(max_err[variant], err)
+        row = {"shape": label, "variant": variant, "max_abs_err": err}
+        if label in timed:
+            bounds = cosine_bounds_ms(batch, m, n, d)
+            bound, bound_by = named_bound(variant, bounds)
+            warm, cold = [(x, y)], cold_l2_inputs(x, y)
+            row.update(
+                ms=time_ms(lambda x=x, y=y: k1.cosine_similarity_matrix(x, y)),
+                plain_ms=time_ms(lambda x=x, y=y: k1.cosine_similarity_matrix_plain(x, y)),
+                library_ms=time_ms(lambda x=x, y=y: library_cosine(x, y)),
+                device_ms=graph_ms(k1.cosine_similarity_matrix, warm),
+                plain_device_ms=graph_ms(k1.cosine_similarity_matrix_plain, warm),
+                library_device_ms=graph_ms(library_cosine, warm),
+                device_ms_cold_l2=graph_ms(k1.cosine_similarity_matrix, cold),
+                library_device_ms_cold_l2=graph_ms(library_cosine, cold),
+                device_ms_again=graph_ms(k1.cosine_similarity_matrix, warm),
+                bounds_ms=bounds, bound_ms=bound, bound_by=bound_by,
+            )
+            del cold
+            # A bytes bound reads each input once from HBM, as the cold-L2 launches
+            # do; an operations bound holds at any cache level.
+            row["share_of_bound_cold_l2"] = bound / row["device_ms_cold_l2"]
+            if bound_by == "operations":
+                row["share_of_bound"] = bound / row["device_ms"]
+            y_bytes = 4.0 * batch * n * d
+            if y_bytes < L2_BYTES:
+                row["note"] = (f"y ({y_bytes / 1e6:.1f} MB) fits in the 50 MB L2: device_ms reads it "
+                               "from L2, device_ms_cold_l2 from HBM")
         rows.append(row)
         log(f"[kernels] K1 {json.dumps(row)}")
+
+    # Error against float64 by D on near-parallel rows: the tiled kernel's
+    # accumulation must not drift with D.
+    for d in (512, 1024, 2048, 4096, 8192):
+        bank = near_duplicate_bank(1024, d)
+        b64 = bank.double()
+        ref = (b64 @ b64.T) / (b64.norm(dim=1, keepdim=True) * b64.norm(dim=1))
+        errs = {name: float((fn(bank, bank).double() - ref).abs().max())
+                for name, fn in (("kernel", k1.cosine_similarity_matrix),
+                                 ("plain", k1.cosine_similarity_matrix_plain))}
+        if not errs["kernel"] <= ATOL:
+            raise AssertionError(f"K1 near-duplicates D={d}: {errs['kernel']:.3g} from float64 > {ATOL}")
+        log(f"[kernels] K1 max abs err vs float64, near-duplicates 1024x1024x{d}: {json.dumps(errs)}")
+
     return rows, max_err
 
 
@@ -272,17 +411,18 @@ def phase_reference(dev):
 
 
 def phase_quickstart(dev):
-    from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
+    from semanticlens_tpu_torch.ops import cosine as k1
 
     n_images, batch = 2048, 256
     images = _make_images(n_images, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
-        cosine_similarity_matrix.launches = 0
+        k1.reset_launch_counts()
         res = run_slice(dev, torch.bfloat16, images, 25, batch, tmp)
-        launches = cosine_similarity_matrix.launches
+        launches = k1.launch_counts()
         check_outputs(res, n_images, 25, "quickstart")
-        if launches < 4:  # probe and redundancy of two layers
-            raise AssertionError(f"K1 launched {launches} times on the main path")
+        # probe (8 prompts → streaming) and redundancy (→ tiled) of two layers
+        if launches["total"] < 4 or launches["streaming"] < 1 or launches["tiled"] < 1:
+            raise AssertionError(f"K1 launches on the main path: {launches}")
         # Steady-state rate of the fused pass, with everything warm (not counted).
         cv, fm = res["cv"], res["fm"]
 
@@ -325,21 +465,27 @@ def main():
     phase_reference(dev)
     launches = phase_quickstart(dev)
 
-    main_row = next(r for r in rows if r["shape"] == "redundancy 2048x2048x512")
-    kernels = {"kernels": [{
-        "name": "cosine_similarity_matrix",
-        "route": "cuda",
-        "source": "semanticlens_tpu_torch/csrc/cosine.cu",
-        "replaces": "semanticlens_tpu/ops/pallas_ops.py:72",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": "2048x2048x512",
-    }]}
+    def entry(variant, shape):
+        row = next(r for r in rows if r["shape"] == shape)
+        if row["variant"] != variant:
+            raise AssertionError(f"K1 {shape} ran the {row['variant']} kernel, not {variant}")
+        return {
+            "name": f"cosine_similarity_matrix[{variant}]",
+            "route": "cuda",
+            "source": "semanticlens_tpu_torch/csrc/cosine.cu",
+            "replaces": "semanticlens_tpu/ops/pallas_ops.py:72",
+            "launches": launches[variant],
+            "launches_k1_total": launches["total"],
+            "max_abs_err": max_err[variant],
+            **{key: row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",  # ms: host loop of 20 calls
+                "device_ms", "plain_device_ms", "library_device_ms",  # CUDA-graph replay, inputs warm in L2
+                "device_ms_cold_l2", "library_device_ms_cold_l2", "share_of_bound_cold_l2", "bounds_ms")},
+            "shape": shape,
+        }
+
+    kernels = {"kernels": [entry("tiled", "redundancy 2048x2048x512"),
+                           entry("streaming", "probe 8x2048x512")]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

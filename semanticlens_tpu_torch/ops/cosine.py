@@ -2,23 +2,54 @@
 
 Replaces the one TPU kernel of the JAX package,
 ``semanticlens_tpu/ops/pallas_ops.py: cosine_similarity_matrix``. The CUDA
-source is ``csrc/cosine.cu`` (design, and what bounds it, are noted there):
-fp32 FMA — not TF32 — because the reference contracts at
-``Precision.HIGHEST`` and its tests hold atol 2e-5/3e-5.
+source is ``csrc/cosine.cu`` (design, and what bounds each kernel, are noted
+there). It holds two kernels behind one entry point, chosen by
+:func:`plan_launch`:
+
+- **streaming** (M ≤ ``STREAMING_MAX_M``: text probing): bound by the bytes
+  of y; exact fp32 FMA on the CUDA cores, x staged once per block in shared
+  memory, y streamed with 16-byte loads. The kernel picks its compiled M
+  bound and its grid (two blocks per SM) itself.
+- **tiled** (larger M: redundancy): bound by arithmetic; 3×TF32 on the
+  tensor cores (``wgmma``, operands split into TF32 big and small halves,
+  three products summed in fp32), fed by TMA, with the tensor cores'
+  partial sums flushed to a rounded-to-nearest sum every 512 of D. That
+  holds the reference's ``Precision.HIGHEST`` tolerance (atol 3e-5) at any
+  D; a single TF32 pass does not (tests/test_torch_cosine.py).
+
+Both need D to be a multiple of 4 (16-byte rows for TMA and vector loads):
+the wrapper pads D with zeros, which changes neither dots nor norms.
 
 A CPU tensor takes :func:`cosine_similarity_matrix_plain`; a CUDA tensor
-launches the kernel or raises. ``cosine_similarity_matrix.launches`` counts
-kernel launches (never plain-version calls), so a run can show that its
-main path went through the kernel.
+launches one of the two kernels or raises. Each variant counts its launches
+(``launch_counts()``), and ``cosine_similarity_matrix.launches`` is their
+sum (never plain-version calls), so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 _EPS = 1e-24
+
+# The streaming kernel serves M ≤ STREAMING_MAX_M (the largest M it is
+# compiled for) with M·N ≤ STREAMING_MAX_MN, and x no larger than
+# STREAMING_MAX_X_BYTES (staged in shared memory by every block). Its time
+# grows with M·N (CUDA-core FMAs fed from shared memory); the tiled kernel's
+# stays flat until its grid fills the card. sweep_k1.py's threshold sweep
+# over M and N is the measurement behind these numbers.
+STREAMING_MAX_M = 32
+STREAMING_MAX_MN = 2**16
+STREAMING_MAX_X_BYTES = 160 * 1024
+# Tiles of cosine.cu's tiled kernel: config id → (block rows, block cols).
+TILE_CONFIGS = {0: (128, 256), 1: (64, 128)}
+_INT32_MAX = 2**31 - 1
 
 
 def cosine_similarity_matrix_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -31,27 +62,115 @@ def cosine_similarity_matrix_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Te
     return dots * x_inv * y_inv
 
 
-def _kernel_fn():
-    from semanticlens_tpu_torch.utils import cuda_build
+@dataclass(frozen=True)
+class LaunchPlan:
+    """Which kernel a (batch, M, N, D) problem takes, and how it is launched."""
 
-    lib = cuda_build.load("cosine")
-    fn = lib.cosine_similarity_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    variant: str  # "streaming" or "tiled"
+    d_pad: int  # D rounded up to a multiple of 4
+    config: int = -1  # tiled: key of TILE_CONFIGS
 
 
-def _check_int32(name: str, value: int):
-    if value > 2**31 - 1:
-        raise ValueError(f"{name}={value} exceeds the kernel's int32 range")
+def _tiled_config(m: int, n: int, num_sms: int) -> int:
+    """The tile that finishes first: fewest tile-areas on the busiest SM, then the largest tile."""
+
+    def cost(cfg):
+        bm, bn = TILE_CONFIGS[cfg]
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        return math.ceil(tiles / num_sms) * bm * bn, -bm * bn
+
+    return min(TILE_CONFIGS, key=cost)
+
+
+def plan_launch(batch: int, m: int, n: int, d: int, num_sms: int) -> LaunchPlan:
+    """The launch of K1 for (batch, M, D) × (batch, N, D) on a card with ``num_sms`` SMs."""
+    for name, v in (("batch", batch), ("M", m), ("N", n), ("D", d)):
+        if v > _INT32_MAX:
+            raise ValueError(f"{name}={v} exceeds the kernel's int32 range")
+    if batch > 65535:
+        raise ValueError(f"batch={batch} exceeds the kernel's grid limit of 65535")
+    d_pad = -(-d // 4) * 4
+    if m <= STREAMING_MAX_M and m * n <= STREAMING_MAX_MN and m * d_pad * 4 <= STREAMING_MAX_X_BYTES:
+        return LaunchPlan("streaming", d_pad)
+    config = _tiled_config(m, n, num_sms)
+    if math.ceil(m / TILE_CONFIGS[config][0]) > 65535:
+        raise ValueError(f"M={m} exceeds the tiled kernel's grid limit")
+    return LaunchPlan("tiled", d_pad, config=config)
+
+
+def pad_features(a: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """Zero-pad the last axis to ``d_pad``: dots and norms are unchanged."""
+    return a if a.shape[-1] == d_pad else F.pad(a, (0, d_pad - a.shape[-1]))
+
+
+_FNS: dict = {}
+
+
+def _kernel_fns() -> dict:
+    """The C entry points of ``csrc/cosine.cu``, built and resolved once."""
+    if not _FNS:
+        from semanticlens_tpu_torch.utils import cuda_build
+
+        lib = cuda_build.load("cosine")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        tiled = lib.cosine_tiled_f32
+        tiled.argtypes = [p, p, p, i, i, i, i, i, p]
+        tiled.restype = i
+        streaming = lib.cosine_streaming_f32
+        streaming.argtypes = [p, p, p, i, i, i, i, p]
+        streaming.restype = i
+        _FNS.update(tiled=tiled, streaming=streaming)
+    return _FNS
+
+
+_ERRORS = {-1: "cuTensorMapEncodeTiled not found in the CUDA driver",
+           -2: "the CUDA driver refused a TMA tensor map",
+           -3: "no such kernel configuration, or M too large for the streaming kernel"}
+
+
+def _check(err: int, variant: str):
+    if err != 0:
+        what = _ERRORS.get(err, f"cudaError {err}")
+        raise RuntimeError(f"cosine {variant} kernel launch failed: {what}")
+
+
+def _launch_streaming(x, y, out, plan: LaunchPlan, stream: int):
+    batch, m, d = x.shape
+    err = _kernel_fns()["streaming"](x.data_ptr(), y.data_ptr(), out.data_ptr(), batch, m, y.shape[1], d, stream)
+    _check(err, "streaming")
+    _launch_streaming.launches += 1
+    cosine_similarity_matrix.launches += 1
+
+
+def _launch_tiled(x, y, out, plan: LaunchPlan, stream: int):
+    batch, m, d = x.shape
+    err = _kernel_fns()["tiled"](x.data_ptr(), y.data_ptr(), out.data_ptr(), batch, m, y.shape[1], d,
+                                 plan.config, stream)
+    _check(err, "tiled")
+    _launch_tiled.launches += 1
+    cosine_similarity_matrix.launches += 1
+
+
+_launch_streaming.launches = 0
+_launch_tiled.launches = 0
+_LAUNCH = {"streaming": _launch_streaming, "tiled": _launch_tiled}
+
+
+def _kernel_operand(a: torch.Tensor, rows: int, d_pad: int) -> torch.Tensor:
+    """(batch, rows, d_pad) float32, contiguous and 16-byte aligned; no copy when already so."""
+    if a.dtype != torch.float32:
+        a = a.to(torch.float32)
+    a = pad_features(a, d_pad)
+    if not a.is_contiguous() or a.data_ptr() % 16:
+        a = a.clone(memory_format=torch.contiguous_format)
+    return a.reshape(-1, rows, d_pad)
 
 
 def cosine_similarity_matrix_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Launch K1 on CUDA tensors: (..., M, D) × (..., N, D) → (..., M, N) float32.
 
-    Leading dimensions must match (they become the kernel's batch grid axis).
+    Leading dimensions must match (they become the kernel's batch grid
+    axis). :func:`plan_launch` picks the kernel from the shape.
     """
     if x.device.type != "cuda" or y.device != x.device:
         raise ValueError(f"K1 needs both operands on one CUDA device, got {x.device} and {y.device}")
@@ -61,28 +180,24 @@ def cosine_similarity_matrix_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Ten
     lead = x.shape[:-2]
     m, d = x.shape[-2:]
     n = y.shape[-2]
-    xc = x.to(torch.float32).contiguous().reshape(-1, m, d)
-    yc = y.to(torch.float32).contiguous().reshape(-1, n, d)
-    batch = xc.shape[0]
-    for name, v in (("batch", batch), ("M", m), ("N", n), ("D", d)):
-        _check_int32(name, v)
-    out = torch.empty((batch, m, n), dtype=torch.float32, device=x.device)
+    batch = math.prod(lead)
+    out = torch.empty((*lead, m, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
-        return out.reshape(*lead, m, n)
-    fn = _kernel_fn()
-    err = fn(xc.data_ptr(), yc.data_ptr(), out.data_ptr(), batch, m, n, d, m * d, n * d,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cosine kernel launch failed: cudaError {err}")
-    cosine_similarity_matrix.launches += 1
-    return out.reshape(*lead, m, n)
+        return out
+    if d == 0:
+        return out.zero_()  # no features: every row is a zero row
+    plan = plan_launch(batch, m, n, d, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    xk = _kernel_operand(x, m, plan.d_pad)
+    yk = _kernel_operand(y, n, plan.d_pad)
+    _LAUNCH[plan.variant](xk, yk, out, plan, torch.cuda.current_stream(x.device).cuda_stream)
+    return out
 
 
 def cosine_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Fused ``x̂ @ ŷᵀ`` for (..., M, D) × (..., N, D) → (..., M, N) float32.
 
     Zero rows give 0 similarity. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (no fallback).
+    tensors launch a kernel (no fallback).
     """
     if x.device.type == "cpu" and y.device.type == "cpu":
         return cosine_similarity_matrix_plain(x, y)
@@ -90,3 +205,13 @@ def cosine_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 cosine_similarity_matrix.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, per variant and in total."""
+    return {"streaming": _launch_streaming.launches, "tiled": _launch_tiled.launches,
+            "total": cosine_similarity_matrix.launches}
+
+
+def reset_launch_counts():
+    _launch_streaming.launches = _launch_tiled.launches = cosine_similarity_matrix.launches = 0

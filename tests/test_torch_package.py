@@ -1,7 +1,8 @@
 """Package-level contracts of the port, plus the kernel tests that need the card.
 
-- No module of ``semanticlens_tpu_torch`` imports JAX, the JAX package, or
-  the libraries the card machine lacks (checked on the source, by AST).
+- No module of ``semanticlens_tpu_torch``, and none of the scripts that run
+  it on the card, imports JAX, the JAX package, or the libraries the card
+  machine lacks (checked on the source, by AST).
 - Entry points default to the CUDA card and raise, never fall back, when
   there is none.
 - Tests marked ``cuda`` run the hand-written kernel on an NVIDIA card and
@@ -38,7 +39,8 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_or_missing_libraries():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
-    bad = [f"{f.relative_to(PKG)}:{line} imports {root}"
+    files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "sweep_k1.py")]
+    bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
 
@@ -83,9 +85,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m, n, d", [(8, 2048, 512), (300, 513, 130), (1, 1, 1), (65, 64, 17)])
+@pytest.mark.parametrize("m, n, d", [(8, 2048, 512), (300, 513, 130), (1, 1, 1), (65, 64, 17),
+                                     (32, 2048, 512), (33, 1024, 512), (32, 2049, 512),
+                                     (70, 90, 33), (8, 700, 33), (12, 513, 130), (200, 300, 513),
+                                     (8, 1000, 513), (2048, 2048, 512)])
 def test_cuda_kernel_matches_plain_version(cuda_device, m, n, d):
-    """atol 3e-5: fp32 FMA against the fp32 (non-TF32) matmul of the plain version."""
+    """atol 3e-5: the streaming kernel's fp32 FMA and the tiled kernel's 3×TF32 against
+    the fp32 (non-TF32) matmul of the plain version, at and past the streaming/tiled
+    threshold and at D that is not a multiple of 4."""
     g = torch.Generator(device=cuda_device).manual_seed(m * n + d)
     x = torch.randn(m, d, generator=g, device=cuda_device)
     y = torch.randn(n, d, generator=g, device=cuda_device)
@@ -104,3 +111,25 @@ def test_cuda_kernel_zero_rows_and_batch(cuda_device):
     y = torch.randn(3, 90, 33, device=cuda_device)
     torch.testing.assert_close(cosine_similarity_matrix(x, y), cosine_similarity_matrix_plain(x, y),
                                atol=3e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_ragged_batch_and_near_duplicates(cuda_device):
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(2, 130, 64, generator=g, device=cuda_device)
+    y = torch.randn(2, 130, 64, generator=g, device=cuda_device)
+    torch.testing.assert_close(cosine_similarity_matrix(x, y), cosine_similarity_matrix_plain(x, y),
+                               atol=3e-5, rtol=0)
+    for d in (512, 4096):  # near-parallel rows: the tiled kernel's accumulation must not drift with D
+        base = torch.randn(512, d, generator=g, device=cuda_device)
+        bank = torch.cat([base, base + 1e-3 * torch.randn(512, d, generator=g, device=cuda_device)])
+        for probe in (bank[:8], bank):  # streaming, tiled
+            torch.testing.assert_close(cosine_similarity_matrix(probe, bank),
+                                       cosine_similarity_matrix_plain(probe, bank), atol=3e-5, rtol=0)
+    k1.reset_launch_counts()
+    cosine_similarity_matrix(bank[:8], bank)
+    cosine_similarity_matrix(bank, bank)
+    torch.cuda.synchronize()
+    assert k1.launch_counts() == {"streaming": 1, "tiled": 1, "total": 2}
