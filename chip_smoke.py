@@ -24,7 +24,33 @@ Phases (any failing check raises; the exit code is then non-zero):
    at batch 256: the fused Collect+Embed pass, the concept DB, text probing,
    clarity, redundancy and polysemanticity. Kernel launch counts are set to
    0 just before and read just after; every kernel of the path must have
-   launched (K1: both its streaming and its tiled kernel).
+   launched (K1: both its streaming and its tiled kernel);
+5. analyze — README step 5 and the audit scores on the quickstart's DB:
+   ``label_components`` over a 1000-word vocabulary (cosine and soft-WPMI
+   from the collected evidence and embedding table), ``match_components``,
+   ``semantic_coverage``, ``drift_score``, ``null_calibrated_polysemanticity``,
+   and ``topk_cosine_search`` at audit scale (1024 queries × 1,048,576
+   components × 512, k=32) with its device time in K1 and in the top-k
+   merge apart (a ``torch.profiler`` trace of the same call); the labels
+   and the search held against dense K1 + stable sort, the merge against a
+   stable sort merge on the same blocks (tied rows included), and timed
+   beside it;
+6. serve — ``SearchService`` over the quickstart's DB behind ``serve`` on
+   loopback: 200 sequential and 8 concurrent clients' text searches
+   (latency p50/p99), ``/label`` cold and cached, ``/healthz``, the 501 of
+   ``POST /image_search``; served ids equal to offline probing;
+7. resume — a fused sweep of 1024 images checkpointed every 512 and
+   preempted after the batch at sample 768, resumed, and held identical to
+   an uninterrupted sweep (ids, values, embedding table).
+
+After the build, ``[env]`` reports whether ``g++``, libjpeg and the CUDA
+toolkit's nvJPEG exist (what a native JPEG decoder would need).
+
+Each path's K1 launches are counted from 0 and printed per path; the
+analyze path must launch the tiled kernel, the serve path the streaming
+kernel at least twice per text request (one per layer). Every (batch, M,
+N, D) that K1 launches on the paths of phases 4–7 is recorded, and each
+that phase 2 did not check is held against the plain version afterwards.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -35,13 +61,20 @@ temporary directory; the kernel build goes to the package's ignored
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 sys.dont_write_bytecode = True
 
@@ -56,6 +89,10 @@ PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6
 ATOL = 3e-5
 GRAPH_LAUNCHES = 20
+# topk_cosine_search at audit scale: 2 GiB of fp32 components.
+AUDIT = {"queries": 1024, "components": 1 << 20, "k": 32, "chunk": 65536}
+# The preempted sweep: checkpoints every 512 samples, stops after the batch at 768.
+RESUME = {"images": 1024, "batch": 256, "checkpoint": 512, "crash_at": 768}
 
 
 def log(msg: str):
@@ -220,14 +257,25 @@ def phase_kernels(dev):
         "D=513 probe 8x1000x513": (randn(8, 513), randn(1000, 513)),
         "batched 3x70x90x33": (randn(3, 70, 33), randn(3, 90, 33)),
         "ragged batch 2x130x130x64": (randn(2, 130, 64), randn(2, 130, 64)),
+        # the audit-and-serve paths: an audit chunk, labels and soft-WPMI over 1000
+        # words, match, /label over 64 components, one text query per layer
+        "audit chunk 1024x65536x512": (randn(1024, 512), randn(65536, 512)),
+        "labels 1024x1000x512": (randn(1024, 512), randn(1000, 512)),
+        "labels 2048x1000x512": (randn(2048, 512), randn(1000, 512)),
+        "soft-WPMI chunk 4096x1000x512": (randn(4096, 512), randn(1000, 512)),
+        "match 1024x2048x512": (randn(1024, 512), randn(2048, 512)),
+        "serve label 64x1000x512": (randn(64, 512), randn(1000, 512)),
+        "serve query 1x1024x512": (randn(1, 512), randn(1024, 512)),
+        "serve query 1x2048x512": (randn(1, 512), randn(2048, 512)),
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512")
-    rows, max_err = [], {"streaming": 0.0, "tiled": 0.0}
+    rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
         m, d = x.shape[-2:]
         n = y.shape[-2]
+        checked.add((batch, m, n, d))
         variant = k1.plan_launch(batch, m, n, d, num_sms).variant
         out = k1.cosine_similarity_matrix(x, y)
         torch.cuda.synchronize()
@@ -281,7 +329,48 @@ def phase_kernels(dev):
             raise AssertionError(f"K1 near-duplicates D={d}: {errs['kernel']:.3g} from float64 > {ATOL}")
         log(f"[kernels] K1 max abs err vs float64, near-duplicates 1024x1024x{d}: {json.dumps(errs)}")
 
-    return rows, max_err
+    return rows, max_err, checked
+
+
+@contextlib.contextmanager
+def recording_k1_shapes(shapes: set):
+    """Add the (batch, M, N, D) of every K1 launch made inside to ``shapes``."""
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    plan_launch = k1.plan_launch
+
+    def recording(batch, m, n, d, num_sms):
+        shapes.add((batch, m, n, d))
+        return plan_launch(batch, m, n, d, num_sms)
+
+    k1.plan_launch = recording
+    try:
+        yield
+    finally:
+        k1.plan_launch = plan_launch
+
+
+def phase_main_path_shapes(dev, shapes: set, checked: set, max_err: dict):
+    """K1 against its plain version at every shape the main paths launched that
+    ``phase_kernels`` did not check (data-dependent ones, such as the unique
+    evidence rows of soft-WPMI), on seeded random inputs (not counted)."""
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    extra = sorted(shapes - checked)
+    for batch, m, n, d in extra:
+        lead = (batch,) if batch > 1 else ()
+        x = torch.randn(*lead, m, d, generator=gen, device=dev)
+        y = torch.randn(*lead, n, d, generator=gen, device=dev)
+        variant = k1.plan_launch(batch, m, n, d, num_sms).variant
+        err = float((k1.cosine_similarity_matrix(x, y) - k1.cosine_similarity_matrix_plain(x, y)).abs().max())
+        if not err <= ATOL:
+            raise AssertionError(f"K1 main-path shape {batch}x{m}x{n}x{d} ({variant}): max abs err {err:.3g} > {ATOL}")
+        max_err[variant] = max(max_err[variant], err)
+    log(f"[kernels] K1 shapes launched on the main paths: {len(shapes)}, all held against the plain "
+        f"version ({len(shapes & checked)} among the cases above, {len(extra)} more: "
+        f"{json.dumps([list(e) for e in extra])})")
 
 
 def _make_images(n, seed=0, size=256):
@@ -435,6 +524,7 @@ def phase_quickstart(dev):
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
     times = res["times"]
+    res["warm_s"] = warm_s
     summary = {
         "images": n_images,
         "batch": batch,
@@ -446,7 +536,409 @@ def phase_quickstart(dev):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     log(f"[quickstart] {json.dumps(summary)}")
+    return launches, res
+
+
+def vocabulary(n: int = 1000) -> list[str]:
+    """A synthetic vocabulary of ``n`` distinct words (the hash tokenizer needs no files)."""
+    stems = ("dog", "cat", "car", "tree", "bird", "house", "boat", "sky", "road", "flower")
+    return [f"{stems[i % len(stems)]} {i // len(stems)}" for i in range(n)]
+
+
+def dense_topk(x, y, k):
+    """Dense K1 + stable descending sort: the reference for every streamed top-k."""
+    from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
+
+    vals, idx = torch.sort(cosine_similarity_matrix(x, y), dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def sort_merge(best_vals, best_idx, sim, start):
+    """The plain version of ``scores._merge_topk``: a stable descending sort of the
+    running state followed by the block of columns [start, start + c), cut to k."""
+    k = best_vals.shape[1]
+    col = torch.arange(start, start + sim.shape[1], dtype=torch.int32, device=sim.device)
+    all_vals = torch.cat([best_vals, sim], dim=1)
+    all_idx = torch.cat([best_idx, col[None, :].expand(sim.shape[0], -1)], dim=1)
+    vals, order = torch.sort(all_vals, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(all_idx, 1, order[:, :k])
+
+
+def k1_and_rest_device_ms(fn):
+    """Device time of ``fn()`` from a ``torch.profiler`` trace: (K1's kernels, every other kernel) in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    k1_us = rest_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if "cosine_" in e.key:
+            k1_us += us
+        else:
+            rest_us += us
+    if not (k1_us > 0 and rest_us > 0):
+        raise AssertionError(f"the profiler saw no device time (K1 {k1_us} us, other kernels {rest_us} us)")
+    return k1_us / 1e3, rest_us / 1e3
+
+
+def phase_analyze(dev, res):
+    """README step 5 and the audit scores on the quickstart's DB; K1 counted from 0."""
+    from semanticlens_tpu_torch import scores
+    from semanticlens_tpu_torch.lens import _embed_vocabulary
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    lens, cv, fm, db = res["lens"], res["cv"], res["fm"], res["concept_db"]
+    agg = {k: v.mean(1) for k, v in db.items()}
+    words, templates = vocabulary(1000), ["a photo of a {}"]
+    evidence = {k: cv.get_max_reference(k) for k in db}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_audit, q_audit, k_audit, chunk = AUDIT["components"], AUDIT["queries"], AUDIT["k"], AUDIT["chunk"]
+    audit_bank = torch.randn(n_audit, 512, generator=gen, device=dev)  # 2 GiB of fp32 components
+    audit_queries = torch.randn(q_audit, 512, generator=gen, device=dev)
+    torch.cuda.synchronize()
+
+    times = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t
+        return out
+
+    k1.reset_launch_counts()
+    labels = timed("label_cosine_s", lambda: lens.label_components(words, agg, top_m=5, templates=templates))
+    wpmi = timed("label_wpmi_s", lambda: lens.label_components(
+        words, agg, top_m=5, templates=templates, scoring="wpmi", evidence_ids=evidence,
+        image_embeds=cv.embedding_table))
+    match_idx, match_cos = timed("match_s", lambda: scores.match_components(agg["layer3"], agg["layer4"], device=dev))
+    coverage = timed("coverage_s", lambda: scores.semantic_coverage(agg["layer3"], agg["layer4"], device=dev))
+    drift = timed("drift_s", lambda: {k: scores.drift_score(v, v, device=dev) for k, v in db.items()})
+    npi = timed("npi_s", lambda: scores.null_calibrated_polysemanticity(db["layer4"], cv.embedding_table,
+                                                                          device=dev))
+    audit_vals, audit_idx = timed("audit_topk_s", lambda: scores.topk_cosine_search(
+        audit_queries, audit_bank, k_audit, chunk_size=chunk))
+    launches = k1.launch_counts()
+    # cosine labels 1 and soft-WPMI 2 (dataset mean, evidence rows) per layer, match,
+    # coverage, and one per chunk of the audit search
+    if launches["tiled"] < 2 * (1 + 2) + 2 + n_audit // chunk:
+        raise AssertionError(f"[analyze] K1 launches: {launches}")
+
+    # Shapes and finiteness.
+    for layer in agg:
+        c = agg[layer].shape[0]
+        for name, (w, v) in (("cosine", labels[layer]), ("wpmi", wpmi[layer])):
+            if len(w) != c or any(len(row) != 5 for row in w) or v.shape != (c, 5) or not np.isfinite(v).all():
+                raise AssertionError(f"[analyze] {name} labels of {layer}")
+        d = drift[layer].cpu().numpy()
+        live = np.abs(agg[layer]).sum(1) > 0
+        if not (np.isnan(d) == ~live).all() or np.abs(d[live]).max() > 1e-5:
+            raise AssertionError(f"[analyze] drift(db, db) of {layer}: max {np.abs(d[live]).max()}")
+    if match_idx.shape != (agg["layer3"].shape[0],) or not torch.isfinite(match_cos[match_idx >= 0]).all() or not 0 <= coverage <= 1:
+        raise AssertionError("[analyze] match / coverage")
+    npi_v, poly, null_mean, null_std = npi
+    if npi_v.shape != (agg["layer4"].shape[0],) or not np.isfinite(poly).all() or not np.isfinite([null_mean, null_std]).all():
+        raise AssertionError("[analyze] null-calibrated polysemanticity")
+    if audit_idx.shape != (q_audit, k_audit) or not torch.isfinite(audit_vals).all():
+        raise AssertionError("[analyze] audit top-k")
+
+    # On the card against dense K1 + stable sort (not counted).
+    vocab_embeds = _embed_vocabulary(fm, words, templates, 1024)
+    for layer in agg:
+        bank = torch.as_tensor(agg[layer], device=dev)
+        vals, idx = dense_topk(bank, vocab_embeds, 5)
+        if labels[layer][0] != [[words[j] for j in row] for row in idx.tolist()]:
+            raise AssertionError(f"[analyze] cosine labels of {layer} differ from dense K1 + sort")
+        if not np.abs(labels[layer][1] - vals.cpu().numpy()).max() <= 1e-6:
+            raise AssertionError(f"[analyze] cosine label scores of {layer}")
+    small = audit_bank[: 2 * chunk]
+    got_vals, got_idx = scores.topk_cosine_search(audit_queries, small, k_audit, chunk_size=chunk)
+    ref_vals, ref_idx = dense_topk(audit_queries, small, k_audit)
+    search_err = float((got_vals - ref_vals).abs().max())
+    if not torch.equal(got_idx, ref_idx.to(torch.int32)) or search_err > 1e-6:
+        raise AssertionError(f"[analyze] topk_cosine_search vs dense K1 + sort: err {search_err}")
+    # The merge where duplicated and dead rows tie at the k-th value, chunk by chunk
+    # against its plain version on the same K1 blocks.
+    tie_bank = audit_bank[:4096].clone()
+    tie_bank[::3] = 0.0
+    tie_bank[1::3] = tie_bank[1]
+    state = plain_state = (torch.full((q_audit, k_audit), -torch.inf, device=dev),
+                           torch.full((q_audit, k_audit), -1, dtype=torch.int32, device=dev))
+    for start in range(0, tie_bank.shape[0], 1024):
+        block = k1.cosine_similarity_matrix(audit_queries, tie_bank[start : start + 1024])
+        state = scores._merge_topk(*state, block, start)
+        plain_state = sort_merge(*plain_state, block, start)
+    if not (torch.equal(state[0], plain_state[0]) and torch.equal(state[1], plain_state[1])):
+        raise AssertionError("[analyze] the merge differs from a stable sort merge on tied rows")
+
+    # The split of the audit search's device time, from a trace of the same call.
+    k1_ms, merge_ms = k1_and_rest_device_ms(
+        lambda: scores.topk_cosine_search(audit_queries, audit_bank, k_audit, chunk_size=chunk))
+    # One merge of an audit chunk into the search's state, against its plain version (a
+    # stable sort), on the same inputs.
+    block = k1.cosine_similarity_matrix(audit_queries, audit_bank[:chunk])
+    merged = scores._merge_topk(audit_vals, audit_idx, block, n_audit)
+    plain = sort_merge(audit_vals, audit_idx, block, n_audit)
+    if not (torch.equal(merged[0], plain[0]) and torch.equal(merged[1], plain[1])):
+        raise AssertionError("[analyze] the audit merge differs from a stable sort merge")
+    merge_chunk_ms = time_ms(lambda: scores._merge_topk(audit_vals, audit_idx, block, n_audit))
+    sort_merge_chunk_ms = time_ms(lambda: sort_merge(audit_vals, audit_idx, block, n_audit))
+    summary = {
+        "vocabulary": len(words), "k1_launches": launches,
+        **{k: round(v, 4) for k, v in times.items()},
+        "audit": {"queries": q_audit, "components": n_audit, "dim": audit_bank.shape[1], "k": k_audit, "chunk": chunk,
+                  "k1_device_ms": k1_ms, "merge_device_ms": merge_ms, "merge_share": merge_ms / (k1_ms + merge_ms),
+                  "merge_chunk_ms": merge_chunk_ms, "sort_merge_chunk_ms": sort_merge_chunk_ms,
+                  "k1_bound_ms": cosine_bounds_ms(1, q_audit, n_audit, 512)["tf32x3_tensor_core"]},
+        "topk_vs_dense_max_abs_err": search_err,
+        "coverage_layer3_in_layer4": coverage,
+        "npi": {"null_mean": null_mean, "null_std": null_std, "median": float(np.nanmedian(npi_v))},
+    }
+    log(f"[analyze] {json.dumps(summary)}")
+    del audit_bank
+    torch.cuda.empty_cache()
     return launches
+
+
+def _http_json(url, data=None, method=None):
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _percentiles(ms: list[float]) -> dict:
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)), "n": len(ms)}
+
+
+def phase_serve(dev, res):
+    """SearchService over the quickstart's DB on loopback; K1 counted from 0 after warm-up."""
+    from semanticlens_tpu_torch.lens import text_probing
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.serve import SearchService, serve
+
+    fm = res["fm"]
+    agg = {k: v.mean(1) for k, v in res["concept_db"].items()}
+    templates = ["a photo of a {}"]
+    t0 = time.perf_counter()
+    service = SearchService(fm, agg, templates=templates)
+    start_s = time.perf_counter() - t0
+    server, thread = serve(service, port=0, background=True)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    words = vocabulary(200)
+    try:
+        k1.reset_launch_counts()
+        seq_ms, per_request = [], []
+        for i in range(200):
+            before = k1.launch_counts()["streaming"]
+            t = time.perf_counter()
+            status, out = _http_json(f"{base}/text_search?q={urllib.parse.quote(words[i])}&k=5")
+            seq_ms.append(1e3 * (time.perf_counter() - t))
+            per_request.append(k1.launch_counts()["streaming"] - before)
+            if status != 200 or sorted(out["results"]) != ["layer3", "layer4"]:
+                raise AssertionError(f"[serve] text_search: {status} {out}")
+        if min(per_request) < 2:
+            raise AssertionError(f"[serve] K1 streaming launches per text request: {min(per_request)} < 2")
+
+        conc_ms, errors = [], []
+        lock = threading.Lock()
+
+        def client(c):
+            try:
+                for i in range(25):
+                    t = time.perf_counter()
+                    status, _ = _http_json(f"{base}/text_search?q={urllib.parse.quote(words[(7 * c + i) % 200])}&k=5")
+                    with lock:
+                        conc_ms.append(1e3 * (time.perf_counter() - t))
+                    if status != 200:
+                        raise AssertionError(f"status {status}")
+            except Exception as exc:  # raised again below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        conc_wall = time.perf_counter() - t
+        if errors or len(conc_ms) != 200:
+            raise AssertionError(f"[serve] concurrent clients: {errors[:3]}")
+
+        # The layers under a request: the HTTP round trip alone, and the service in-process.
+        healthz_ms, inproc_ms = [], []
+        for i in range(50):
+            t = time.perf_counter()
+            _http_json(f"{base}/healthz")
+            healthz_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            service.text_search(words[i], k=5)
+            inproc_ms.append(1e3 * (time.perf_counter() - t))
+
+        label_url = f"{base}/label?words={urllib.parse.quote(','.join(vocabulary(1000)))}&top_m=3&max_components=64"
+        label_ms = []
+        for _ in range(2):  # cold (embeds the vocabulary), then cached
+            t = time.perf_counter()
+            status, out = _http_json(label_url)
+            label_ms.append(1e3 * (time.perf_counter() - t))
+            if status != 200 or len(out["results"]["layer4"]) != 64 or not out["truncated"]:
+                raise AssertionError(f"[serve] label: {status}")
+        if _http_json(f"{base}/healthz") != (200, {"ok": True, "layers": ["layer3", "layer4"]}):
+            raise AssertionError("[serve] healthz")
+        status, out = _http_json(f"{base}/image_search?k=5", data=b"\xff\xd8\xff" + bytes(64), method="POST")
+        if status != 501 or "queue 1 item 5" not in out["error"]:
+            raise AssertionError(f"[serve] POST /image_search: {status} {out}")
+        launches = k1.launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+    # Served results equal offline probing + stable top-k on the same DB (not counted).
+    max_diff = 0.0
+    for query in words[:20]:
+        served = service.text_search(query, k=5)
+        probe = text_probing(fm, query, agg, templates=templates)
+        for layer, scores in probe.items():
+            order = np.argsort(-scores[0], kind="stable")[:5]
+            if served[layer]["ids"] != order.tolist():
+                raise AssertionError(f"[serve] {query!r} {layer}: served ids differ from offline probing")
+            max_diff = max(max_diff, float(np.abs(np.asarray(served[layer]["scores"]) - scores[0][order]).max()))
+    service.close()
+    if max_diff > 1e-6:
+        raise AssertionError(f"[serve] served scores differ from offline probing by {max_diff}")
+    summary = {
+        "start_s": round(start_s, 4), "sequential": _percentiles(seq_ms),
+        "in_process_text_search": _percentiles(inproc_ms), "http_healthz": _percentiles(healthz_ms),
+        "concurrent_8_clients": {**_percentiles(conc_ms), "requests_per_s": 200 / conc_wall},
+        "label_1000_words_64_components_ms": {"cold": label_ms[0], "cached": label_ms[1]},
+        "k1_streaming_launches_per_text_request": min(per_request), "k1_launches": launches,
+        "max_score_diff_vs_offline_probing": max_diff,
+    }
+    log(f"[serve] {json.dumps(summary)}")
+    return launches
+
+
+class PreemptedSweep:
+    """The quickstart's images as a dataset that streams its own batches and raises once it
+    has yielded the batch at sample ``crash_at`` (a preempted sweep)."""
+
+    def __init__(self, images, name, crash_at):
+        self.images_, self.name, self.crash_at = images, name, crash_at
+
+    def __len__(self):
+        return len(self.images_)
+
+    def __getitem__(self, i):
+        return self.images_[i], 0
+
+    def iter_batches(self, batch_size, pad_last=True, start_index=0):
+        from semanticlens_tpu_torch.data import ArrayDataset, iter_batches
+
+        for batch in iter_batches(ArrayDataset(self.images_), batch_size, start_index=start_index):
+            yield batch
+            if batch.start_index == self.crash_at:
+                raise RuntimeError(f"preempted after the batch at sample {self.crash_at}")
+
+
+def phase_resume(dev):
+    """Fused sweep preempted after sample 768, resumed from its checkpoint at 512, held
+    identical to an uninterrupted sweep."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    n, batch, every, crash_at = RESUME["images"], RESUME["batch"], RESUME["checkpoint"], RESUME["crash_at"]
+    images = _make_images(n, seed=2)
+    model = ResNet(depth=50, dtype=torch.bfloat16, device=dev)
+    model.params, model.name = model.init(seed=0), "resnet50"
+    lens = Lens(OpenClip("ViT-B-32", dtype=torch.bfloat16, device=dev, seed=0))
+
+    def sweep(root, dataset, checkpoint):
+        cv = ActivationComponentVisualizer(model, dataset, dataset, ["layer3", "layer4"], 25,
+                                           aggregate_fn=aggregate_conv_mean, cache_dir=str(root),
+                                           model_preprocess=make_preprocess_fn(size=224))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            lens.compute_concept_db(cv, batch_size=batch, checkpoint=checkpoint)
+        finally:
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        return cv, seconds
+
+    def outputs(cv):
+        return {"ids": {k: cv.get_max_reference(k) for k in cv.layer_names},
+                "values": {k: cv.actmax_cache[k].activations.view(torch.int16).numpy() for k in cv.layer_names},
+                "table": cv.embedding_table}
+
+    times = {}
+    k1.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ref_cv, times["uninterrupted_s"] = sweep(tmp / "ref", ArrayDataset(images, name="resume"), 0)
+        ref = outputs(ref_cv)
+        _, times["uninterrupted_checkpointed_s"] = sweep(tmp / "ckpt", ArrayDataset(images, name="resume"), every)
+        _, times["uninterrupted_again_s"] = sweep(tmp / "again", ArrayDataset(images, name="resume"), 0)
+        crashing = PreemptedSweep(images, "resume", crash_at=crash_at)
+        try:
+            sweep(tmp / "run", crashing, every)
+        except RuntimeError as exc:
+            if "preempted" not in str(exc):
+                raise
+        else:
+            raise AssertionError("[resume] the preempted sweep did not stop")
+        ckpt = next((tmp / "run").rglob("_checkpoint-fused"))
+        progress = json.loads((ckpt / "progress.json").read_text())
+        if progress["next_start"] != every:
+            raise AssertionError(f"[resume] checkpoint at {progress}, expected next_start {every}")
+        resumed_cv, times["resumed_s"] = sweep(tmp / "run", ArrayDataset(images, name="resume"), every)
+        got = outputs(resumed_cv)
+        if ckpt.exists():
+            raise AssertionError("[resume] checkpoint directory left after success")
+    launches = k1.launch_counts()
+    identical = {
+        "ids": all(np.array_equal(got["ids"][k], ref["ids"][k]) for k in ref["ids"]),
+        "values": all(np.array_equal(got["values"][k], ref["values"][k]) for k in ref["values"]),
+        "table": bool(np.array_equal(got["table"], ref["table"])),
+    }
+    summary = {"images": n, "batch": batch, "checkpoint": every, "crash_after_sample": crash_at,
+               "resumed_from": progress["next_start"], "identical": identical, "k1_launches": launches,
+               **{k: round(v, 4) for k, v in times.items()}}
+    log(f"[resume] {json.dumps(summary)}")
+    if not all(identical.values()):
+        raise AssertionError(f"[resume] resumed sweep differs from the uninterrupted one: {identical}")
+    return launches
+
+
+def phase_env():
+    """What the native JPEG decoder (ROADMAP queue 1 item 5) would need on this machine."""
+    import ctypes.util
+
+    headers = [p for p in ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h") if Path(p).exists()]
+    cuda = Path("/usr/local/cuda")
+    env = {"gxx": shutil.which("g++"), "libjpeg": ctypes.util.find_library("jpeg"),
+           "libturbojpeg": ctypes.util.find_library("turbojpeg"), "jpeglib_h": headers,
+           # the CUDA toolkit's own JPEG decoder, a way round a missing libjpeg
+           "nvjpeg": sorted(str(p) for d in ("lib64", "targets/x86_64-linux/lib")
+                            for p in (cuda / d).glob("libnvjpeg.so*"))[:1],
+           "nvjpeg_h": [str(p) for d in ("include", "targets/x86_64-linux/include")
+                        if (p := cuda / d / "nvjpeg.h").exists()][:1]}
+    log(f"[env] {json.dumps(env)}")
 
 
 def main():
@@ -461,9 +953,17 @@ def main():
     t_start = time.perf_counter()
 
     phase_build()
-    rows, max_err = phase_kernels(dev)
+    phase_env()
+    rows, max_err, checked = phase_kernels(dev)
     phase_reference(dev)
-    launches = phase_quickstart(dev)
+    shapes = set()
+    with recording_k1_shapes(shapes):
+        launches, res = phase_quickstart(dev)
+        by_path = {"quickstart": launches, "analyze": phase_analyze(dev, res), "serve": phase_serve(dev, res)}
+        del res
+        by_path["resume"] = phase_resume(dev)
+    log(f"[launches] K1 per path: {json.dumps(by_path)}")
+    phase_main_path_shapes(dev, shapes, checked, max_err)
 
     def entry(variant, shape):
         row = next(r for r in rows if r["shape"] == shape)
@@ -476,6 +976,7 @@ def main():
             "replaces": "semanticlens_tpu/ops/pallas_ops.py:72",
             "launches": launches[variant],
             "launches_k1_total": launches["total"],
+            "launches_by_path": {path: counts[variant] for path, counts in by_path.items()},
             "max_abs_err": max_err[variant],
             **{key: row[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",  # ms: host loop of 20 calls

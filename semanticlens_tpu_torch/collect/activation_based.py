@@ -6,12 +6,17 @@ one raw-image dataset serves both the subject model and the foundation model,
 ``_compute_concept_db`` runs the fused single pass
 (:meth:`~semanticlens_tpu_torch.collect.engine.CollectEngine.run_fused`).
 
-Not ported yet (ROADMAP.md): ``visualize_components`` (needs matplotlib) and the
-sweep checkpoints of the JAX package.
+With a cache root, every sweep checkpoints every ``checkpoint`` samples
+(512 by default) under ``storage_dir/_checkpoint-collect``, ``-fused`` or
+``-embed`` and resumes from there after a crash; the directory is cleared
+once the sweep's results are stored.
+
+Not ported yet (ROADMAP.md): ``visualize_components`` (needs matplotlib).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import warnings
 from pathlib import Path
@@ -21,8 +26,8 @@ import torch
 
 from semanticlens_tpu_torch.collect.activation_caching import ActMaxCache
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
-from semanticlens_tpu_torch.collect.engine import CollectEngine
-from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, iter_batches
+from semanticlens_tpu_torch.collect.engine import CollectEngine, EmbedSink
+from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, iter_batches, prefetch_batches
 from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
 from semanticlens_tpu_torch.ops import aggregators
 from semanticlens_tpu_torch.utils.helper import get_fallback_name
@@ -146,16 +151,36 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
     def run(self, batch_size: int = 32, **kwargs):
         """Collect per-component top activating samples (cache-or-compute).
 
-        Returns ``{layer: ActMax}``.
+        ``checkpoint`` (samples between sweep checkpoints, default 512; 0 turns
+        them off) applies when a cache root is set. Returns ``{layer: ActMax}``.
         """
+        checkpoint = kwargs.get("checkpoint", 512)
         if self._cache_root is not None:
             try:
                 self.actmax_cache.load(self.storage_dir)
                 return self.actmax_cache.cache
             except FileNotFoundError:
                 pass
-        states, n_seen = self.engine.run(self.params, self.dataset, batch_size)
+        return self._run(batch_size=batch_size, checkpoint=checkpoint)
+
+    def _checkpoint_dir(self, kind: str, checkpoint: int):
+        """``storage_dir/_checkpoint-{kind}`` when checkpoints are on and a cache root is set."""
+        if not checkpoint or self._cache_root is None:
+            return None
+        return self.storage_dir / f"_checkpoint-{kind}"
+
+    @staticmethod
+    def _every(ckpt_dir, checkpoint: int, batch_size: int) -> int:
+        """Checkpoint interval in batches."""
+        return max(1, checkpoint // batch_size) if ckpt_dir is not None else 0
+
+    def _run(self, batch_size: int = 64, checkpoint: int = 512):
+        ckpt_dir = self._checkpoint_dir("collect", checkpoint)
+        states, n_seen = self.engine.run(self.params, self.dataset, batch_size, checkpoint_dir=ckpt_dir,
+                                         checkpoint_every=self._every(ckpt_dir, checkpoint, batch_size))
         self._ingest(states, n_seen)
+        if ckpt_dir is not None:
+            self.engine.clear_checkpoint(ckpt_dir)
         return self.actmax_cache.cache
 
     def _ingest(self, states, n_seen: int):
@@ -167,17 +192,18 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         if self._cache_root is not None:
             self.actmax_cache.store(self.storage_dir)
 
-    def _compute_concept_db(self, fm, batch_size: int = 32, **kwargs):
+    def _compute_concept_db(self, fm, batch_size: int = 32, checkpoint: int = 512, **kwargs):
         """Collect, embed the full FM dataset, gather per-component embeddings.
 
+        ``checkpoint``: samples between sweep checkpoints (with a cache root).
         Returns ``{layer: (n_components, n_samples, D) float32 numpy}``; −1
         sentinel slots become zero rows, as in the JAX package.
         """
         if self.dataset_fm is self.dataset and not self._has_collect_cache():
-            embeds = self._run_fused(fm, batch_size)
+            embeds = self._run_fused(fm, batch_size, checkpoint=checkpoint)
         else:
-            self.run(batch_size=batch_size)
-            embeds = self._embed_vision_dataset(fm, batch_size)
+            self.run(batch_size=batch_size, checkpoint=checkpoint, **kwargs)
+            embeds = self._embed_vision_dataset(fm, batch_size, checkpoint=checkpoint, **kwargs)
         self._embedding_table = embeds
         concept_db = {}
         for layer_name in self.layer_names:
@@ -195,28 +221,63 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
             for name in self.layer_names
         )
 
-    def _run_fused(self, fm, batch_size: int) -> np.ndarray:
-        """One pass over the raw dataset: collect top-k AND embed every image."""
+    def _run_fused(self, fm, batch_size: int, checkpoint: int = 0) -> np.ndarray:
+        """One pass over the raw dataset: collect top-k AND embed every image.
+
+        With ``checkpoint`` and a cache root the sweep persists under
+        ``storage_dir/_checkpoint-fused``, cleared only once the actmax cache
+        is stored (clearing first would reopen the crash window).
+        """
 
         def embed_fn(raw_device_batch):
             return fm.encode_image(fm.preprocess(raw_device_batch))
 
-        states, embeds, n_seen = self.engine.run_fused(self.params, self.dataset, batch_size, embed_fn)
+        ckpt_dir = self._checkpoint_dir("fused", checkpoint)
+        states, embeds, n_seen = self.engine.run_fused(
+            self.params, self.dataset, batch_size, embed_fn, checkpoint_dir=ckpt_dir,
+            checkpoint_every=self._every(ckpt_dir, checkpoint, batch_size),
+        )
         self._ingest(states, n_seen)
         if embeds.shape[0] != n_seen:
             raise RuntimeError("Number of embeddings does not match number of ids!")
+        if ckpt_dir is not None:
+            self.engine.clear_checkpoint(ckpt_dir)
         return embeds
 
-    def _embed_vision_dataset(self, fm, batch_size: int) -> np.ndarray:
-        """Embed every sample of ``dataset_fm`` once → (N, D) float32."""
+    def _embed_vision_dataset(self, fm, batch_size: int, checkpoint: int = 512, **kwargs) -> np.ndarray:
+        """Embed every sample of ``dataset_fm`` once → (N, D) float32.
+
+        Rows stay on the device and drain to the host every
+        ``EMBED_FLUSH_BYTES``, as in the fused pass. With a cache root,
+        finished rows persist every ``checkpoint`` samples under
+        ``storage_dir/_checkpoint-embed`` (the fused sweep's chunk format,
+        ``progress.json`` holding ``next_start`` only) and an interrupted
+        embed resumes from there.
+        """
         n = len(self.dataset_fm)
-        chunks = []
+        ckpt_dir = self._checkpoint_dir("embed", checkpoint)
+        every = self._every(ckpt_dir, checkpoint, batch_size)
+        resume_start, sink = 0, EmbedSink()
+        if ckpt_dir is not None and (ckpt_dir / "progress.json").exists():
+            resume_start = int(json.loads((ckpt_dir / "progress.json").read_text())["next_start"])
+            sink = EmbedSink(self.engine._load_embed_chunks(ckpt_dir, resume_start), resume_start)
+            logger.info("Resuming FM embedding sweep from sample %d", resume_start)
+        batches_done = 0
         with torch.inference_mode():
-            for images, _, _ in device_prefetch_batches(
-                iter_batches(self.dataset_fm, batch_size), fm.device
+            for images, start, _ in device_prefetch_batches(
+                prefetch_batches(iter_batches(self.dataset_fm, batch_size, start_index=resume_start)), fm.device
             ):
-                chunks.append(fm.encode_image(fm.preprocess(images)).to("cpu", torch.float32))
-        return torch.cat(chunks).numpy()[:n]
+                sink.add(fm.encode_image(fm.preprocess(images)))
+                batches_done += 1
+                if self.engine._due(ckpt_dir, every, batches_done):
+                    sink.commit(ckpt_dir, start + batch_size)
+                    (ckpt_dir / "progress.json").write_text(json.dumps({"next_start": int(start + batch_size)}))
+        embeds = sink.table(n)
+        if ckpt_dir is not None:
+            self.engine.clear_checkpoint(ckpt_dir)
+        if embeds.shape[0] != n:
+            raise RuntimeError("Number of embeddings does not match number of ids!")
+        return embeds
 
     def get_max_reference(self, layer_name: str) -> np.ndarray:
         """(n_components, n_samples) dataset indices of the top examples."""

@@ -10,12 +10,21 @@ derive from the batch start and the dataset length, as in the JAX package.
 ``run_fused`` also embeds every uploaded batch with a foundation model, so
 Collect and Embed share one upload per image.
 
-Checkpoint and resume of the JAX engine are not ported yet (ROADMAP.md).
+With ``checkpoint_dir`` and ``checkpoint_every`` (batches) a sweep persists
+its running top-k state, and ``run_fused`` its embedding rows, and resumes
+from the last commit after a crash with the same result as an uninterrupted
+sweep. The files are the JAX package's, key for key, so a sweep
+checkpointed by either package resumes in the other:
+``state-{layer}.safetensors`` (``values`` bf16, ``ids`` int32),
+``embeds-{first row:012d}.safetensors`` (``embeds`` f32) and
+``progress.json`` (``next_start``, ``layers``).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+from pathlib import Path
 from typing import Callable, Sequence
 
 import numpy as np
@@ -24,12 +33,54 @@ import torch
 from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, get_image, iter_batches
 from semanticlens_tpu_torch.models.base import SubjectModel
 from semanticlens_tpu_torch.ops.topk import TopKState, init_topk, topk_update
+from semanticlens_tpu_torch.utils import safetensors_io
 
 logger = logging.getLogger(__name__)
 
 # Embeddings of the fused pass stay on the device up to this many bytes and
 # then drain to host memory, so a long sweep holds at most this plus one batch.
 EMBED_FLUSH_BYTES = 512 * 2**20
+
+
+class EmbedSink:
+    """The embedding rows of a sweep, in order, from the device to host memory and disk.
+
+    Rows stay on the device until ``EMBED_FLUSH_BYTES`` of them are pending,
+    then drain to host memory in one copy. :meth:`commit` drains, writes the
+    rows since the last commit as one checkpoint chunk and starts the next;
+    :meth:`table` returns every row, each exactly once.
+    """
+
+    def __init__(self, host_chunks: list[np.ndarray] | None = None, flushed_rows: int = 0):
+        self.host_chunks = host_chunks or []  # committed (or resumed) rows
+        self.flushed_rows = flushed_rows  # first row not yet committed
+        self.since_commit: list[np.ndarray] = []
+        self.pending: list[torch.Tensor] = []
+        self.pending_bytes = 0
+
+    def add(self, emb: torch.Tensor):
+        self.pending.append(emb)
+        self.pending_bytes += emb.numel() * emb.element_size()
+        if self.pending_bytes >= EMBED_FLUSH_BYTES:
+            self.drain()
+
+    def drain(self):
+        if self.pending:
+            self.since_commit.append(torch.cat(self.pending).to("cpu", torch.float32).numpy())
+            self.pending, self.pending_bytes = [], 0
+
+    def commit(self, directory, next_start: int):
+        """Persist the rows since the last commit; ``next_start`` is the row after them."""
+        self.drain()
+        chunk = np.concatenate(self.since_commit, axis=0)
+        CollectEngine._store_embed_chunk(directory, self.flushed_rows, chunk)
+        self.host_chunks.append(chunk)
+        self.since_commit = []
+        self.flushed_rows = next_start
+
+    def table(self, n: int) -> np.ndarray:
+        self.drain()
+        return np.concatenate(self.host_chunks + self.since_commit, axis=0)[:n]
 
 
 class CollectEngine:
@@ -97,16 +148,121 @@ class CollectEngine:
         n_latents = self.infer_n_latents(params, dataset)
         return {name: init_topk(c, self.n_collect, self.device) for name, c in n_latents.items()}
 
-    def run(self, params, dataset, batch_size: int, *, id_offset: int = 0):
-        """Stream the dataset; returns ``({layer: TopKState}, n_samples)``."""
+    # ------------------------------------------------------------ checkpoints
+    def save_checkpoint(self, directory, states, next_start: int):
+        """Persist the running top-k states; a resumed sweep starts at ``next_start``.
+
+        ``progress.json`` is written last: it commits the state files.
+        """
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        for name, st in states.items():
+            safetensors_io.save_file({"values": st.values.to(torch.bfloat16), "ids": st.ids.to(torch.int32)},
+                                     directory / f"state-{name}.safetensors")
+        (directory / "progress.json").write_text(
+            json.dumps({"next_start": int(next_start), "layers": list(states)})
+        )
+
+    def load_checkpoint(self, directory):
+        """``(states on the engine's device, next_start)``, or None without a checkpoint."""
+        directory = Path(directory)
+        progress = directory / "progress.json"
+        if not progress.exists():
+            return None
+        meta = json.loads(progress.read_text())
+        states = {}
+        for name in meta["layers"]:
+            t = safetensors_io.load_file(directory / f"state-{name}.safetensors")
+            states[name] = TopKState(values=t["values"].to(self.device), ids=t["ids"].to(self.device))
+        return states, int(meta["next_start"])
+
+    @staticmethod
+    def _store_embed_chunk(directory, row_start: int, chunk: np.ndarray) -> None:
+        """Persist embedding rows [row_start, row_start + len(chunk))."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        safetensors_io.save_file({"embeds": torch.from_numpy(np.ascontiguousarray(chunk, np.float32))},
+                                 directory / f"embeds-{row_start:012d}.safetensors")
+
+    @staticmethod
+    def _load_embed_chunks(directory, n_rows: int) -> list[np.ndarray]:
+        """Persisted embedding chunks covering exactly rows [0, n_rows).
+
+        Chunks are written before ``progress.json`` commits ``next_start``, so
+        rows up to ``n_rows`` must be there without a gap (a gap means the
+        directory mixes sweeps). Rows past ``n_rows`` are dropped: a crash
+        between a chunk write and its commit leaves a stale trailing chunk
+        whose samples the resumed sweep computes again.
+        """
+        directory = Path(directory)
+        chunks, covered = [], 0
+        for fpath in sorted(directory.glob("embeds-*.safetensors")):
+            if covered >= n_rows:
+                logger.warning("dropping uncommitted embedding chunk %s (rows >= %d)", fpath.name, n_rows)
+                break
+            row_start = int(fpath.stem.split("-")[1])
+            if row_start != covered:
+                raise RuntimeError(
+                    f"embedding checkpoint gap: expected rows from {covered}, found {fpath.name} in {directory}"
+                )
+            chunk = safetensors_io.load_file(fpath)["embeds"].numpy()
+            if covered + chunk.shape[0] > n_rows:
+                logger.warning("truncating embedding chunk %s to the committed row count %d", fpath.name, n_rows)
+                chunk = chunk[: n_rows - covered]
+            chunks.append(chunk)
+            covered += chunk.shape[0]
+        if covered < n_rows:
+            raise RuntimeError(
+                f"embedding checkpoint covers {covered} rows but progress says {n_rows} were collected ({directory})"
+            )
+        return chunks
+
+    @staticmethod
+    def clear_checkpoint(directory) -> None:
+        """Remove a finished sweep's checkpoint files, and the directory when nothing else is in it."""
+        directory = Path(directory)
+        if not directory.is_dir():
+            return
+        for fpath in [*directory.glob("state-*.safetensors"), *directory.glob("embeds-*.safetensors")]:
+            fpath.unlink(missing_ok=True)
+        (directory / "progress.json").unlink(missing_ok=True)
+        try:
+            directory.rmdir()
+        except OSError:
+            pass  # other files are there: leave the directory
+
+    @staticmethod
+    def _due(checkpoint_dir, checkpoint_every: int, batches_done: int) -> bool:
+        return checkpoint_dir is not None and checkpoint_every > 0 and batches_done % checkpoint_every == 0
+
+    # -------------------------------------------------------------------- run
+    def run(self, params, dataset, batch_size: int, *, checkpoint_dir=None, checkpoint_every: int = 0,
+            id_offset: int = 0):
+        """Stream the dataset; returns ``({layer: TopKState}, n_samples)``.
+
+        With ``checkpoint_dir`` and ``checkpoint_every`` (batches) the states
+        persist every that many batches, and a sweep that finds a checkpoint
+        there resumes from it.
+        """
         n = len(dataset)
         if n == 0:
             return {name: init_topk(1, self.n_collect, self.device) for name in self.layer_names}, 0
         self._check_id_range(n, id_offset)
-        states = self._init_states(params, dataset)
+        loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
+        if loaded is not None:
+            states, resume_start = loaded
+            logger.info("Resuming collect sweep from sample %d", resume_start)
+        else:
+            states, resume_start = self._init_states(params, dataset), 0
+        batches_done = 0
         with torch.inference_mode():
-            for images, start, _ in device_prefetch_batches(iter_batches(dataset, batch_size), self.device):
+            for images, start, _ in device_prefetch_batches(
+                iter_batches(dataset, batch_size, start_index=resume_start), self.device
+            ):
                 states = self._step(states, params, images, start + id_offset, n + id_offset)
+                batches_done += 1
+                if self._due(checkpoint_dir, checkpoint_every, batches_done):
+                    self.save_checkpoint(checkpoint_dir, states, start + batch_size)
         return states, n
 
     def run_fused(
@@ -116,13 +272,18 @@ class CollectEngine:
         batch_size: int,
         embed_fn: Callable,
         *,
+        checkpoint_dir=None,
+        checkpoint_every: int = 0,
         id_offset: int = 0,
     ):
         """Single-pass Collect + Embed: one upload per image feeds both models.
 
         ``embed_fn(raw_device_batch) -> (B, D)`` embeds the raw uploaded batch
         (it preprocesses for its own model). Embeddings drain to host memory
-        every ``EMBED_FLUSH_BYTES``.
+        every ``EMBED_FLUSH_BYTES`` (:class:`EmbedSink`). With
+        ``checkpoint_dir`` and ``checkpoint_every`` (batches) both halves
+        persist, the embedding chunk before ``progress.json`` commits it, and
+        an interrupted sweep resumes from the last commit.
 
         Returns ``({layer: TopKState}, embeds (N, D) float32 numpy, n)``.
         """
@@ -131,29 +292,25 @@ class CollectEngine:
             states = {name: init_topk(1, self.n_collect, self.device) for name in self.layer_names}
             return states, np.zeros((0, 1), np.float32), 0
         self._check_id_range(n, id_offset)
-        states = self._init_states(params, dataset)
-
-        pending: list[torch.Tensor] = []
-        pending_bytes = 0
-        host_chunks: list[np.ndarray] = []
-
-        def drain():
-            nonlocal pending, pending_bytes
-            if pending:
-                host_chunks.append(torch.cat(pending).to("cpu", torch.float32).numpy())
-                pending, pending_bytes = [], 0
-
+        loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
+        if loaded is not None:
+            states, resume_start = loaded
+            sink = EmbedSink(self._load_embed_chunks(checkpoint_dir, resume_start), resume_start)
+            logger.info("Resuming fused sweep from sample %d", resume_start)
+        else:
+            states, resume_start, sink = self._init_states(params, dataset), 0, EmbedSink()
+        batches_done = 0
         with torch.inference_mode():
-            for images, start, _ in device_prefetch_batches(iter_batches(dataset, batch_size), self.device):
+            for images, start, _ in device_prefetch_batches(
+                iter_batches(dataset, batch_size, start_index=resume_start), self.device
+            ):
                 states = self._step(states, params, images, start + id_offset, n + id_offset)
-                emb = embed_fn(images)
-                pending.append(emb)
-                pending_bytes += emb.numel() * emb.element_size()
-                if pending_bytes >= EMBED_FLUSH_BYTES:
-                    drain()
-        drain()
-        embeds = np.concatenate(host_chunks, axis=0)[:n]
-        return states, embeds, n
+                sink.add(embed_fn(images))
+                batches_done += 1
+                if self._due(checkpoint_dir, checkpoint_every, batches_done):
+                    sink.commit(checkpoint_dir, start + batch_size)
+                    self.save_checkpoint(checkpoint_dir, states, start + batch_size)
+        return states, sink.table(n), n
 
 
 __all__ = ["CollectEngine", "TopKState"]

@@ -2,7 +2,10 @@
 
 Counterpart of ``semanticlens_tpu.data.dataset``. ``iter_batches`` pads the
 last short batch and marks padded rows invalid, as in the JAX package (the
-collect engine masks them to −inf). :func:`device_prefetch_batches` replaces
+collect engine masks them to −inf); a dataset may stream its own batches
+(an ``iter_batches`` method) or assemble them itself (``get_batch``).
+:func:`prefetch_batches` assembles host batches on a background thread.
+:func:`device_prefetch_batches` replaces
 the JAX package's threaded ``device_put``: each batch is copied into pinned
 host memory and uploaded on a side CUDA stream, up to ``depth`` batches ahead
 of the compute stream, which waits on each upload's event before using it.
@@ -11,6 +14,8 @@ Images keep their host dtype (uint8 goes up as uint8).
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, NamedTuple
 
 import numpy as np
@@ -48,6 +53,39 @@ class ArrayDataset:
         return f"ArrayDataset(n={len(self.images)}, shape={self.images.shape[1:]})"
 
 
+class Subset:
+    """Contiguous [start, stop) view of a dataset (a shard of a sweep).
+
+    Keeps the parent's fast paths (``images``, ``get_batch``) so a sliced
+    sweep stays zero-copy; the cache name appends the range, since a shard
+    is not the full dataset.
+    """
+
+    def __init__(self, dataset, start: int, stop: int):
+        n = len(dataset)
+        if not (0 <= start <= stop <= n):
+            raise ValueError(f"invalid subset range [{start}, {stop}) for dataset of {n}")
+        self.dataset = dataset
+        self.start, self.stop = start, stop
+        if hasattr(dataset, "images"):
+            self.images = dataset.images[start:stop]
+        if hasattr(dataset, "get_batch"):
+            self.get_batch = lambda s, e: dataset.get_batch(start + s, start + e)
+        if hasattr(dataset, "name"):
+            self.name = f"{dataset.name}[{start}:{stop}]"
+
+    def __len__(self):
+        return self.stop - self.start
+
+    def __getitem__(self, idx: int):
+        if idx < 0 or idx >= len(self):
+            raise IndexError(idx)
+        return self.dataset[self.start + idx]
+
+    def __repr__(self):
+        return f"Subset({self.dataset!r}, [{self.start}:{self.stop}))"
+
+
 def get_image(dataset, idx: int) -> np.ndarray:
     """Image at ``idx`` regardless of whether items are bare or (image, label)."""
     return np.asarray(_extract_image(dataset[idx]))
@@ -63,14 +101,24 @@ def iter_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[
     """Yield fixed-shape :class:`Batch` es in dataset order.
 
     The final short batch is zero-padded to ``batch_size`` with
-    ``valid=False`` rows.
+    ``valid=False`` rows. ``start_index`` resumes mid-dataset at a batch
+    boundary of an earlier run. A dataset with its own
+    ``iter_batches(batch_size, pad_last=, start_index=)`` (the JAX
+    package's protocol) produces the batches itself.
     """
+    custom = getattr(dataset, "iter_batches", None)
+    if custom is not None:
+        yield from custom(batch_size, pad_last=True, start_index=start_index)
+        return
     n = len(dataset)
     fast_images = getattr(dataset, "images", None)
+    get_batch = getattr(dataset, "get_batch", None)
     for start in range(start_index, n, batch_size):
         stop = min(start + batch_size, n)
         if fast_images is not None:
             block = np.asarray(fast_images[start:stop])
+        elif get_batch is not None:
+            block = np.asarray(get_batch(start, stop))
         else:
             block = np.stack([np.asarray(_extract_image(dataset[i])) for i in range(start, stop)])
         valid = np.ones(batch_size, bool)
@@ -79,6 +127,35 @@ def iter_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[
             block = np.concatenate([block, np.zeros((pad, *block.shape[1:]), block.dtype)])
             valid[stop - start :] = False
         yield Batch(images=block, start_index=start, valid=valid)
+
+
+def prefetch_batches(batch_iter: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
+    """Run ``batch_iter`` on a daemon thread with a bounded queue, in order.
+
+    Overlaps host batch assembly (and any decode) with device work; an error
+    in the producer is raised in the consumer.
+    """
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    errors: list[BaseException] = []
+
+    def worker():
+        try:
+            for item in batch_iter:
+                q.put(item)
+        except BaseException as e:  # raised again in the consumer
+            errors.append(e)
+        finally:
+            q.put(done)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is done:
+            if errors:
+                raise errors[0]
+            return
+        yield item
 
 
 def device_prefetch_batches(batch_iter: Iterator[Batch], device: torch.device, depth: int = 2):

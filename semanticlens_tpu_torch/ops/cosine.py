@@ -30,6 +30,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -101,6 +102,13 @@ def plan_launch(batch: int, m: int, n: int, d: int, num_sms: int) -> LaunchPlan:
 def pad_features(a: torch.Tensor, d_pad: int) -> torch.Tensor:
     """Zero-pad the last axis to ``d_pad``: dots and norms are unchanged."""
     return a if a.shape[-1] == d_pad else F.pad(a, (0, d_pad - a.shape[-1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    """The card's SM count, read once: the CUDA query behind it takes ~20 ms on a
+    thread that has not made it before (each request thread of a server)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 _FNS: dict = {}
@@ -186,7 +194,8 @@ def cosine_similarity_matrix_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Ten
         return out
     if d == 0:
         return out.zero_()  # no features: every row is a zero row
-    plan = plan_launch(batch, m, n, d, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = plan_launch(batch, m, n, d, _num_sms(x.device.index if x.device.index is not None
+                                                else torch.cuda.current_device()))
     xk = _kernel_operand(x, m, plan.d_pad)
     yk = _kernel_operand(y, n, plan.d_pad)
     _LAUNCH[plan.variant](xk, yk, out, plan, torch.cuda.current_stream(x.device).cuda_stream)

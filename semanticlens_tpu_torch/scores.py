@@ -1,23 +1,22 @@
 """Concept-quality scores on torch tensors.
 
-Counterpart of ``semanticlens_tpu.scores`` for ``clarity_score``,
-``redundancy_score``, ``similarity_score``, ``cosine_probe`` and
-``polysemanticity_score``, with the same numerical conventions (all in
-float32). Inputs may be tensors (kept on their device) or numpy arrays (put
-on ``device``: the CUDA card unless the caller passes ``"cpu"``).
+Counterpart of ``semanticlens_tpu.scores``, every function of it, with the
+same numerical conventions (all in float32) and the same dead-row, sentinel
+and tie-order rules. Inputs may be tensors (kept on their device) or numpy
+arrays (put on ``device``: the CUDA card unless the caller passes ``"cpu"``).
 
 Every cosine matrix goes through :func:`_cosine_matrix`, which is the fused
 kernel K1 (:mod:`semanticlens_tpu_torch.ops.cosine`) on the card — the path
-by which probing (``cosine_probe``) and ``redundancy_score`` reach it.
-
-Not ported yet (ROADMAP.md): ``topk_cosine_search``, ``soft_wpmi``, ``fastcav`` and
-the other scores of the JAX package.
+by which probing (``cosine_probe``), ``redundancy_score``,
+``topk_cosine_search`` (labeling, serving), ``soft_wpmi`` and
+``match_components`` reach it.
 """
 
 from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
@@ -32,6 +31,14 @@ __all__ = [
     "similarity_score",
     "cosine_probe",
     "polysemanticity_score",
+    "null_calibrated_polysemanticity",
+    "topk_cosine_search",
+    "class_composition",
+    "soft_wpmi",
+    "fastcav",
+    "drift_score",
+    "match_components",
+    "semantic_coverage",
 ]
 
 
@@ -124,3 +131,249 @@ def polysemanticity_score(V, replace_empty_clusters: bool = True, random_state: 
         fallback = 1.0 - clarity_score(pairs).mean(dim=1)
         poly = torch.where(degenerate, fallback, poly)
     return poly
+
+
+def _chunk_topk(sim, k: int):
+    """The k best of each row of ``sim`` (Q, c): the largest values, the lower column first on ties.
+
+    ``torch.topk`` (a radix select) takes every value above its k-th, but
+    picks any of the values equal to it; that choice is exact when it took
+    all of them. Otherwise the block is sorted, stably.
+    """
+    vals, cols = torch.topk(sim, k, dim=1)
+    cut = vals[:, -1:]
+    if not torch.equal((sim == cut).sum(dim=1), (vals == cut).sum(dim=1)):
+        vals, cols = torch.sort(sim, dim=1, descending=True, stable=True)
+        vals, cols = vals[:, :k], cols[:, :k]
+    return vals, cols
+
+
+def _merge_topk(best_vals, best_idx, sim, start: int):
+    """Merge a (Q, c) block of similarities for columns [start, start + c) into the running top-k.
+
+    The result equals a stable descending sort of the state followed by the
+    block, cut to k: on equal values the lower column wins, as ``lax.top_k``
+    does in the JAX package (dead all-zero rows all score exactly 0: ties
+    are common).
+    """
+    k = best_vals.shape[1]
+    vals, cols = _chunk_topk(sim, min(k, sim.shape[1]))
+    all_vals = torch.cat([best_vals, vals], dim=1)
+    all_idx = torch.cat([best_idx, (cols + start).to(torch.int32)], dim=1)
+    by_idx = torch.sort(all_idx, dim=1, stable=True).indices
+    all_vals, all_idx = torch.gather(all_vals, 1, by_idx), torch.gather(all_idx, 1, by_idx)
+    vals, order = torch.sort(all_vals, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(all_idx, 1, order[:, :k])
+
+
+def topk_cosine_search(queries, components, k: int, *, chunk_size: int = 65536, device=None):
+    """Per-query top-k most similar components without materializing (Q, N).
+
+    ``components`` stream through K1 ``chunk_size`` rows at a time, each
+    block merged into a running (Q, k) state, so peak memory is
+    O(Q·(k + chunk_size)). Exact: equal to a stable descending sort of the
+    dense cosine matrix, cut to k.
+
+    Returns ``(values (Q, k) float32 desc, indices (Q, k) int32)`` with
+    global component row numbers.
+    """
+    queries = _f32(queries, device)
+    components = _f32(components, queries.device)
+    q, n = queries.shape[0], components.shape[0]
+    if k > n:
+        raise ValueError(f"k={k} exceeds component count {n}")
+    chunk_size = min(chunk_size, max(n, 1))
+    best_vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=queries.device)
+    best_idx = torch.full((q, k), -1, dtype=torch.int32, device=queries.device)
+    for start in range(0, n, chunk_size):
+        sim = _cosine_matrix(queries, components[start : start + chunk_size])
+        best_vals, best_idx = _merge_topk(best_vals, best_idx, sim, start)
+    return best_vals, best_idx
+
+
+def class_composition(sample_ids, labels, n_classes: int | None = None):
+    """Per-component class histogram of the collected top-k evidence (numpy).
+
+    ``sample_ids`` (C, k) with −1 sentinels ignored, ``labels`` (N,) dataset
+    labels. Returns ``counts (C, n_classes) int32`` and ``purity (C,)
+    float32``, the largest class share per component (0 without evidence).
+    """
+    ids = np.asarray(sample_ids)
+    labels = np.asarray(labels)
+    if n_classes is None:
+        n_classes = int(labels.max()) + 1 if labels.size else 1
+    c, _k = ids.shape
+    counts = np.zeros((c, n_classes), np.int32)
+    rows, cols = np.nonzero(ids >= 0)
+    np.add.at(counts, (rows, labels[ids[rows, cols]]), 1)
+    totals = counts.sum(axis=1)
+    purity = np.where(totals > 0, counts.max(axis=1) / np.maximum(totals, 1), 0.0).astype(np.float32)
+    return counts, purity
+
+
+def _wpmi_chunk(P, Pbar, ids_chunk, *, lam, p_start, p_end):
+    """(c, k) evidence rows of ``P`` → (c, V) soft-WPMI scores.
+
+    ``P`` (U, V) is p(word | image) for the evidence images, ``Pbar`` (V,)
+    the dataset-mean word probability. Rank weights decay ``p_start →
+    p_end`` over each row's valid slots, so −1 sentinels carry zero weight
+    and extra sentinel columns leave a row's score unchanged.
+    """
+    valid = (ids_chunk >= 0).to(torch.float32)
+    v = torch.sum(valid, dim=1)
+    r = torch.arange(ids_chunk.shape[1], dtype=torch.float32, device=P.device)
+    a = (p_start + (p_end - p_start) * r[None, :] / torch.clamp_min(v - 1.0, 1.0)[:, None]) * valid
+    gathered = P[torch.clamp_min(ids_chunk, 0)]  # (c, k, V)
+    terms = torch.log(torch.clamp_min(1.0 - a[..., None] + a[..., None] * gathered, 1e-7))
+    log_p_d_given_w = torch.sum(terms, dim=1)
+    abar = torch.sum(a, dim=1) / torch.clamp_min(v, 1.0)
+    pbar_row = 1.0 - abar[:, None] + abar[:, None] * Pbar[None, :]
+    log_p_d = v[:, None] * torch.log(torch.clamp_min(pbar_row, 1e-7))
+    return log_p_d_given_w - lam * log_p_d
+
+
+def soft_wpmi(vocab_embeds, image_embeds, evidence_ids, *, temperature: float = 10.0, lam: float = 1.0,
+              p_start: float = 0.998, p_end: float = 0.97, chunk: int = 256, device=None):
+    """CLIP-Dissect soft-WPMI concept-word scores (C, V) from each component's evidence images.
+
+    ``wpmi(w, c) = log p(D_c | w) − λ·log p(D_c)`` with ``p(t | x) =
+    softmax_V(temperature · cos(x, t))`` and rank-weighted soft membership.
+    ``vocab_embeds`` (V, D), ``image_embeds`` (N, D) the dataset's embedding
+    table, ``evidence_ids`` (C, k) with −1 sentinels. The (N, V) softmax
+    table is never built: the dataset mean streams over image chunks and
+    only the unique evidence rows are computed. Returns (C, V) float32 numpy.
+    """
+    vocab = _f32(vocab_embeds, device)
+    table = _f32(image_embeds, vocab.device)
+    ids = np.asarray(evidence_ids)
+    if ids.ndim != 2:
+        raise ValueError(f"evidence_ids must be (C, k), got {ids.shape}")
+    n = table.shape[0]
+    if ids.max(initial=-1) >= n:
+        raise ValueError(f"evidence id {int(ids.max())} out of range for a {n}-row embedding table")
+
+    def p_rows(rows):
+        return torch.softmax(temperature * _cosine_matrix(rows, vocab), dim=1)
+
+    img_chunk = max(chunk, 4096)
+    psum = torch.zeros(vocab.shape[0], dtype=torch.float32, device=vocab.device)
+    for i in range(0, n, img_chunk):
+        psum = psum + torch.sum(p_rows(table[i : i + img_chunk]), dim=0)
+    pbar = psum / n
+
+    unique = np.unique(ids[ids >= 0])
+    if unique.size == 0:
+        return np.zeros((ids.shape[0], int(vocab.shape[0])), np.float32)
+    p_need = p_rows(table[torch.as_tensor(unique, device=table.device)])  # (U, V)
+    remap = np.searchsorted(unique, np.maximum(ids, 0))
+    mapped = torch.as_tensor(np.where(ids >= 0, remap, -1), device=vocab.device)
+    out = [_wpmi_chunk(p_need, pbar, mapped[i : i + chunk], lam=lam, p_start=p_start, p_end=p_end)
+           for i in range(0, ids.shape[0], chunk)]
+    return torch.cat(out).cpu().numpy().astype(np.float32)
+
+
+def _aggregate_concepts(V, device=None):
+    """(C, k, D) concept DB → (C, D) mean over the samples; (C, D) passes through."""
+    V = _f32(V, device)
+    if V.ndim == 3:
+        V = torch.mean(V, dim=1)
+    if V.ndim != 2:
+        raise ValueError(f"expected (C, k, D) or (C, D) concept DB, got shape {tuple(V.shape)}")
+    return V
+
+
+_DEAD_NORM = 1e-8  # aggregated FM embeddings are O(1); sentinel rows are 0
+
+
+def _dead(x):
+    return torch.linalg.vector_norm(x, dim=-1) < _DEAD_NORM
+
+
+def drift_score(V_a, V_b, device=None):
+    """Per-component ``1 − cos(mean A_i, mean B_i)`` between two DBs of the same layer shape.
+
+    Components dead on either side (all-zero rows) give NaN. Returns (C,) float32.
+    """
+    a = _aggregate_concepts(V_a, device)
+    b = _aggregate_concepts(V_b, a.device)
+    if a.shape != b.shape:
+        raise ValueError(f"component mismatch: {tuple(a.shape)} vs {tuple(b.shape)}")
+    cos = torch.sum(_normalize(a) * _normalize(b), dim=-1)
+    return torch.where(_dead(a) | _dead(b), torch.nan, 1.0 - cos)
+
+
+def match_components(V_a, V_b, device=None):
+    """Best semantic match in B for every component of A (C_a need not equal C_b).
+
+    Returns ``(indices (C_a,) int32, cosines (C_a,) float32)``. Dead rows of A
+    give index −1 and cosine NaN; dead rows of B never match (−inf); ties go
+    to the first maximum.
+    """
+    a = _aggregate_concepts(V_a, device)
+    b = _aggregate_concepts(V_b, a.device)
+    if a.shape[-1] != b.shape[-1]:
+        raise ValueError(f"embedding dim mismatch: {a.shape[-1]} vs {b.shape[-1]}")
+    cos = torch.where(_dead(b)[None, :], -torch.inf, _cosine_matrix(a, b))
+    best, idx = torch.amax(cos, dim=1), torch.argmax(cos, dim=1).to(torch.int32)
+    dead = _dead(a)
+    return torch.where(dead, -1, idx), torch.where(dead, torch.nan, best)
+
+
+def semantic_coverage(V_a, V_b, *, threshold: float = 0.9, device=None):
+    """Share of A's live components whose best match in B has cosine ≥ ``threshold``.
+
+    Dead components of A are left out of the denominator; NaN when A has none.
+    """
+    _, cos = match_components(V_a, V_b, device)
+    live = ~torch.isnan(cos)  # −inf (all of B dead) stays live
+    n_live = float(torch.sum(live))
+    hits = float(torch.sum(live & (cos >= threshold)))
+    return hits / n_live if n_live > 0 else float("nan")
+
+
+def fastcav(pos_embeds, neg_embeds, device=None):
+    """Unit concept activation vector (FastCAV closed form): normalized mean(pos) − mean(neg), (D,)."""
+    pos = torch.mean(_f32(pos_embeds, device), dim=0)
+    v = pos - torch.mean(_f32(neg_embeds, pos.device), dim=0)
+    return v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-12)
+
+
+def null_calibrated_polysemanticity(V, embedding_table, *, n_null: int = 64, seed: int = 0,
+                                    random_state: int = 123, device=None):
+    """Polysemanticity z-scored against a random-evidence null (NPI).
+
+    Draws ``n_null`` size-k evidence sets without replacement from the
+    embedding table — windows of one permutation when ``n_null·k ≤ N``, one
+    permutation per set otherwise — from a ``torch.Generator`` seeded with
+    ``seed`` (so the draw differs from the JAX package's), scores them with
+    the same clustering, and returns ``(npi (C,), poly (C,), null_mean,
+    null_std)``; components whose rows are all zero give NaN.
+    """
+    V = _f32(V, device)
+    table = _f32(embedding_table, V.device)
+    if V.ndim != 3 or table.ndim != 2 or V.shape[2] != table.shape[1]:
+        raise ValueError(
+            f"V must be (C, k, D) and embedding_table (N, D) with matching D; "
+            f"got {tuple(V.shape)} and {tuple(table.shape)}"
+        )
+    n, k = table.shape[0], V.shape[1]
+    if n < k:
+        raise ValueError(f"embedding table has {n} rows < evidence size {k}")
+    generator = torch.Generator().manual_seed(seed)
+    if n_null * k <= n:
+        ids = torch.randperm(n, generator=generator)[: n_null * k].reshape(n_null, k)
+    else:
+        ids = torch.stack([torch.randperm(n, generator=generator)[:k] for _ in range(n_null)])
+    return _npi_from_null_sets(V, table[ids.to(table.device)], random_state)
+
+
+def _npi_from_null_sets(V, null_sets, random_state: int = 123):
+    """NPI of (C, k, D) ``V`` against drawn (n_null, k, D) ``null_sets``."""
+    poly = polysemanticity_score(V, random_state=random_state)
+    null_poly = polysemanticity_score(null_sets, random_state=random_state)
+    null_mean = torch.mean(null_poly)
+    null_std = torch.std(null_poly, correction=0)
+    dead = torch.all(V == 0.0, dim=2).all(dim=1)
+    npi = torch.where(dead, torch.nan, (poly - null_mean) / (null_std + 1e-12))
+    return (npi.cpu().numpy().astype(np.float32), poly.cpu().numpy().astype(np.float32),
+            float(null_mean), float(null_std))

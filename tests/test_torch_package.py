@@ -38,8 +38,8 @@ def _imported_roots(path: Path):
 
 def test_port_imports_no_jax_or_missing_libraries():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) > 20
-    files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "sweep_k1.py")]
+    assert len(files) > 20 and PKG / "serve.py" in files
+    files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "sweep_k1.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -68,8 +68,10 @@ def test_scores_on_numpy_default_to_the_card(monkeypatch):
 
     _no_cuda(monkeypatch)
     x = np.ones((3, 4), np.float32)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        scores.redundancy_score(x)
+    for score in (scores.redundancy_score, lambda v: scores.topk_cosine_search(v, v, 1),
+                  lambda v: scores.match_components(v, v), lambda v: scores.fastcav(v, v)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            score(x)
     assert scores.redundancy_score(torch.from_numpy(x)).device.type == "cpu"  # a tensor keeps its device
 
 
