@@ -37,14 +37,27 @@ Phases (any failing check raises; the exit code is then non-zero):
    beside it;
 6. serve — ``SearchService`` over the quickstart's DB behind ``serve`` on
    loopback: 200 sequential and 8 concurrent clients' text searches
-   (latency p50/p99), ``/label`` cold and cached, ``/healthz``, the 501 of
-   ``POST /image_search``; served ids equal to offline probing;
+   (latency p50/p99), ``/label`` cold and cached, ``/healthz``, the 400 of a
+   broken ``POST /image_search`` upload; served ids equal to offline probing;
 7. resume — a fused sweep of 1024 images checkpointed every 512 and
    preempted after the batch at sample 768, resumed, and held identical to
-   an uninterrupted sweep (ids, values, embedding table).
+   an uninterrupted sweep (ids, values, embedding table);
+8. folder — the bring-your-own path: 2048 synthetic 500×375 images encoded
+   with nvJPEG (quality 90, 4:2:0) into a 4-class JPEG folder; nvJPEG's
+   decode of the committed fixtures (``tests/data/torch_jpeg``) held to the
+   JAX package's PIL arrays (mean |Δ| ≤ 1.5 levels, PSNR ≥ 40 dB); a
+   torchvision-layout ResNet-50 ``nn.Module`` (bf16, seed 0) through
+   ``TorchSubjectModel`` held to the native ``ResNet(50)`` on the same state
+   dict (layer3/layer4 taps within 2^-7 relative); then ``ImageFolder`` →
+   the fused Collect+Embed pass with OpenCLIP RN50 bf16 (embed dim 1024) →
+   concept DB, text probing, redundancy, ``visualize_components`` to a PNG,
+   and ``POST /image_search`` with a fixture's bytes. Prints the decode rate,
+   the fused pass cold and warm, the RN50 tower and the adapter against the
+   native ResNet per batch, the RN50 tower's bf16 error against float32,
+   the image-search latency and peak memory.
 
-After the build, ``[env]`` reports whether ``g++``, libjpeg and the CUDA
-toolkit's nvJPEG exist (what a native JPEG decoder would need).
+After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
+toolkit's nvJPEG and matplotlib exist.
 
 Each path's K1 launches are counted from 0 and printed per path; the
 analyze path must launch the tiled kernel, the serve path the streaming
@@ -62,9 +75,11 @@ temporary directory; the kernel build goes to the package's ignored
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -93,10 +108,73 @@ GRAPH_LAUNCHES = 20
 AUDIT = {"queries": 1024, "components": 1 << 20, "k": 32, "chunk": 65536}
 # The preempted sweep: checkpoints every 512 samples, stops after the batch at 768.
 RESUME = {"images": 1024, "batch": 256, "checkpoint": 512, "crash_at": 768}
+# The bring-your-own path: a JPEG folder encoded on the card (ImageNet-val's common size).
+FOLDER = {"images": 2048, "width": 500, "height": 375, "quality": 90, "classes": 4, "batch": 256}
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_jpeg"
+# The decode of the fixtures against the JAX package's PIL arrays.
+DECODE_BOUNDS = {"mean_abs_levels": 1.5, "psnr_db": 40.0}
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+class TorchvisionBottleneck(torch.nn.Module):
+    """torchvision's ``Bottleneck`` (v1.5: the stride on the 3×3 conv), one in-place ReLU for all three."""
+
+    def __init__(self, in_ch: int, width: int, stride: int):
+        super().__init__()
+        nn = torch.nn
+        self.conv1, self.bn1 = nn.Conv2d(in_ch, width, 1, bias=False), nn.BatchNorm2d(width)
+        self.conv2, self.bn2 = nn.Conv2d(width, width, 3, stride, 1, bias=False), nn.BatchNorm2d(width)
+        self.conv3, self.bn3 = nn.Conv2d(width, width * 4, 1, bias=False), nn.BatchNorm2d(width * 4)
+        self.relu = nn.ReLU(inplace=True)
+        if stride != 1 or in_ch != width * 4:
+            self.downsample = nn.Sequential(nn.Conv2d(in_ch, width * 4, 1, stride, bias=False),
+                                            nn.BatchNorm2d(width * 4))
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = self.downsample(x) if hasattr(self, "downsample") else x
+        return self.relu(out + identity)
+
+
+class TorchvisionResNet50(torch.nn.Module):
+    """A torchvision-layout ResNet-50 in plain ``torch.nn``: the bring-your-own subject of ``[folder]``.
+
+    Module and parameter names are torchvision's, so its ``state_dict()``
+    loads into the port's native ``ResNet`` (``load_torch_state_dict``), and
+    the initialization is torchvision's (Kaiming-normal fan-out convs, unit
+    BN, PyTorch's default Linear).
+    """
+
+    def __init__(self, num_classes: int = 1000):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        in_ch = 64
+        for stage, n_blocks in enumerate((3, 4, 6, 3), start=1):
+            width = 64 * 2 ** (stage - 1)
+            blocks = []
+            for b in range(n_blocks):
+                blocks.append(TorchvisionBottleneck(in_ch, width, 2 if stage > 1 and b == 0 else 1))
+                in_ch = width * 4
+            setattr(self, f"layer{stage}", nn.Sequential(*blocks))
+        self.avgpool = nn.AdaptiveAvgPool2d(1)
+        self.fc = nn.Linear(2048, num_classes)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return self.fc(torch.flatten(self.avgpool(x), 1))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -267,9 +345,18 @@ def phase_kernels(dev):
         "serve label 64x1000x512": (randn(64, 512), randn(1000, 512)),
         "serve query 1x1024x512": (randn(1, 512), randn(1024, 512)),
         "serve query 1x2048x512": (randn(1, 512), randn(2048, 512)),
+        # the bring-your-own path: CLIP RN50 embeds in 1024 dimensions
+        "probe 8x1024x1024": (randn(8, 1024), randn(1024, 1024)),
+        "probe 8x2048x1024": (randn(8, 1024), randn(2048, 1024)),
+        "redundancy 1024x1024x1024": (randn(1024, 1024),) * 2,
+        "redundancy 2048x2048x1024": (randn(2048, 1024),) * 2,
+        "near-duplicates 2048x2048x1024": (near_duplicate_bank(2048, 1024),) * 2,
+        "serve query 1x1024x1024": (randn(1, 1024), randn(1024, 1024)),
+        "serve query 1x2048x1024": (randn(1, 1024), randn(2048, 1024)),
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 1024x1024x512",
-             "redundancy 2048x2048x512", "audit 4096x8192x512")
+             "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
+             "redundancy 2048x2048x1024")
     rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
@@ -795,8 +882,8 @@ def phase_serve(dev, res):
         if _http_json(f"{base}/healthz") != (200, {"ok": True, "layers": ["layer3", "layer4"]}):
             raise AssertionError("[serve] healthz")
         status, out = _http_json(f"{base}/image_search?k=5", data=b"\xff\xd8\xff" + bytes(64), method="POST")
-        if status != 501 or "queue 1 item 5" not in out["error"]:
-            raise AssertionError(f"[serve] POST /image_search: {status} {out}")
+        if status != 400 or "request body" not in out["error"]:
+            raise AssertionError(f"[serve] POST /image_search of a broken JPEG: {status} {out}")
         launches = k1.launch_counts()
     finally:
         server.shutdown()
@@ -926,7 +1013,7 @@ def phase_resume(dev):
 
 
 def phase_env():
-    """What the native JPEG decoder (ROADMAP queue 1 item 5) would need on this machine."""
+    """What a host JPEG decoder would need on this machine (g++, libjpeg), nvJPEG, and matplotlib."""
     import ctypes.util
 
     headers = [p for p in ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h") if Path(p).exists()]
@@ -938,7 +1025,258 @@ def phase_env():
                             for p in (cuda / d).glob("libnvjpeg.so*"))[:1],
            "nvjpeg_h": [str(p) for d in ("include", "targets/x86_64-linux/include")
                         if (p := cuda / d / "nvjpeg.h").exists()][:1]}
+    # For information: the port does not use matplotlib (and so does not import it here either).
+    spec = importlib.util.find_spec("matplotlib")
+    env["matplotlib"] = spec.origin if spec is not None else None
     log(f"[env] {json.dumps(env)}")
+
+
+def synthetic_scenes(gen, n, h, w, dev) -> torch.Tensor:
+    """(n, h, w, 3) uint8 on the card from ``gen``: colour gradients, sharp discs, sensor noise."""
+    y = torch.linspace(0.0, 1.0, h, device=dev).view(1, h, 1, 1)
+    x = torch.linspace(0.0, 1.0, w, device=dev).view(1, 1, w, 1)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    img = 255 * rand(n, 1, 1, 3) + (255 * rand(n, 1, 1, 3) - 128) * x + (255 * rand(n, 1, 1, 3) - 128) * y
+    yy, xx = y * h, x * w
+    for _ in range(5):
+        cy, cx = h * rand(n, 1, 1, 1), w * rand(n, 1, 1, 1)
+        radius = 10 + (min(h, w) / 3) * rand(n, 1, 1, 1)
+        img = torch.where((yy - cy) ** 2 + (xx - cx) ** 2 < radius**2, 255 * rand(n, 1, 1, 3), img)
+    img = img + 6 * torch.randn(n, h, w, 3, generator=gen, device=dev)
+    return img.clamp_(0, 255).round_().to(torch.uint8)
+
+
+def make_jpeg_folder(dev, root: Path) -> dict:
+    """FOLDER["images"] synthetic images encoded with nvJPEG (quality 90, 4:2:0) into a
+    class-per-subdirectory folder; returns the encode's numbers."""
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+
+    n, h, w, classes = FOLDER["images"], FOLDER["height"], FOLDER["width"], FOLDER["classes"]
+    encoder = NvJpegDecoder(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    total_bytes, t0, chunk = 0, time.perf_counter(), 256
+    for start in range(0, n, chunk):
+        scenes = synthetic_scenes(gen, min(chunk, n - start), h, w, dev)
+        for i in range(scenes.shape[0]):
+            index = start + i
+            data = encoder.encode(scenes[i], FOLDER["quality"])
+            folder = root / f"class_{index * classes // n}"
+            folder.mkdir(parents=True, exist_ok=True)
+            (folder / f"{index:05d}.jpg").write_bytes(data)
+            total_bytes += len(data)
+    encoder.close()
+    return {"images": n, "size": [w, h], "quality": FOLDER["quality"], "classes": classes,
+            "mean_kb": total_bytes / n / 1024, "encode_s": round(time.perf_counter() - t0, 4)}
+
+
+def check_fixture_decode(dev) -> dict:
+    """nvJPEG (planes, then libjpeg's upsampling and colour conversion) and the float32 resize on the
+    committed fixtures against the JAX package's PIL arrays at 224: mean |Δ|, max |Δ|, PSNR."""
+    from semanticlens_tpu_torch.data import ImageFolder
+
+    ref = np.load(FIXTURES / "pil_224.npz")
+    ds = ImageFolder(FIXTURES, image_size=224, device=dev)
+    batch = ds.get_batch(0, len(ds)).cpu().numpy()
+    report = {}
+    for i, (path, _) in enumerate(ds.samples):
+        if not np.array_equal(batch[i], ds[i][0]):  # a batch decoded without waiting = one image at a time
+            raise AssertionError(f"[folder] {path.name}: get_batch differs from a single decode")
+        diff = batch[i].astype(np.float64) - ref[path.name]
+        mse = float((diff**2).mean())
+        report[path.name] = {"mean_abs": float(np.abs(diff).mean()), "max_abs": float(np.abs(diff).max()),
+                             "psnr_db": 10 * math.log10(255.0**2 / max(mse, 1e-12))}
+    log(f"[folder] decode vs PIL (JAX ImageFolder(decoder='pil')), image_size 224: {json.dumps(report)}")
+    missed = {k: v for k, v in report.items()
+              if v["mean_abs"] > DECODE_BOUNDS["mean_abs_levels"] or v["psnr_db"] < DECODE_BOUNDS["psnr_db"]}
+    if missed:
+        raise AssertionError(f"[folder] decode misses {DECODE_BOUNDS} on {sorted(missed)}")
+    return report
+
+
+def check_truncated_refused(dev) -> str:
+    """A fixture with an EXIF thumbnail spliced in (a whole JPEG in APP1, EOI included), cut inside its
+    scan: nvJPEG would decode it, the check before it must refuse it; the whole file decodes as the fixture."""
+    from semanticlens_tpu_torch.data.native_decoder import JpegError, NvJpegDecoder
+
+    main, thumb = ((FIXTURES / name).read_bytes() for name in ("a_420_500x375.jpg", "e_small_160x120.jpg"))
+    tiff = (b"II*\x00" + struct.pack("<IHI", 8, 0, 14)  # IFD0: no entries; IFD1 at 14 locates the thumbnail at 44
+            + struct.pack("<HHHIIHHIII", 2, 0x0201, 4, 1, 44, 0x0202, 4, 1, len(thumb), 0) + thumb)
+    payload = b"Exif\x00\x00" + tiff
+    whole = main[:2] + b"\xff\xe1" + struct.pack(">H", 2 + len(payload)) + payload + main[2:]
+    scan = whole.rfind(b"\xff\xda")
+    decoder = NvJpegDecoder(dev)
+    if not torch.equal(decoder.decode(whole), decoder.decode(main)):
+        raise AssertionError("[folder] the thumbnail-bearing file decodes other than the fixture")
+    try:
+        decoder.decode(whole[: scan + (len(whole) - scan) // 2], "cut.jpg")
+    except JpegError as exc:
+        return str(exc)
+    finally:
+        decoder.close()
+    raise AssertionError("[folder] nvJPEG path decoded a truncated file with a thumbnail")
+
+
+def rn50_precision(dev, fm, pre) -> dict:
+    """The bf16 RN50 tower against the same weights in float32 on the same batch, with the attention
+    pool in bf16 (the tower as it runs) and in float32 on the bf16 trunk."""
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.foundation_models import clip as tclip
+
+    fm32 = OpenClip("RN50", dtype=torch.float32, device=dev, seed=0)
+    with torch.inference_mode():
+        ref = fm32.encode_image(pre)
+        bf16 = fm.encode_image(pre)
+        trunk = tclip.resnet_trunk(fm.params, fm.cfg, pre, dtype=torch.bfloat16)
+        pool32 = tclip.attention_pool({k: v.float() for k, v in fm.params.items()}, trunk.float())
+    del fm32
+
+    def err(e):
+        return {"rel_l2": float((e - ref).norm() / ref.norm()),
+                "min_cosine": float(torch.nn.functional.cosine_similarity(e, ref).min())}
+
+    return {"pool_bf16": err(bf16), "pool_fp32": err(pool32)}
+
+
+def phase_folder(dev):
+    """The bring-your-own path at full width: a torchvision-layout ResNet-50 ``nn.Module`` through
+    ``TorchSubjectModel``, a JPEG ``ImageFolder`` decoded on the card, CLIP RN50; K1 counted from 0."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ImageFolder
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet, TorchSubjectModel
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+    from semanticlens_tpu_torch.serve import SearchService, serve
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, batch = FOLDER["images"], FOLDER["batch"]
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        summary["folder"] = make_jpeg_folder(dev, tmp / "jpegs")
+        summary["fixtures"] = check_fixture_decode(dev)
+        summary["truncated_with_thumbnail"] = check_truncated_refused(dev)
+        ds = ImageFolder(tmp / "jpegs", image_size=224, name="synthetic-jpeg", device=dev)
+        if len(ds) != n or len(ds.class_to_idx) != FOLDER["classes"]:
+            raise AssertionError(f"[folder] ImageFolder lists {len(ds)} images in {len(ds.class_to_idx)} classes")
+
+        # Decode alone: the worker thread's batches, every one waited for.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in ds.iter_batches(batch):
+            b.ready.synchronize()
+        summary["decode_images_per_s"] = n / (time.perf_counter() - t)
+
+        # The subject: a torchvision-layout ResNet-50, seed 0, bf16, through the adapter; the same
+        # state dict in the port's native ResNet.
+        torch.manual_seed(0)
+        module = TorchvisionResNet50().to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+        subject = TorchSubjectModel(module, name="torchvision-resnet50", device=dev)
+        native = ResNet(depth=50, dtype=torch.bfloat16, device=dev)
+        native_params = native.load_torch_state_dict(module.state_dict())
+        summary["subject_params"] = sum(p.numel() for p in module.parameters())
+        model_pre = make_preprocess_fn(size=224)
+        first = ds.get_batch(0, batch)
+        with torch.inference_mode():
+            pre = model_pre(first)
+            _, a_taps = subject.apply({}, pre, ("layer3", "layer4"))
+            _, n_taps = native.apply(native_params, pre, ("layer3", "layer4"))
+        taps_report = {}
+        for layer in ("layer3", "layer4"):
+            a, b_ = a_taps[layer], n_taps[layer].float()
+            rel = ((a - b_).abs() / b_.abs().clamp_min(1e-30)).masked_fill((a - b_) == 0, 0.0)
+            taps_report[layer] = {"max_rel": float(rel.max()), "equal_share": float((a == b_).float().mean())}
+            if a.shape != b_.shape or not torch.allclose(a, b_, rtol=2**-7, atol=0.0):
+                raise AssertionError(f"[folder] adapter tap {layer} differs from the native ResNet-50: {taps_report}")
+        summary["adapter_vs_native_taps"] = taps_report
+        summary["adapter_ms_per_batch"] = time_ms(lambda: subject.apply({}, pre, ("layer3", "layer4")), 5, 2)
+        summary["native_ms_per_batch"] = time_ms(lambda: native.apply(native_params, pre, ("layer3", "layer4")), 5, 2)
+        del native, native_params, a_taps, n_taps
+
+        fm = OpenClip("RN50", dtype=torch.bfloat16, device=dev, seed=0)
+        with torch.inference_mode():
+            clip_pre = fm.preprocess(first)
+            summary["rn50_ms_per_batch"] = time_ms(lambda: fm.encode_image(clip_pre), 5, 2)
+            summary["rn50_precision_64_images"] = rn50_precision(dev, fm, clip_pre[:64])
+        del first, pre, clip_pre
+
+        cv = ActivationComponentVisualizer(
+            model=subject, dataset_model=ds, dataset_fm=ds, layer_names=["layer3", "layer4"], num_samples=25,
+            aggregate_fn=aggregate_conv_mean, model_preprocess=model_pre, cache_dir=str(tmp / "cache"))
+        lens = Lens(fm)
+        queries, templates = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"], ["a photo of a {}"]
+        fixture = (FIXTURES / "a_420_500x375.jpg").read_bytes()
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        db = lens.compute_concept_db(cv, batch_size=batch)
+        torch.cuda.synchronize()
+        summary["fused_pass_cold_s"] = time.perf_counter() - t
+        agg = {k: v.mean(1) for k, v in db.items()}
+        hits = lens.text_probing(queries, agg, templates=templates)
+        redundancy = {k: float(v) for k, v in lens.eval_redundancy(agg).items()}
+        plot = cv.visualize_components([0, 1, 2, 3], "layer4", n_samples=9, nrows=3)
+        service = SearchService(fm, agg, templates=templates)
+        server, thread = serve(service, port=0, background=True)
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/image_search?k=5"
+            search_ms, out = [], None
+            for _ in range(20):
+                t = time.perf_counter()
+                status, out = _http_json(url, data=fixture, method="POST")
+                search_ms.append(1e3 * (time.perf_counter() - t))
+                if status != 200:
+                    raise AssertionError(f"[folder] POST /image_search: {status} {out}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        launches = k1.launch_counts()
+        decoder = NvJpegDecoder(dev)
+        direct = service.image_search(decoder.decode(fixture, "a_420_500x375.jpg"), k=5)
+        service.close()
+        if out["results"] != direct:
+            raise AssertionError("[folder] the uploaded JPEG's results differ from image_search on its decode")
+
+        for layer, c in (("layer3", 1024), ("layer4", 2048)):
+            if db[layer].shape != (c, 25, 1024) or not np.isfinite(db[layer]).all():
+                raise AssertionError(f"[folder] concept DB {layer}: {db[layer].shape}")
+            ids = cv.get_max_reference(layer)
+            if ids.min() < -1 or ids.max() >= n:  # -1: an empty slot of a dead component
+                raise AssertionError(f"[folder] ids of {layer} out of range [{ids.min()}, {ids.max()}]")
+            if hits[layer].shape != (8, c) or not np.isfinite(hits[layer]).all() or not np.isfinite(redundancy[layer]):
+                raise AssertionError(f"[folder] probing / redundancy of {layer}")
+        png = Path(plot).read_bytes()
+        if not png.startswith(b"\x89PNG\r\n\x1a\n") or Path(plot).parent.name != "plots":
+            raise AssertionError(f"[folder] visualize_components wrote {plot}")
+        width, height = struct.unpack(">II", png[16:24])
+        if launches["streaming"] < 1 or launches["tiled"] < 2:
+            raise AssertionError(f"[folder] K1 launches on the path: {launches}")
+
+        def embed_fn(raw):
+            return fm.encode_image(fm.preprocess(raw))
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cv.engine.run_fused(cv.params, ds, batch, embed_fn)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+    summary.update({
+        "images_per_s_fused_cold": n / summary["fused_pass_cold_s"], "images_per_s_fused_warm": n / warm_s,
+        "image_search_http": _percentiles(search_ms), "plot": {"name": Path(plot).name, "width": width,
+                                                               "height": height, "bytes": len(png)},
+        "redundancy": redundancy, "k1_launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    log(f"[folder] {json.dumps(summary)}")
+    return launches
 
 
 def main():
@@ -962,6 +1300,7 @@ def main():
         by_path = {"quickstart": launches, "analyze": phase_analyze(dev, res), "serve": phase_serve(dev, res)}
         del res
         by_path["resume"] = phase_resume(dev)
+        by_path["folder"] = phase_folder(dev)
     log(f"[launches] K1 per path: {json.dumps(by_path)}")
     phase_main_path_shapes(dev, shapes, checked, max_err)
 
@@ -985,8 +1324,14 @@ def main():
             "shape": shape,
         }
 
-    kernels = {"kernels": [entry("tiled", "redundancy 2048x2048x512"),
-                           entry("streaming", "probe 8x2048x512")]}
+    def at_d1024(shape):
+        row = next(r for r in rows if r["shape"] == shape)
+        return {key: row[key] for key in ("ms", "plain_ms", "library_ms", "device_ms", "device_ms_cold_l2",
+                                          "library_device_ms", "library_device_ms_cold_l2", "bound_ms",
+                                          "bound_by", "share_of_bound_cold_l2")} | {"shape": shape}
+
+    kernels = {"kernels": [entry("tiled", "redundancy 2048x2048x512") | {"at_d1024": at_d1024("redundancy 2048x2048x1024")},
+                           entry("streaming", "probe 8x2048x512") | {"at_d1024": at_d1024("probe 8x2048x1024")}]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

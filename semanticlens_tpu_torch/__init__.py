@@ -8,7 +8,9 @@ the caller passes ``device="cpu"``.
 Workflow (the JAX package's three stages):
 
 1. **Collect** — ``collect.ActivationComponentVisualizer`` streams uint8
-   batches through a tapped subject model (``models.ResNet``) and keeps a
+   batches (``data.ArrayDataset``, or a JPEG ``data.ImageFolder`` decoded on
+   the card) through a tapped subject model (``models.ResNet``, or any
+   ``torch.nn.Module`` through ``models.TorchSubjectModel``) and keeps a
    per-component streaming top-k on the card.
 2. **Embed** — ``foundation_models.OpenClip`` embeds the same uploaded
    batches in the same pass; ``Lens.compute_concept_db`` caches the concept

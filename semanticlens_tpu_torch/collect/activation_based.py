@@ -11,14 +11,21 @@ With a cache root, every sweep checkpoints every ``checkpoint`` samples
 ``-embed`` and resumes from there after a crash; the directory is cleared
 once the sweep's results are stored.
 
-Not ported yet (ROADMAP.md): ``visualize_components`` (needs matplotlib).
+``visualize_components`` composes each component's top examples into one
+uint8 image, laid out as the JAX package's matplotlib figure is (ceil(sqrt)
+columns, one panel per component), and writes it as a PNG with a stdlib
+writer under the JAX package's file name. The card has neither matplotlib
+nor PIL, so panels carry no titles.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
+import struct
 import warnings
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +34,7 @@ import torch
 from semanticlens_tpu_torch.collect.activation_caching import ActMaxCache
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
 from semanticlens_tpu_torch.collect.engine import CollectEngine, EmbedSink
-from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, iter_batches, prefetch_batches
+from semanticlens_tpu_torch.data.dataset import _extract_image, device_prefetch_batches, iter_batches, prefetch_batches
 from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
 from semanticlens_tpu_torch.ops import aggregators
 from semanticlens_tpu_torch.utils.helper import get_fallback_name
@@ -281,6 +288,113 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
 
     def get_max_reference(self, layer_name: str) -> np.ndarray:
         """(n_components, n_samples) dataset indices of the top examples."""
+        self._check_layer_name(layer_name)
+        return self.actmax_cache.cache[layer_name].sample_ids
+
+    # ------------------------------------------------------------------- viz
+    def visualize_components(
+        self,
+        component_ids,
+        layer_name: str,
+        n_samples: int = 9,
+        nrows: int = 3,
+        fname=None,
+        denormalization_fn=None,
+    ):
+        """Compose a grid of top activating samples per component; save it as a PNG.
+
+        The JAX package's layout (ceil(sqrt) columns of panels, one panel
+        per component, each panel ``_make_grid`` of the component's top
+        ``n_samples`` with ``nrows`` images per row), composed into one
+        uint8 (H, W, 3) array; float panels (after a denormalization) are
+        clipped to [0, 1] and scaled to 0–255. No titles are drawn. With
+        caching the image goes to ``storage_dir/plots/`` under the JAX
+        package's name, which is returned; without, returns None.
+        """
+        self._check_layer_name(layer_name)
+        post_process = self._resolve_denormalization(denormalization_fn)
+        component_ids = np.asarray(component_ids)
+        grids = [
+            self._component_example_grid(int(c), layer_name, n_samples, nrows, post_process)
+            for c in component_ids
+        ]
+        n_cols = max(1, math.isqrt(len(grids) - 1) + 1) if grids else 1
+        figure = _make_grid([_to_uint8(g) for g in grids], nrow=n_cols)
+        if not self.caching:
+            if fname:
+                logger.warning(
+                    "Failed to save visualization. Caching is not enabled in the "
+                    "ComponentVisualizer (`cv.caching: False`)"
+                )
+            return None
+        stem = "-".join(str(int(c)) for c in component_ids)
+        fdir = self.storage_dir / "plots"
+        fdir.mkdir(parents=True, exist_ok=True)
+        fpath = fdir / ((fname + "_" if fname else "") + f"{layer_name}_{stem}.png")
+        write_png(fpath, figure)
+        logger.info(f"Saved visualization to {fpath}")
+        return fpath
+
+    def _resolve_denormalization(self, denormalization_fn):
+        """The de-normalizer for raw dataset items: the dataset's attribute wins, then
+        the argument, then identity (reference precedence)."""
+        ds_fn = getattr(self.dataset, "denormalization_fn", None)
+        if ds_fn is not None:
+            return ds_fn
+        if denormalization_fn is not None:
+            return denormalization_fn
+        logger.debug("Dataset does not have denormalization_fn method.")
+        return lambda x: x
+
+    def _component_example_grid(self, component_id, layer_name, n_samples, nrows, post_process):
+        """Tile one component's top-``n_samples`` dataset items into a grid.
+
+        ``post_process`` receives the raw dataset item; numpy conversion after.
+        """
+        ids = self.get_max_reference(layer_name)[component_id][:n_samples]
+        imgs = [np.asarray(post_process(_extract_image(self.dataset[int(i)]))) for i in ids]
+        return _make_grid(imgs, nrow=nrows)
+
+    def _check_layer_name(self, layer_name: str):
         if layer_name not in self.layer_names:
             raise ValueError(f"Layer '{layer_name}' not found in model layers: {self.layer_names}")
-        return self.actmax_cache.cache[layer_name].sample_ids
+
+
+def _make_grid(imgs: list[np.ndarray], nrow: int = 3) -> np.ndarray:
+    """Tile (H, W, C) images into a grid, row-major, ``nrow`` images per row."""
+    imgs = [np.atleast_3d(np.asarray(i)) for i in imgs]
+    h = max(i.shape[0] for i in imgs)
+    w = max(i.shape[1] for i in imgs)
+    c = imgs[0].shape[2]
+    n = len(imgs)
+    ncols = min(nrow, n)
+    nrows_ = (n + ncols - 1) // ncols
+    grid = np.zeros((nrows_ * h, ncols * w, c), imgs[0].dtype)
+    for i, img in enumerate(imgs):
+        r, col = divmod(i, ncols)
+        grid[r * h : r * h + img.shape[0], col * w : col * w + img.shape[1]] = img
+    return grid
+
+
+def _to_uint8(img: np.ndarray) -> np.ndarray:
+    """uint8 stays; floats (images in [0, 1], as matplotlib shows them) clip and scale to 0–255."""
+    if img.dtype == np.uint8:
+        return img
+    return np.round(np.clip(np.asarray(img, np.float64), 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """Write an (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) uint8 array as an 8-bit PNG (zlib, no filter)."""
+    image = np.ascontiguousarray(np.atleast_3d(image))
+    if image.dtype != np.uint8 or image.shape[2] not in (1, 3, 4):
+        raise ValueError(f"write_png takes uint8 with 1, 3 or 4 channels, got {image.dtype} {image.shape}")
+    h, w, c = image.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * c)], axis=1)  # filter 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))

@@ -4,12 +4,15 @@ Counterpart of ``semanticlens_tpu.data.dataset``. ``iter_batches`` pads the
 last short batch and marks padded rows invalid, as in the JAX package (the
 collect engine masks them to −inf); a dataset may stream its own batches
 (an ``iter_batches`` method) or assemble them itself (``get_batch``).
-:func:`prefetch_batches` assembles host batches on a background thread.
+A ``get_batch`` that decodes on the card returns a CUDA tensor: it passes
+through, padded on the device, with an event recorded after the work that
+made it. :func:`prefetch_batches` assembles batches on a background thread.
 :func:`device_prefetch_batches` replaces
-the JAX package's threaded ``device_put``: each batch is copied into pinned
-host memory and uploaded on a side CUDA stream, up to ``depth`` batches ahead
-of the compute stream, which waits on each upload's event before using it.
-Images keep their host dtype (uint8 goes up as uint8).
+the JAX package's threaded ``device_put``: each host batch is copied into
+pinned host memory and uploaded on a side CUDA stream, up to ``depth``
+batches ahead of the compute stream, which waits on each upload's (or
+decode's) event before using it. Images keep their dtype (uint8 goes up as
+uint8).
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ import torch
 
 
 class Batch(NamedTuple):
-    """One fixed-shape batch of host data."""
+    """One fixed-shape batch: host data, or a tensor a dataset decoded on the card."""
 
-    images: np.ndarray  # (B, H, W, C)
+    images: np.ndarray | torch.Tensor  # (B, H, W, C)
     start_index: int  # global dataset index of row 0
     valid: np.ndarray  # (B,) bool; False for padded rows
+    ready: torch.cuda.Event | None = None  # for CUDA images: recorded after the work that made them
 
 
 class ArrayDataset:
@@ -110,6 +114,15 @@ def iter_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[
     if custom is not None:
         yield from custom(batch_size, pad_last=True, start_index=start_index)
         return
+    yield from assemble_batches(dataset, batch_size, start_index=start_index)
+
+
+def assemble_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[Batch]:
+    """The batches of :func:`iter_batches`, assembled from the dataset's images, ``get_batch`` or items.
+
+    A CUDA tensor from ``get_batch`` stays on the card: it is padded there,
+    and an event is recorded on the current stream after it.
+    """
     n = len(dataset)
     fast_images = getattr(dataset, "images", None)
     get_batch = getattr(dataset, "get_batch", None)
@@ -118,15 +131,24 @@ def iter_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[
         if fast_images is not None:
             block = np.asarray(fast_images[start:stop])
         elif get_batch is not None:
-            block = np.asarray(get_batch(start, stop))
+            block = get_batch(start, stop)
+            if not isinstance(block, torch.Tensor):
+                block = np.asarray(block)
         else:
             block = np.stack([np.asarray(_extract_image(dataset[i])) for i in range(start, stop)])
         valid = np.ones(batch_size, bool)
         if stop - start < batch_size:
             pad = batch_size - (stop - start)
-            block = np.concatenate([block, np.zeros((pad, *block.shape[1:]), block.dtype)])
+            if isinstance(block, torch.Tensor):
+                block = torch.cat([block, block.new_zeros((pad, *block.shape[1:]))])
+            else:
+                block = np.concatenate([block, np.zeros((pad, *block.shape[1:]), block.dtype)])
             valid[stop - start :] = False
-        yield Batch(images=block, start_index=start, valid=valid)
+        ready = None
+        if isinstance(block, torch.Tensor) and block.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(block.device))
+        yield Batch(images=block, start_index=start, valid=valid, ready=ready)
 
 
 def prefetch_batches(batch_iter: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:
@@ -161,11 +183,12 @@ def prefetch_batches(batch_iter: Iterator[Batch], depth: int = 2) -> Iterator[Ba
 def device_prefetch_batches(batch_iter: Iterator[Batch], device: torch.device, depth: int = 2):
     """Upload batches ahead of compute; yields ``(images_on_device, start_index, valid_host)``.
 
-    On a CUDA device each batch is pinned and copied on a side stream with
-    ``non_blocking=True``; the consumer's current stream waits on the copy's
-    event, and the device tensor is recorded on that stream so the caching
-    allocator keeps it until the compute that reads it is done. On the CPU
-    batches pass through as tensors.
+    On a CUDA device each host batch is pinned and copied on a side stream
+    with ``non_blocking=True``; a batch already on the card (decoded there)
+    is not copied. Either way the consumer's current stream waits on the
+    batch's event, and the device tensor is recorded on that stream so the
+    caching allocator keeps it until the compute that reads it is done. On
+    the CPU batches pass through as tensors.
     """
     if device.type != "cuda":
         for batch in batch_iter:
@@ -176,6 +199,8 @@ def device_prefetch_batches(batch_iter: Iterator[Batch], device: torch.device, d
     pending: list = []
 
     def upload(batch: Batch):
+        if isinstance(batch.images, torch.Tensor) and batch.images.is_cuda:
+            return batch.images, getattr(batch, "ready", None), batch
         host = torch.from_numpy(np.ascontiguousarray(batch.images)).pin_memory()
         with torch.cuda.stream(side):
             images = host.to(device, non_blocking=True)
@@ -186,7 +211,8 @@ def device_prefetch_batches(batch_iter: Iterator[Batch], device: torch.device, d
     def ready(item):
         images, done, batch = item
         compute = torch.cuda.current_stream(device)
-        compute.wait_event(done)
+        if done is not None:
+            compute.wait_event(done)
         images.record_stream(compute)
         return images, batch.start_index, batch.valid
 

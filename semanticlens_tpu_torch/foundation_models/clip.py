@@ -1,21 +1,28 @@
-"""CLIP ViT image tower and causal text tower, functional, on torch tensors.
+"""CLIP image towers (ViT and ModifiedResNet) and causal text tower, functional, on torch tensors.
 
-Counterpart of ``semanticlens_tpu.foundation_models.clip`` for the ViT
-presets. Parameter names mirror open_clip state dicts
-(``visual.conv1.weight``, ``transformer.resblocks.0.attn.in_proj_weight``
-…) in torch's layouts, so an open_clip state dict loads as it is and the
-JAX package's parameters come across through
-:func:`semanticlens_tpu_torch.convert.clip_params_from_jax`. Preprocessing
-(resize/crop/normalize) runs on the device.
+Counterpart of ``semanticlens_tpu.foundation_models.clip``. Parameter names
+mirror open_clip state dicts (``visual.conv1.weight``,
+``visual.layer1.0.bn1.running_mean``,
+``transformer.resblocks.0.attn.in_proj_weight`` …) in torch's layouts, so an
+open_clip state dict (or a ``.safetensors``/``.npz`` file of one, the
+``checkpoint=`` argument) loads as it is, and the JAX package's parameters
+come across through :func:`semanticlens_tpu_torch.convert.clip_params_from_jax`.
+Preprocessing (resize/crop/normalize) runs on the device.
 
-Not ported yet (ROADMAP.md): the ModifiedResNet tower (RN50/RN101 presets), loading
-pretrained checkpoints from files, and int8 quantization.
+Precision: convs and matmuls run in the tower's dtype (bf16 on the card);
+layer norms, BN statistics and the final projections are kept and applied
+in float32. The ModifiedResNet's attention pool runs in the tower's dtype,
+as in the JAX package (PERF.md records its error against float32 on the
+card).
+
+Not ported yet (ROADMAP.md): int8 quantization.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
@@ -26,12 +33,15 @@ from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
 from semanticlens_tpu_torch.foundation_models.common import init_from_specs
 from semanticlens_tpu_torch.foundation_models.tokenizer import ClipBpeTokenizer, HashTokenizer
 from semanticlens_tpu_torch.models.layers import (
+    avg_pool,
+    batch_norm,
     conv2d,
     gelu,
     layer_norm,
     linear,
     multi_head_attention,
     quick_gelu,
+    scaled_dot_product_attention,
 )
 from semanticlens_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, preprocess_images
 from semanticlens_tpu_torch.utils.device import resolve_device
@@ -41,12 +51,15 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class VisionCfg:
-    kind: str = "vit"
+    kind: str = "vit"  # "vit" or "resnet"
     image_size: int = 224
+    # ViT
     patch_size: int = 32
     width: int = 768
-    layers: int = 12
+    layers: int | tuple[int, int, int, int] = 12
     heads: int = 12
+    # ResNet stem width (CLIP ModifiedResNet "width")
+    resnet_width: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +82,11 @@ class CLIPConfig:
 
 
 CLIP_PRESETS: dict[str, CLIPConfig] = {
+    "RN50": CLIPConfig(
+        embed_dim=1024,
+        vision=VisionCfg(kind="resnet", image_size=224, layers=(3, 4, 6, 3), resnet_width=64),
+        text=TextCfg(width=512, heads=8, layers=12),
+    ),
     "ViT-B-32": CLIPConfig(
         embed_dim=512,
         vision=VisionCfg(patch_size=32, width=768, layers=12, heads=12),
@@ -88,6 +106,11 @@ CLIP_PRESETS: dict[str, CLIPConfig] = {
         embed_dim=768,
         vision=VisionCfg(image_size=336, patch_size=14, width=1024, layers=24, heads=16),
         text=TextCfg(width=768, heads=12, layers=12),
+    ),
+    "RN101": CLIPConfig(
+        embed_dim=512,
+        vision=VisionCfg(kind="resnet", image_size=224, layers=(3, 4, 23, 3), resnet_width=64),
+        text=TextCfg(width=512, heads=8, layers=12),
     ),
 }
 
@@ -124,6 +147,67 @@ def vit_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
     x = transformer_stack(params, "visual.transformer", x, v.layers, v.heads, quick=cfg.quick_gelu)
     pooled = layer_norm(x[:, 0], params["visual.ln_post.weight"], params["visual.ln_post.bias"])
     return pooled.float() @ params["visual.proj"].float()
+
+
+# --------------------------------------------------------------------------- #
+# ModifiedResNet image tower (CLIP RN50 family)
+# --------------------------------------------------------------------------- #
+def _bn(params, prefix, x):
+    return batch_norm(x, params[f"{prefix}.weight"], params[f"{prefix}.bias"],
+                      params[f"{prefix}.running_mean"], params[f"{prefix}.running_var"])
+
+
+def _rn_bottleneck(params, prefix, x, stride):
+    """CLIP's anti-aliased Bottleneck: stride-1 convs, average pooling for striding."""
+    identity = x
+    out = torch.relu(_bn(params, f"{prefix}.bn1", conv2d(x, params[f"{prefix}.conv1.weight"])))
+    out = torch.relu(_bn(params, f"{prefix}.bn2", conv2d(out, params[f"{prefix}.conv2.weight"], padding=1)))
+    if stride > 1:
+        out = avg_pool(out, window=stride, stride=stride)
+    out = _bn(params, f"{prefix}.bn3", conv2d(out, params[f"{prefix}.conv3.weight"]))
+    if f"{prefix}.downsample.0.weight" in params:
+        if stride > 1:
+            identity = avg_pool(identity, window=stride, stride=stride)
+        identity = _bn(params, f"{prefix}.downsample.1", conv2d(identity, params[f"{prefix}.downsample.0.weight"]))
+    return torch.relu(out + identity)
+
+
+def resnet_trunk(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
+    """(B, H, W, 3) preprocessed → (B, C, h, w) features before the attention pool (NCHW)."""
+    x = images.permute(0, 3, 1, 2).to(dtype)
+    # 3-conv stem, average-pool downsampling.
+    x = torch.relu(_bn(params, "visual.bn1", conv2d(x, params["visual.conv1.weight"], stride=2, padding=1)))
+    x = torch.relu(_bn(params, "visual.bn2", conv2d(x, params["visual.conv2.weight"], padding=1)))
+    x = torch.relu(_bn(params, "visual.bn3", conv2d(x, params["visual.conv3.weight"], padding=1)))
+    x = avg_pool(x, window=2, stride=2)
+    for stage, n_blocks in enumerate(cfg.vision.layers, start=1):
+        for b in range(n_blocks):
+            stride = (1, 2, 2, 2)[stage - 1] if b == 0 else 1
+            x = _rn_bottleneck(params, f"visual.layer{stage}.{b}", x, stride)
+    return x
+
+
+def attention_pool(params, x):
+    """CLIP's AttentionPool2d over (B, C, h, w) features → (B, embed_dim) float32, in ``x``'s dtype.
+
+    The mean token queries itself and the h·w spatial tokens (row-major),
+    with positions added; ``C // 64`` heads (32 for RN50).
+    """
+    b, c = x.shape[:2]
+    tokens = x.flatten(2).transpose(1, 2)  # (B, h·w, C)
+    seq = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+    seq = seq + params["visual.attnpool.positional_embedding"].to(seq.dtype)
+    p = "visual.attnpool"
+    q = linear(seq[:, :1], params[f"{p}.q_proj.weight"], params[f"{p}.q_proj.bias"])
+    k = linear(seq, params[f"{p}.k_proj.weight"], params[f"{p}.k_proj.bias"])
+    v = linear(seq, params[f"{p}.v_proj.weight"], params[f"{p}.v_proj.bias"])
+    pooled = scaled_dot_product_attention(q, k, v, c // 64)[:, 0]
+    return linear(pooled, params[f"{p}.c_proj.weight"], params[f"{p}.c_proj.bias"]).float()
+
+
+def resnet_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
+    """(B, H, W, 3) preprocessed → (B, embed_dim) float32. CLIP ModifiedResNet with attention pool."""
+    return attention_pool(params, resnet_trunk(params, cfg, images, dtype=dtype))
 
 
 def clip_encode_text(params, cfg: CLIPConfig, tokens, *, dtype=torch.float32):
@@ -164,23 +248,80 @@ def _transformer_param_specs(prefix, layers, width):
     return specs
 
 
-def clip_param_specs(cfg: CLIPConfig):
-    """All (name, shape, init-kind) of a ViT CLIP, shapes in the JAX package's layout."""
-    v, t = cfg.vision, cfg.text
-    if v.kind != "vit":
-        raise ValueError(f"only ViT image towers are ported, got kind={v.kind!r}")
-    grid = v.image_size // v.patch_size
-    specs = [
-        ("visual.conv1.weight", (v.patch_size, v.patch_size, 3, v.width), "patch"),
-        ("visual.class_embedding", (v.width,), "scaled"),
-        ("visual.positional_embedding", (grid * grid + 1, v.width), "scaled"),
-        ("visual.ln_pre.weight", (v.width,), "ones"),
-        ("visual.ln_pre.bias", (v.width,), "zeros"),
-        ("visual.ln_post.weight", (v.width,), "ones"),
-        ("visual.ln_post.bias", (v.width,), "zeros"),
-        ("visual.proj", (v.width, cfg.embed_dim), "scaled"),
+def _bn_specs(prefix, ch):
+    return [
+        (f"{prefix}.weight", (ch,), "ones"),
+        (f"{prefix}.bias", (ch,), "zeros"),
+        (f"{prefix}.running_mean", (ch,), "zeros"),
+        (f"{prefix}.running_var", (ch,), "ones"),
     ]
-    specs += _transformer_param_specs("visual.transformer", v.layers, v.width)
+
+
+def _resnet_param_specs(cfg: CLIPConfig):
+    v = cfg.vision
+    w = v.resnet_width
+    pooled_dim = w * 8 * 4  # final channel count (2048 for RN50)
+    spacial = v.image_size // 32
+    specs = [
+        ("visual.conv1.weight", (3, 3, 3, w // 2), "patch"),
+        *_bn_specs("visual.bn1", w // 2),
+        ("visual.conv2.weight", (3, 3, w // 2, w // 2), "patch"),
+        *_bn_specs("visual.bn2", w // 2),
+        ("visual.conv3.weight", (3, 3, w // 2, w), "patch"),
+        *_bn_specs("visual.bn3", w),
+    ]
+    in_ch = w
+    for stage, n_blocks in enumerate(v.layers, start=1):
+        planes = w * (2 ** (stage - 1))
+        out_ch = planes * 4
+        for b in range(n_blocks):
+            p = f"visual.layer{stage}.{b}"
+            specs += [
+                (f"{p}.conv1.weight", (1, 1, in_ch, planes), "patch"),
+                *_bn_specs(f"{p}.bn1", planes),
+                (f"{p}.conv2.weight", (3, 3, planes, planes), "patch"),
+                *_bn_specs(f"{p}.bn2", planes),
+                (f"{p}.conv3.weight", (1, 1, planes, out_ch), "patch"),
+                *_bn_specs(f"{p}.bn3", out_ch),
+            ]
+            if b == 0:
+                specs += [
+                    (f"{p}.downsample.0.weight", (1, 1, in_ch, out_ch), "patch"),
+                    *_bn_specs(f"{p}.downsample.1", out_ch),
+                ]
+            in_ch = out_ch
+    specs += [
+        ("visual.attnpool.positional_embedding", (spacial * spacial + 1, pooled_dim), "scaled"),
+        ("visual.attnpool.q_proj.weight", (pooled_dim, pooled_dim), "proj"),
+        ("visual.attnpool.q_proj.bias", (pooled_dim,), "zeros"),
+        ("visual.attnpool.k_proj.weight", (pooled_dim, pooled_dim), "proj"),
+        ("visual.attnpool.k_proj.bias", (pooled_dim,), "zeros"),
+        ("visual.attnpool.v_proj.weight", (pooled_dim, pooled_dim), "proj"),
+        ("visual.attnpool.v_proj.bias", (pooled_dim,), "zeros"),
+        ("visual.attnpool.c_proj.weight", (pooled_dim, cfg.embed_dim), "proj"),
+        ("visual.attnpool.c_proj.bias", (cfg.embed_dim,), "zeros"),
+    ]
+    return specs
+
+
+def clip_param_specs(cfg: CLIPConfig):
+    """All (name, shape, init-kind) of a CLIP under ``cfg``, shapes in the JAX package's layout."""
+    v, t = cfg.vision, cfg.text
+    if v.kind == "vit":
+        grid = v.image_size // v.patch_size
+        specs = [
+            ("visual.conv1.weight", (v.patch_size, v.patch_size, 3, v.width), "patch"),
+            ("visual.class_embedding", (v.width,), "scaled"),
+            ("visual.positional_embedding", (grid * grid + 1, v.width), "scaled"),
+            ("visual.ln_pre.weight", (v.width,), "ones"),
+            ("visual.ln_pre.bias", (v.width,), "zeros"),
+            ("visual.ln_post.weight", (v.width,), "ones"),
+            ("visual.ln_post.bias", (v.width,), "zeros"),
+            ("visual.proj", (v.width, cfg.embed_dim), "scaled"),
+        ]
+        specs += _transformer_param_specs("visual.transformer", v.layers, v.width)
+    else:
+        specs = _resnet_param_specs(cfg)
     specs += [
         ("token_embedding.weight", (t.vocab_size, t.width), "embed"),
         ("positional_embedding", (t.context_length, t.width), "scaled"),
@@ -199,30 +340,60 @@ def init_clip_params_jax_layout(seed: int, cfg: CLIPConfig) -> dict[str, np.ndar
 
 
 def _float32_param(name: str) -> bool:
-    """Tensors the towers use in float32: norms and the final projections."""
-    return ".ln_" in name or name.startswith("ln_") or name in (
-        "visual.proj", "text_projection", "logit_scale")
+    """Tensors the towers use in float32: norms (layer and batch) and the final projections."""
+    return (".ln_" in name or name.startswith("ln_") or ".bn" in name or ".downsample.1." in name
+            or name in ("visual.proj", "text_projection", "logit_scale"))
 
 
-def place_clip_params(state_dict: Mapping, cfg: CLIPConfig, dtype, device) -> dict[str, torch.Tensor]:
-    """An open_clip-named torch-layout state dict, placed for the towers.
+def load_openclip_state_dict(cfg: CLIPConfig, state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """An open_clip/OpenAI CLIP torch state dict, checked: float32 CPU tensors in torch's layout.
 
-    Weights the towers cast to the compute dtype on use are stored in it
-    once; norms and projections stay float32. Shapes are checked.
+    Counterpart of the JAX package's ``load_openclip_state_dict``, which
+    relayouts into XLA's layouts; the port keeps torch's (conv OIHW, linear
+    (out, in)). Every name of ``clip_param_specs(cfg)`` must be there
+    (``KeyError`` otherwise) with its torch shape (``ValueError``); other
+    entries (``attn_mask``, ``input_resolution`` …) are ignored.
     """
     out = {}
     for name, shape, _ in clip_param_specs(cfg):
-        t = torch.as_tensor(state_dict[name])
+        t = torch.as_tensor(state_dict[name]).detach().to("cpu", torch.float32)
         expected = shape
         if len(shape) == 4:
             expected = (shape[3], shape[2], shape[0], shape[1])
         elif len(shape) == 2 and name.endswith("weight") and "embedding" not in name:
             expected = shape[::-1]
         if tuple(t.shape) != tuple(expected):
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != expected {expected}")
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != expected {tuple(expected)}")
+        out[name] = t
+    return out
+
+
+def place_clip_params(state_dict: Mapping, cfg: CLIPConfig, dtype, device) -> dict[str, torch.Tensor]:
+    """An open_clip-named torch-layout state dict, checked and placed for the towers.
+
+    Weights the towers cast to the compute dtype on use are stored in it
+    once; norms and projections stay float32.
+    """
+    out = {}
+    for name, t in load_openclip_state_dict(cfg, state_dict).items():
         t = t.to(device, torch.float32 if _float32_param(name) else dtype)
         out[name] = t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
     return out
+
+
+def _load_checkpoint(checkpoint) -> Mapping:
+    """A state dict, or a path to one: ``.safetensors`` (the port's reader) or ``.npz``."""
+    if not isinstance(checkpoint, (str, bytes, Path)) and not hasattr(checkpoint, "__fspath__"):
+        return checkpoint
+    from semanticlens_tpu_torch.utils import safetensors_io
+
+    path = str(checkpoint)
+    if path.endswith(".safetensors"):
+        return safetensors_io.load_file(path)
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            return {k: torch.from_numpy(np.array(data[k])) for k in data.files}
+    raise ValueError(f"Unsupported checkpoint file type: {path}")
 
 
 # --------------------------------------------------------------------------- #
@@ -238,6 +409,8 @@ class OpenClip(AbstractVLM):
     cfg : optional tower configuration that replaces the preset's (a
         cut-down tower, e.g. for tests); ``url`` still names the model.
     params : optional open_clip state dict (torch layout).
+    checkpoint : optional open_clip state dict or path to one
+        (``.safetensors`` or ``.npz``), as in the JAX package.
     jax_params : optional parameter dict in the JAX package's layout.
     bpe_path : CLIP BPE merges file for real tokenization; without it a
         HashTokenizer fallback is used (testing only).
@@ -251,6 +424,7 @@ class OpenClip(AbstractVLM):
         url: str = "ViT-B-32",
         *,
         params=None,
+        checkpoint=None,
         jax_params=None,
         bpe_path=None,
         dtype=torch.bfloat16,
@@ -275,6 +449,8 @@ class OpenClip(AbstractVLM):
         self.device = resolve_device(device)
         self.name = f"OpenClip({url})"
 
+        if params is None and checkpoint is not None:
+            params = _load_checkpoint(checkpoint)
         if params is None:
             if jax_params is None:
                 logger.warning("No weights provided for %s — using random init.", url)
@@ -307,7 +483,8 @@ class OpenClip(AbstractVLM):
         return preprocess_images(x, size=size, crop=size, mean=self.cfg.mean, std=self.cfg.std)
 
     def encode_image(self, img):
-        return vit_encode_image(self.params, self.cfg, img.to(self.device), dtype=self.dtype)
+        encode = vit_encode_image if self.cfg.vision.kind == "vit" else resnet_encode_image
+        return encode(self.params, self.cfg, img.to(self.device), dtype=self.dtype)
 
     def tokenize(self, txt, context_length=None):
         ids = self.tokenizer(txt, context_length or self.context_length)

@@ -2,5 +2,6 @@
 
 from semanticlens_tpu_torch.models.base import SubjectModel, TapCollector
 from semanticlens_tpu_torch.models.resnet import ResNet
+from semanticlens_tpu_torch.models.torch_adapter import TorchSubjectModel
 
-__all__ = ["ResNet", "SubjectModel", "TapCollector"]
+__all__ = ["ResNet", "SubjectModel", "TapCollector", "TorchSubjectModel"]

@@ -50,6 +50,15 @@ def max_pool(x, *, window=3, stride=2, padding=1, ceil_mode=False):
     return F.max_pool2d(x, window, stride, padding, ceil_mode=ceil_mode)
 
 
+def avg_pool(x, *, window=2, stride=2, padding=0):
+    """Average pooling over NCHW (zero padding counted, as the JAX package's ``reduce_window`` sum).
+
+    torch sums a bf16 input in float32 and rounds the mean once, as the JAX
+    package does by casting to float32 around the sum.
+    """
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
+
+
 def global_avg_pool(x):
     """(B, C, H, W) → (B, C, 1, 1) adaptive average pool to 1×1."""
     return torch.mean(x, dim=(2, 3), keepdim=True)

@@ -51,10 +51,18 @@ def preprocess_images(
     else:
         new_h, new_w = max(1, round(h * size / w)), size
     if (new_h, new_w) != (h, w):
-        if interpolation not in ("bicubic", "bilinear"):
-            raise ValueError(f"interpolation must be 'bicubic' or 'bilinear', got {interpolation!r}")
-        x = F.interpolate(x, size=(new_h, new_w), mode=interpolation, antialias=True,
-                          align_corners=False)
+        if interpolation == "nearest":
+            # JAX's nearest: source floor((i + 0.5) · in / out) in float32, the division by the
+            # constant compiled as a product with its float32 reciprocal
+            for dim, (n_in, n_out) in ((2, (h, new_h)), (3, (w, new_w))):
+                inv = torch.tensor(1.0 / n_out, dtype=torch.float32)
+                src = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in * inv
+                x = x.index_select(dim, src.floor().long().to(x.device))
+        elif interpolation in ("bicubic", "bilinear"):
+            x = F.interpolate(x, size=(new_h, new_w), mode=interpolation, antialias=True,
+                              align_corners=False)
+        else:
+            raise ValueError(f"interpolation must be 'bicubic', 'bilinear' or 'nearest', got {interpolation!r}")
         x = x.clamp(0.0, 1.0)
     top = (new_h - crop) // 2
     left = (new_w - crop) // 2

@@ -9,9 +9,13 @@ codes are the JAX package's:
 - ``GET /text_search?q=dog&k=5`` → per-layer top-k component ids and scores
 - ``GET /label?words=dog,cat&top_m=3&max_components=64`` → per-component
   vocabulary labels (:func:`semanticlens_tpu_torch.lens.label_components`)
-- ``POST /image_search?k=5`` → 501: decoding an uploaded image file needs a
-  JPEG/PNG decoder, and the card machine has no PIL (ROADMAP queue 1 item 5,
-  the native decoder). :meth:`SearchService.image_search` takes arrays.
+- ``POST /image_search?k=5`` with a JPEG file as the body → the same as
+  text search for that image. The body decodes at full resolution to RGB
+  with the port's decoder (nvJPEG on the card, libjpeg on the CPU), on the
+  service's device thread, where the decoder's nvJPEG handle lives. A body
+  the decoder refuses (not a JPEG, corrupt, CMYK) is a 400; the JAX server
+  decodes with PIL, which takes more formats, and answers a body it cannot
+  decode with 500.
 
 Each query is embedded, then held against every layer's bank by kernel K1
 (one launch per layer: the streaming kernel for one query), then a stable
@@ -39,6 +43,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from semanticlens_tpu_torch.data import native_decoder
 from semanticlens_tpu_torch.lens import _embed_vocabulary, _encode_text_chunked, label_components
 from semanticlens_tpu_torch.scores import _cosine_matrix
 
@@ -46,10 +51,6 @@ logger = logging.getLogger(__name__)
 
 # Largest accepted POST body.
 MAX_BODY_BYTES = 16 * 1024 * 1024
-IMAGE_UPLOAD_UNSUPPORTED = (
-    "image upload is not supported by this server: decoding an image file needs the native "
-    "JPEG decoder (ROADMAP queue 1 item 5); SearchService.image_search takes (H, W, 3) uint8 arrays"
-)
 
 
 class _BadRequest(ValueError):
@@ -68,7 +69,8 @@ class SearchService:
     templates : prompt templates for text queries, with the same
         empty-template bias correction as ``Lens.text_probing``.
     warmup : run one text (and image) query at construction, so the kernel
-        build and the towers' first use happen before any request.
+        build and the towers' first use happen before any request; on the
+        card the nvJPEG decoder for uploads is made then too.
     """
 
     # Distinct vocabularies whose embeddings stay cached (FIFO).
@@ -86,6 +88,7 @@ class SearchService:
         self._lock = threading.Lock()
         self._vocab_cache: dict = {}
         self._device_thread = ThreadPoolExecutor(max_workers=1, thread_name_prefix="search-device")
+        self._jpeg_decoder = None  # made on the device thread (at warm-up on the card)
         self._banks_dev = {k: torch.as_tensor(v, device=self.device) for k, v in self.banks.items()}
         # The empty-template embeddings are a constant of the service.
         self._empty_emb = None
@@ -102,6 +105,8 @@ class SearchService:
                     self.image_search(np.zeros((32, 32, 3), np.uint8), k=1)
                 except Exception:  # FM without a usable image tower — text-only service
                     logger.warning("image-search warmup failed; image queries disabled cold", exc_info=True)
+                if self.device.type == "cuda":
+                    self._on_device_thread(self._nvjpeg)
             logger.info("search service ready (%d layers)", len(self.banks))
 
     def _on_device_thread(self, fn, *args):
@@ -144,9 +149,29 @@ class SearchService:
         """Top-k components per layer for an image query (H, W, 3 uint8)."""
         return self._on_device_thread(self._image_search, image, k)
 
-    def _image_search(self, image: np.ndarray, k: int) -> dict:
+    def _image_search(self, image, k: int) -> dict:
         q = self.fm.encode_image(self.fm.preprocess(image[None])).float()
         return self._bank_topk(q, k)
+
+    def image_file_search(self, data: bytes, k: int = 5) -> dict:
+        """Top-k components per layer for a JPEG file's bytes, decoded at full resolution to RGB.
+
+        Raises :class:`~semanticlens_tpu_torch.data.native_decoder.JpegError` for bytes the decoder refuses.
+        """
+        return self._on_device_thread(self._image_file_search, data, k)
+
+    def _nvjpeg(self) -> native_decoder.NvJpegDecoder:
+        """The device thread's nvJPEG decoder (made at first use)."""
+        if self._jpeg_decoder is None:
+            self._jpeg_decoder = native_decoder.NvJpegDecoder(self.device)
+        return self._jpeg_decoder
+
+    def _image_file_search(self, data: bytes, k: int) -> dict:
+        if self.device.type == "cuda":
+            image = self._nvjpeg().decode(data, "request body")
+        else:
+            image = native_decoder.decode_cpu(data, "request body")
+        return self._image_search(image, k)
 
     def _vocab_embeds(self, vocabulary: list[str]) -> torch.Tensor:
         """Embed a vocabulary once per (words, templates); repeated /label requests reuse it."""
@@ -238,6 +263,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):  # noqa: N802 — http.server API
         url = urlparse(self.path)
+        qs = parse_qs(url.query)
         if url.path != "/image_search":
             self._json({"error": f"unknown path {url.path}"}, 404)
             return
@@ -253,8 +279,15 @@ class _Handler(BaseHTTPRequestHandler):
             # Refused before reading: a client's Content-Length must not drive the allocation.
             self._json({"error": f"request body {length} exceeds cap {MAX_BODY_BYTES}"}, 413)
             return
-        self.rfile.read(length)  # keep the connection in step with the client
-        self._json({"error": IMAGE_UPLOAD_UNSUPPORTED}, 501)
+        raw = self.rfile.read(length)
+        try:
+            k = self._int_param(qs, "k", 5)
+            self._json({"results": self.service.image_file_search(raw, k)})
+        except (_BadRequest, native_decoder.JpegError) as exc:  # bad k, or a body the decoder refuses
+            self._json({"error": str(exc)}, 400)
+        except Exception as exc:  # pragma: no cover — defensive: keep serving
+            logger.exception("request failed")
+            self._json({"error": f"{type(exc).__name__}: {exc}"}, 500)
 
 
 def serve(service: SearchService, port: int = 0, *, background: bool = False):
@@ -282,28 +315,14 @@ def load_aggregated_db(path) -> dict[str, np.ndarray]:
     return {k: v.mean(1) if v.ndim == 3 else v for k, v in raw.items()}
 
 
-def _load_checkpoint(path) -> dict[str, torch.Tensor]:
-    """An open_clip state dict (torch layout) from ``.safetensors`` or ``.npz``."""
-    from semanticlens_tpu_torch.utils import safetensors_io
-
-    path = str(path)
-    if path.endswith(".safetensors"):
-        return safetensors_io.load_file(path)
-    if path.endswith(".npz"):
-        with np.load(path) as data:
-            return {k: torch.from_numpy(np.array(data[k])) for k in data.files}
-    raise ValueError(f"Unsupported checkpoint file type: {path}")
-
-
 def build_foundation_model(name: str, *, checkpoint=None, bpe=None, device=None):
-    """The query FM for ``--fm``: an OpenCLIP ViT preset of the port, bf16."""
+    """The query FM for ``--fm``: an OpenCLIP preset of the port (ViT or RN), bf16."""
     from semanticlens_tpu_torch.foundation_models import OpenClip
 
     if name.lower().startswith(("siglip", "vit-b-16-siglip", "mobileclip")):
         raise ValueError(f"--fm {name}: SigLIP and MobileCLIP are not ported yet (ROADMAP queue 1 item 9); "
-                         "use an OpenCLIP ViT preset such as ViT-B-32")
-    params = _load_checkpoint(checkpoint) if checkpoint is not None else None
-    return OpenClip(name, params=params, bpe_path=bpe, dtype=torch.bfloat16, device=device)
+                         "use an OpenCLIP preset such as ViT-B-32 or RN50")
+    return OpenClip(name, checkpoint=checkpoint, bpe_path=bpe, dtype=torch.bfloat16, device=device)
 
 
 def main(argv=None):

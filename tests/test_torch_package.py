@@ -11,6 +11,7 @@
 """
 
 import ast
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -22,8 +23,9 @@ from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix, cosine_s
 torch.set_num_threads(2)
 
 PKG = Path(__file__).resolve().parent.parent / "semanticlens_tpu_torch"
+FIXTURES = Path(__file__).resolve().parent / "data" / "torch_jpeg"
 FORBIDDEN = {"jax", "jaxlib", "flax", "semanticlens_tpu", "safetensors", "ml_dtypes", "PIL",
-             "transformers", "sklearn"}
+             "transformers", "sklearn", "matplotlib"}
 
 
 def _imported_roots(path: Path):
@@ -39,7 +41,11 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_or_missing_libraries():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20 and PKG / "serve.py" in files
-    files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "sweep_k1.py")]
+    for module in ("models/torch_adapter.py", "data/native_decoder.py", "data/image_folder.py",
+                   "foundation_models/clip.py", "utils/helper.py", "collect/activation_based.py"):
+        assert PKG / module in files
+    files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
+                                                  "sweep_k1.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -50,13 +56,15 @@ def _no_cuda(monkeypatch):
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
+    from semanticlens_tpu_torch.data import ImageFolder
     from semanticlens_tpu_torch.foundation_models import OpenClip
-    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.models import ResNet, TorchSubjectModel
     from semanticlens_tpu_torch.ops.topk import init_topk
     from semanticlens_tpu_torch.utils import resolve_device
 
     _no_cuda(monkeypatch)
-    for make in (resolve_device, lambda: ResNet(depth=18), lambda: OpenClip("ViT-B-32"),
+    for make in (resolve_device, lambda: ResNet(depth=18), lambda: OpenClip("ViT-B-32"), lambda: OpenClip("RN50"),
+                 lambda: TorchSubjectModel(torch.nn.Linear(2, 2)), lambda: ImageFolder(FIXTURES),
                  lambda: init_topk(3, 2), lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -135,3 +143,38 @@ def test_cuda_kernel_ragged_batch_and_near_duplicates(cuda_device):
     cosine_similarity_matrix(bank, bank)
     torch.cuda.synchronize()
     assert k1.launch_counts() == {"streaming": 1, "tiled": 1, "total": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_nvjpeg_fixtures_within_bounds(cuda_device):
+    """nvJPEG's planes through planes_to_rgb and the float32 resize, against the JAX package's PIL
+    arrays of the committed fixtures: mean |Δ| ≤ 1.5 levels and PSNR ≥ 40 dB (chip_smoke's bounds)."""
+    from semanticlens_tpu_torch.data import ImageFolder
+
+    ref = np.load(FIXTURES / "pil_224.npz")
+    ds = ImageFolder(FIXTURES, image_size=224)
+    batch = ds.get_batch(0, len(ds))
+    torch.cuda.synchronize()
+    for i, (path, _) in enumerate(ds.samples):
+        diff = batch[i].cpu().numpy().astype(np.float64) - ref[path.name]
+        psnr = 10 * np.log10(255.0**2 / max((diff**2).mean(), 1e-12))
+        assert np.abs(diff).mean() <= 1.5 and psnr >= 40, (path.name, np.abs(diff).mean(), psnr)
+        np.testing.assert_array_equal(batch[i].cpu().numpy(), ds[i][0])
+
+
+@pytest.mark.cuda
+def test_cuda_nvjpeg_refuses_truncated_file_with_thumbnail(cuda_device):
+    """A truncated file whose EXIF thumbnail holds an EOI marker: nvJPEG would decode it, the check before
+    it refuses it as libjpeg and PIL do; the whole file decodes."""
+    from semanticlens_tpu_torch.data.native_decoder import JpegError, NvJpegDecoder
+
+    main, thumb = ((FIXTURES / name).read_bytes() for name in ("a_420_500x375.jpg", "e_small_160x120.jpg"))
+    tiff = (b"II*\x00" + struct.pack("<IHI", 8, 0, 14)  # IFD0: no entries; IFD1 at 14 locates the thumbnail at 44
+            + struct.pack("<HHHIIHHIII", 2, 0x0201, 4, 1, 44, 0x0202, 4, 1, len(thumb), 0) + thumb)
+    payload = b"Exif\x00\x00" + tiff
+    whole = main[:2] + b"\xff\xe1" + struct.pack(">H", 2 + len(payload)) + payload + main[2:]
+    scan = whole.rfind(b"\xff\xda")
+    decoder = NvJpegDecoder(cuda_device)
+    assert decoder.decode(whole).shape == (375, 500, 3)
+    with pytest.raises(JpegError, match="cut.jpg: truncated"):
+        decoder.decode(whole[: scan + (len(whole) - scan) // 2], "cut.jpg")

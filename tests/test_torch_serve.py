@@ -234,8 +234,61 @@ def test_http_errors(http):
     assert post("/image_search", b"")[0] == 400
     status, out = post("/image_search", b"x", {"Content-Length": str(tserve.MAX_BODY_BYTES + 1)})
     assert status == 413 and "exceeds cap" in out["error"]
-    status, out = post("/image_search?k=3", np.zeros(64, np.uint8).tobytes())
-    assert status == 501 and "queue 1 item 5" in out["error"]
+    status, out = post("/image_search?k=3", np.zeros(64, np.uint8).tobytes())  # not a JPEG
+    assert status == 400 and "request body" in out["error"]
+    status, out = post("/image_search?k=0", _jpeg_bytes())
+    assert status == 400 and "k must be >= 1" in out["error"]
+
+
+def test_http_image_search_server_fault_is_500(http, monkeypatch):
+    """Only a body the decoder refuses (and a bad ``k``) is the client's fault: a ``ValueError`` raised
+    past the decoder, as K1 raises for operands it refuses, answers 500."""
+    service, base = http
+
+    def refused(image, k):
+        raise ValueError("operands refused")
+
+    monkeypatch.setattr(service, "_image_search", refused)
+    request = urllib.request.Request(f"{base}/image_search?k=3", data=_jpeg_bytes(), method="POST")
+    status, out = _status(request)
+    assert status == 500 and "operands refused" in out["error"]
+
+
+def _jpeg_bytes(seed=4, size=(37, 29)):
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0 : size[1], 0 : size[0]]
+    img = np.stack([x * 6 % 256, y * 8 % 256, (x + y) * 3 % 256], -1) + rng.integers(0, 30, (size[1], size[0], 3))
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("k", [3, 40])
+def test_http_image_search_matches_jax_server(http, fms, k):
+    """POST /image_search with JPEG bytes: the port decodes at full resolution (libjpeg here, nvJPEG on
+    the card) as the JAX server does with PIL; ids equal, scores within 1e-5."""
+    jfm, _ = fms
+    _, base = http
+    jservice = jserve.SearchService(jfm, http[0].banks, templates=TEMPLATES)
+    jserver, jthread = jserve.serve(jservice, port=0, background=True)
+    try:
+        data = _jpeg_bytes()
+        results = {}
+        for name, url in (("torch", base), ("jax", f"http://127.0.0.1:{jserver.server_address[1]}")):
+            request = urllib.request.Request(f"{url}/image_search?k={k}", data=data, method="POST")
+            status, out = _status(request)
+            assert status == 200, (name, out)
+            results[name] = out["results"]
+        _assert_same_results(results["torch"], results["jax"])
+        assert len(results["torch"]["layer4"]["ids"]) == min(k, 70)
+    finally:
+        jserver.shutdown()
+        jserver.server_close()
+        jthread.join(timeout=10)
 
 
 def test_http_concurrent_clients(http):
@@ -295,7 +348,7 @@ def test_cli_checkpoint_files_load_as_open_clip_state_dicts(tmp_path):
     safetensors_io.save_file(state, tmp_path / "w.safetensors")
     np.savez(tmp_path / "w.npz", **{k: v.numpy() for k, v in state.items()})
     for name in ("w.safetensors", "w.npz"):
-        loaded = tserve._load_checkpoint(tmp_path / name)
+        loaded = tclip._load_checkpoint(tmp_path / name)  # the CLI's loader: OpenClip(checkpoint=)
         assert loaded.keys() == state.keys()
         for key in state:
             assert torch.equal(loaded[key], state[key])
