@@ -54,7 +54,22 @@ Phases (any failing check raises; the exit code is then non-zero):
    and ``POST /image_search`` with a fixture's bytes. Prints the decode rate,
    the fused pass cold and warm, the RN50 tower and the adapter against the
    native ResNet per batch, the RN50 tower's bf16 error against float32,
-   the image-search latency and peak memory.
+   the image-search latency and peak memory;
+9. lrp — config 4 (``BASELINE.json``), the attribution path: gates first
+   (the float32 ResNet-50 on 4 images and 2 layer3 components, TF32 off:
+   heatmaps of each composite on the card against the port on the CPU
+   within ``LRP_HEAT_ATOL``, crop boxes equal, batched against single;
+   conservation of Σ relevance through one bottleneck and one ViT-B/16
+   block; ViT-B/16 bf16 at full width, forward on 64 images and heatmaps
+   of one ``blocks.11.mlp.fc2`` component, the float32 ViT card against
+   CPU); then ResNet-50 bf16 (seed 0) over 5000 synthetic 224² uint8
+   images, ``RelevanceComponentVisualizer`` on layer3 (1,024 components,
+   ε-plus-flat, 8 examples each), ``Lens.compute_concept_db`` at batch 256
+   (32 components per LRP backward, attribution-cropped examples embedded
+   by CLIP ViT-B/32 bf16), text probing, redundancy and clarity. Prints the
+   sweep's images/s, the concept DB's seconds and heatmaps/s with its split
+   (attribution, blur + crop, resize, embed), a warm attribution burst and
+   peak memory.
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
 toolkit's nvJPEG and matplotlib exist.
@@ -62,7 +77,7 @@ toolkit's nvJPEG and matplotlib exist.
 Each path's K1 launches are counted from 0 and printed per path; the
 analyze path must launch the tiled kernel, the serve path the streaming
 kernel at least twice per text request (one per layer). Every (batch, M,
-N, D) that K1 launches on the paths of phases 4–7 is recorded, and each
+N, D) that K1 launches on the paths of phases 4–9 is recorded, and each
 that phase 2 did not check is held against the plain version afterwards.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
@@ -75,6 +90,7 @@ temporary directory; the kernel build goes to the package's ignored
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import json
 import math
@@ -113,6 +129,17 @@ FOLDER = {"images": 2048, "width": 500, "height": 375, "quality": 90, "classes":
 FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_jpeg"
 # The decode of the fixtures against the JAX package's PIL arrays.
 DECODE_BOUNDS = {"mean_abs_levels": 1.5, "psnr_db": 40.0}
+# The config-4 relevance path (BASELINE.json config 4, the sizes of tools/bench_relevance_e2e.py;
+# sweep at the port's batch of 256).
+LRP = {"images": 5000, "size": 224, "layer": "layer3", "n_ref": 8, "sweep_batch": 256, "attr_batch": 256,
+       "vit_images": 64}
+# float32 ResNet-50 heatmaps (abs-max normalised), card against CPU, per composite: ε and the plain
+# gradient tip at near-zero denominators and ReLU inputs (tests/test_torch_relevance.py measured
+# 5.2e-5 / 5.3e-3 / 6.7e-3 between the port and the JAX package on the CPU).
+LRP_HEAT_ATOL = {"epsilon_plus_flat": 1e-3, "epsilon": 5e-2, "gradient": 5e-2}
+LRP_BATCHED_TOL = {"rtol": 1e-4, "atol": 1e-5}  # the JAX package's batched-vs-single test
+LRP_CONSERVATION_RTOL = 1e-3  # the JAX package's ViT-block conservation test
+LRP_VIT_TOL = {"logits_rel": 1e-3, "heatmap": 1e-3}
 
 
 def log(msg: str):
@@ -1279,6 +1306,261 @@ def phase_folder(dev):
     return launches
 
 
+def imagenet_preprocess(x):
+    """uint8 (or float 0–255) NHWC pixels → ImageNet-normalized float32, as the config-4 tool does."""
+    from semanticlens_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
+    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.tensor(IMAGENET_STD, device=x.device)
+    return (x.to(torch.float32) / 255.0 - mean) / std
+
+
+class StageTimer:
+    """Synchronised wall time of wrapped calls, summed per stage."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    def wrap(self, stage: str, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[stage] = self.seconds.get(stage, 0.0) + time.perf_counter() - t
+            return out
+
+        return timed
+
+
+def crop_boxes(heat):
+    from semanticlens_tpu_torch.utils import render
+
+    return render._square_crop_boxes(render._filtered_heat(heat.float(), 51), 0.01)
+
+
+def lrp_conservation(dev) -> dict:
+    """ε composite in float32 on the card: Σ R_in against Σ R_out through one ResNet-50 bottleneck
+    (layer3.0, with its projection shortcut) and one ViT-B/16 block, R_out seeded as the output."""
+    from semanticlens_tpu_torch.models import ResNet, VisionTransformer
+    from semanticlens_tpu_torch.models import layers as L
+
+    def conserved(fn, x):
+        xx = x.clone().requires_grad_(True)
+        with L.lrp_composite("epsilon", epsilon=1e-9):
+            out = fn(xx)
+        (r_in,) = torch.autograd.grad(out, xx, out.detach())
+        return float(r_in.double().sum()), float(out.detach().double().sum())
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    resnet = ResNet(depth=50, dtype=torch.float32, device=dev)
+    rp = resnet.init(seed=0)
+    x = torch.relu(torch.randn(2, 512, 28, 28, generator=gen, device=dev)).contiguous(memory_format=torch.channels_last)
+    block = conserved(lambda xx: resnet._bottleneck_block(rp, "layer3.0", xx, 2, lambda _, v: v), x)
+
+    vit = VisionTransformer(dtype=torch.float32, device=dev)
+    vp, p, w = vit.init(seed=0), "blocks.0", vit.width
+
+    def vit_block(xx):
+        h = L.layer_norm(xx, vp[f"{p}.norm1.weight"], vp[f"{p}.norm1.bias"], eps=vit.LN_EPS)
+        qkv = L.linear(h, vp[f"{p}.attn.qkv.weight"], vp[f"{p}.attn.qkv.bias"])
+        h = L.scaled_dot_product_attention(qkv[..., :w], qkv[..., w : 2 * w], qkv[..., 2 * w :], vit.heads)
+        xx = L.residual_add(xx, L.linear(h, vp[f"{p}.attn.proj.weight"], vp[f"{p}.attn.proj.bias"]))
+        h = L.layer_norm(xx, vp[f"{p}.norm2.weight"], vp[f"{p}.norm2.bias"], eps=vit.LN_EPS)
+        h = L.gelu(L.linear(h, vp[f"{p}.mlp.fc1.weight"], vp[f"{p}.mlp.fc1.bias"]))
+        return L.residual_add(xx, L.linear(h, vp[f"{p}.mlp.fc2.weight"], vp[f"{p}.mlp.fc2.bias"]))
+
+    vblock = conserved(vit_block, torch.randn(2, 197, w, generator=gen, device=dev))
+    report = {}
+    for name, (r_in, r_out) in (("bottleneck layer3.0", block), ("vit-b/16 block 0", vblock)):
+        rel = abs(r_in - r_out) / abs(r_out)
+        if not rel <= LRP_CONSERVATION_RTOL:
+            raise AssertionError(f"[lrp] {name}: sum R_in {r_in:.6g} vs sum R_out {r_out:.6g} (rel {rel:.3g})")
+        report[name] = {"sum_r_in": r_in, "sum_r_out": r_out, "rel": rel}
+    return report
+
+
+def lrp_float32_gates(dev, images) -> dict:
+    """The float32 ResNet-50 (seed 0, TF32 off) on 4 images and 2 layer3 components: heatmaps on
+    the card against the port on the CPU for each composite, crop boxes equal; batched against
+    single on the card."""
+    from semanticlens_tpu_torch.collect.relevance_based import _Preprocessed
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.relevance import make_attribution_fn, make_batched_attribution_fn
+
+    layer = LRP["layer"]
+    x = images[:4]
+    models = []  # the card's, then the CPU's
+    for device in (dev, torch.device("cpu")):
+        m = ResNet(depth=50, dtype=torch.float32, device=device)
+        models.append((_Preprocessed(m, imagenet_preprocess), m.init(seed=0)))
+    gaps = {}
+    for composite, atol in LRP_HEAT_ATOL.items():
+        for comp in (0, 1):
+            card, cpu = (make_attribution_fn(m, layer, composite=composite)(p, x, comp).cpu() for m, p in models)
+            gap = float((card - cpu).abs().max())
+            gaps[f"{composite}[{comp}]"] = gap
+            if not (gap <= atol and torch.isfinite(card).all()):
+                raise AssertionError(f"[lrp] float32 heatmaps {composite} component {comp}: card vs CPU {gap:.3g} > {atol}")
+            if crop_boxes(card) != crop_boxes(cpu):
+                raise AssertionError(f"[lrp] crop boxes {composite} component {comp}: {crop_boxes(card)} vs {crop_boxes(cpu)}")
+    m, p = models[0]
+    pair = np.stack([images[:4], images[4:8]])
+    batched = make_batched_attribution_fn(m, layer)(p, pair, [0, 1]).cpu()
+    single = torch.stack([make_attribution_fn(m, layer)(p, pair[k], k).cpu() for k in range(2)])
+    bgap = float(((batched - single).abs() - LRP_BATCHED_TOL["rtol"] * single.abs()).max())
+    if not bgap <= LRP_BATCHED_TOL["atol"]:
+        raise AssertionError(f"[lrp] batched vs single on the card: excess {bgap:.3g} over rtol/atol {LRP_BATCHED_TOL}")
+    return {"heatmap_gap_card_vs_cpu": gaps, "batched_vs_single_excess": bgap}
+
+
+def lrp_vit(dev) -> dict:
+    """ViT-B/16 at full width: bf16 forward on 64 images and one ``blocks.11.mlp.fc2`` component's
+    heatmaps, finite; the float32 model on 2 images, card against CPU."""
+    from semanticlens_tpu_torch.models import VisionTransformer
+    from semanticlens_tpu_torch.relevance import make_attribution_fn
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randint(0, 255, (LRP["vit_images"], 224, 224, 3), generator=gen, device=dev, dtype=torch.uint8)
+    x = imagenet_preprocess(images)
+    vit = VisionTransformer(dtype=torch.bfloat16, device=dev)
+    params = vit.init(seed=0)
+    n_params = sum(t.numel() for t in params.values())
+    layer = "blocks.11.mlp.fc2"
+    with torch.inference_mode():
+        vit.apply(params, x)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = vit.apply(params, x)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t) * 1e3
+    heat_fn = make_attribution_fn(vit, layer)
+    heat_fn(params, x[:8], 0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    heat = heat_fn(params, x[:8], 0)
+    torch.cuda.synchronize()
+    lrp_ms = (time.perf_counter() - t) * 1e3
+    if logits.shape != (LRP["vit_images"], 1000) or not torch.isfinite(logits).all():
+        raise AssertionError(f"[lrp] ViT-B/16 bf16 logits {tuple(logits.shape)} not finite")
+    if heat.shape != (8, 224, 224) or not torch.isfinite(heat).all() or not heat.abs().sum() > 0:
+        raise AssertionError("[lrp] ViT-B/16 bf16 heatmaps not finite")
+
+    out = []  # (logits, heatmaps) on the card, then on the CPU
+    for device in (dev, torch.device("cpu")):
+        v32 = VisionTransformer(dtype=torch.float32, device=device)
+        p32 = v32.init(seed=0)
+        xs = x[:2].to(device)
+        with torch.inference_mode():
+            lg, _ = v32.apply(p32, xs)
+        out.append((lg.cpu(), make_attribution_fn(v32, layer)(p32, xs, 0).cpu()))
+    (card_logits, card_heat), (cpu_logits, cpu_heat) = out
+    logit_gap = float((card_logits - cpu_logits).abs().max() / cpu_logits.abs().max())
+    heat_gap = float((card_heat - cpu_heat).abs().max())
+    if not (logit_gap <= LRP_VIT_TOL["logits_rel"] and heat_gap <= LRP_VIT_TOL["heatmap"]):
+        raise AssertionError(f"[lrp] ViT-B/16 float32 card vs CPU: logits {logit_gap:.3g}, heatmaps {heat_gap:.3g} "
+                             f"(bounds {LRP_VIT_TOL})")
+    return {"params": n_params, "forward_ms_bf16_64": forward_ms, "lrp_ms_bf16_8": lrp_ms,
+            "float32_card_vs_cpu": {"logits_rel": logit_gap, "heatmap": heat_gap}}
+
+
+def phase_lrp(dev):
+    """Config 4 at full width: LRP-selected, attribution-cropped concept examples on ResNet-50 bf16
+    (layer3, 1,024 components × 8), their CLIP ViT-B/32 embeddings, then Analyze with K1; the
+    float32, conservation and ViT-B/16 gates first. K1 counted from 0 around the main path."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import RelevanceComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    torch.cuda.empty_cache()
+    n, size, layer, n_ref = LRP["images"], LRP["size"], LRP["layer"], LRP["n_ref"]
+    images = np.random.default_rng(0).integers(0, 255, (n, size, size, 3), dtype=np.uint8)
+    summary = {"gates": lrp_float32_gates(dev, images), "conservation": lrp_conservation(dev), "vit": lrp_vit(dev)}
+    log(f"[lrp] gates: {json.dumps(summary)}")
+
+    model = ResNet(depth=50, dtype=torch.bfloat16, device=dev)
+    model.params = model.init(seed=0)
+    model.name = "resnet50"
+    fm = OpenClip("ViT-B-32", dtype=torch.bfloat16, device=dev, seed=0)
+    lens = Lens(fm)
+    timer = StageTimer()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        k1.reset_launch_counts()
+        cv = RelevanceComponentVisualizer(model, ArrayDataset(images, name=f"synthetic{n}"), [layer],
+                                          preprocess_fn=imagenet_preprocess, num_samples=n_ref, storage_dir=tmp)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cv.run(batch_size=LRP["sweep_batch"], checkpoint=0)
+        torch.cuda.synchronize()
+        summary["sweep_s"] = time.perf_counter() - t
+        attribution = cv._batched_attribution_fn(layer)
+        cv._attribution_fns[f"{layer}//batched"] = timer.wrap("attribution", attribution)
+        cv.plot_fn = timer.wrap("blur_crop", cv.plot_fn)
+        fm.preprocess = timer.wrap("resize", fm.preprocess)
+        fm.encode_image = timer.wrap("embed", fm.encode_image)
+        t = time.perf_counter()
+        db = lens.compute_concept_db(cv, batch_size=LRP["attr_batch"], n_ref=n_ref)[layer]
+        torch.cuda.synchronize()
+        summary["concept_db_s"] = time.perf_counter() - t
+        summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        del fm.preprocess, fm.encode_image
+        ids = cv.get_act_max_sample_ids(layer)
+        agg = {layer: db.mean(axis=1)}
+        queries = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
+        t = time.perf_counter()
+        hits = lens.text_probing(queries, agg, templates=["a photo of a {}"])[layer]
+        redundancy = float(lens.eval_redundancy(agg)[layer])
+        clarity = lens.eval_clarity({layer: db})[layer].cpu().numpy()
+        torch.cuda.synchronize()
+        summary["analyze_s"] = time.perf_counter() - t
+        launches = k1.launch_counts()
+
+        # The warm attribution burst: K components × n_ref images already on the card.
+        k = max(1, min(32, LRP["attr_batch"] // n_ref))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        burst = torch.randint(0, 255, (k, n_ref, size, size, 3), generator=gen, device=dev, dtype=torch.uint8).float()
+        comps = torch.arange(k, device=dev)
+        attribution(model.params, burst, comps)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(4):
+            attribution(model.params, burst, comps)
+        torch.cuda.synchronize()
+        summary["burst_heatmaps_per_s"] = 4 * k * n_ref / (time.perf_counter() - t)
+
+    n_components = ids.shape[0]
+    filled = ids >= 0
+    zero_rows = np.abs(db).sum(axis=-1) == 0
+    if db.shape != (1024, n_ref, 512) or not np.isfinite(db).all():
+        raise AssertionError(f"[lrp] concept DB shape {db.shape} or non-finite values")
+    if not np.array_equal(zero_rows, ~filled):
+        raise AssertionError(f"[lrp] zero rows {int(zero_rows.sum())} vs unfilled slots {int((~filled).sum())}")
+    if hits.shape != (len(queries), n_components) or not np.isfinite(hits).all() or not np.isfinite(redundancy):
+        raise AssertionError("[lrp] probing or redundancy of the relevance concept DB")
+    if clarity.shape != (n_components,):
+        raise AssertionError(f"[lrp] clarity shape {clarity.shape}")
+    if launches["streaming"] < 1 or launches["tiled"] < 1:
+        raise AssertionError(f"[lrp] K1 launches on the path: {launches}")
+    n_heatmaps = int(filled.sum())
+    stages = dict(timer.seconds)
+    stages["gather_upload_other"] = summary["concept_db_s"] - sum(stages.values())
+    summary.update({
+        "images": n, "layer": layer, "components": n_components, "n_ref": n_ref, "heatmaps": n_heatmaps,
+        "sweep_images_per_s": n / summary["sweep_s"],
+        "concept_db_heatmaps_per_s": n_heatmaps / summary["concept_db_s"],
+        "concept_db_stages_s": stages, "unfilled_slots": int((~filled).sum()),
+        "redundancy": redundancy, "clarity_finite": int(np.isfinite(clarity).sum()), "k1_launches": launches,
+    })
+    log(f"[lrp] {json.dumps(summary)}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1301,6 +1583,7 @@ def main():
         del res
         by_path["resume"] = phase_resume(dev)
         by_path["folder"] = phase_folder(dev)
+        by_path["lrp"] = phase_lrp(dev)
     log(f"[launches] K1 per path: {json.dumps(by_path)}")
     phase_main_path_shapes(dev, shapes, checked, max_err)
 

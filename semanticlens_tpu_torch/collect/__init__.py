@@ -3,5 +3,7 @@
 from semanticlens_tpu_torch.collect.activation_based import ActivationComponentVisualizer
 from semanticlens_tpu_torch.collect.activation_caching import ActMax, ActMaxCache
 from semanticlens_tpu_torch.collect.engine import CollectEngine
+from semanticlens_tpu_torch.collect.relevance_based import RelevanceComponentVisualizer
 
-__all__ = ["ActMax", "ActMaxCache", "ActivationComponentVisualizer", "CollectEngine"]
+__all__ = ["ActMax", "ActMaxCache", "ActivationComponentVisualizer", "CollectEngine",
+           "RelevanceComponentVisualizer"]

@@ -3,8 +3,9 @@
 The JAX package keeps flat parameter dicts with torch names but XLA layouts
 (conv HWIO, linear (in, out)); the port keeps torch's own layouts (conv OIHW,
 linear (out, in)), i.e. plain torch state dicts. These functions are the
-inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``
-and ``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``.
+inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``,
+``semanticlens_tpu.models.vit.VisionTransformer.load_torch_state_dict`` and
+``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``.
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes, e.g. a JAX array
 on the host); outputs are float32 CPU tensors. The port's own random init
@@ -49,6 +50,22 @@ def clip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         elif name.endswith("weight") and arr.ndim == 2 and "embedding" not in name:
+            arr = arr.T
+        out[name] = _tensor(arr)
+    return out
+
+
+def vit_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """ViT (timm or torchvision names): the patch conv HWIO → OIHW, every matrix (in, out) → (out, in).
+
+    The class token and position embedding (3-D) keep their layout.
+    """
+    out = {}
+    for name, value in params.items():
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:
             arr = arr.T
         out[name] = _tensor(arr)
     return out

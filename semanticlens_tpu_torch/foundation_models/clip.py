@@ -475,11 +475,17 @@ class OpenClip(AbstractVLM):
         return f"{self.__class__.__name__}(url='{self.url}', preset={self.preset})"
 
     def preprocess(self, img):
-        """(B, H, W, C) uint8 or [0, 1] float batch (tensor or numpy) → normalized on the device."""
-        x = torch.as_tensor(img).to(self.device)
-        if x.ndim == 3:
-            x = x[None]
+        """Images → normalized (B, S, S, 3) on the device.
+
+        Takes a tensor batch (passed through as it is), a numpy batch or
+        image (uint8 0–255 or float; floats in 0–255 are rescaled), or a list
+        of images (tensors or arrays): a list of one size is stacked, a
+        mixed-size list is resized per image first, on the device (PIL's
+        bicubic shorter-side resize and centre crop, as the JAX package does
+        on the host).
+        """
         size = self.cfg.vision.image_size
+        x = _to_image_batch(img, size, self.device)
         return preprocess_images(x, size=size, crop=size, mean=self.cfg.mean, std=self.cfg.std)
 
     def encode_image(self, img):
@@ -512,3 +518,47 @@ def _resolve_preset(url: str) -> str | None:
                 if best is None or len(preset) > len(best):
                     best = preset
     return best
+
+
+def _to_image_batch(img, target_size: int, device) -> torch.Tensor:
+    """Tensor / array / list of either → (B, H, W, C) on ``device``; tensor batches pass through.
+
+    The JAX package's ``_to_image_batch``: a mixed-size list is resized per
+    image to ``target_size`` (floats are first cast to uint8 as the JAX
+    package's ``_host_resize_crop`` does) and stacked; host float batches
+    with values in 0–255 are rescaled to 0–1, and a float batch that looks
+    mean/std-normalized is refused.
+    """
+    if isinstance(img, torch.Tensor):
+        x = img.to(device)
+        return x if x.ndim == 4 else x[None]
+    if isinstance(img, (list, tuple)):
+        from semanticlens_tpu_torch.data.image_folder import resize_crop
+
+        items = [(i if isinstance(i, torch.Tensor) else torch.as_tensor(np.asarray(i))).to(device) for i in img]
+        if len({tuple(i.shape) for i in items}) > 1:
+            items = [resize_crop(_to_uint8(i), target_size) for i in items]
+        x = torch.stack(items)
+    else:
+        x = torch.as_tensor(np.asarray(img)).to(device)
+        if x.ndim == 3:
+            x = x[None]
+    if x.is_floating_point() and x.numel():
+        hi = float(x.max())
+        if hi > 2.0:
+            lo = float(x.min())
+            if hi < 16.0 and lo < -0.5:
+                raise ValueError(
+                    "float image batch looks already mean/std-normalized "
+                    f"(min {lo:.3g}, max {hi:.3g}); pass raw images (uint8, 0-1 or "
+                    "0-255 float) - normalization happens on device."
+                )
+            x = (x / 255.0).to(torch.float32)
+    return x
+
+
+def _to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """uint8 stays; floats in 0–1 scale by 255, then clip to 0–255 and truncate."""
+    if x.dtype == torch.uint8:
+        return x
+    return torch.clamp(x * 255.0 if float(x.max()) <= 2.0 else x, 0, 255).to(torch.uint8)

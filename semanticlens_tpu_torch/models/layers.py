@@ -9,21 +9,227 @@ HWIO / (in, out) parameters into these.
 Dtype policy follows the JAX package: convs and matmuls run in the
 activation dtype (bf16 on the card, float32 accumulation inside
 cuDNN/cuBLAS); normalisation statistics are computed in float32 and cast
-back. The LRP rules of the JAX layers are not ported here.
+back.
+
+LRP (layer-wise relevance propagation): inside :func:`lrp_composite` the
+linear primitives attach modified backwards (ε, z⁺, flat) as
+``torch.autograd.Function`` s whose forward is the plain forward, and the
+transformer ops carry the rules of Ali et al. 2022 (detached-denominator
+LayerNorm, CP-LRP attention, pass-through GELU, proportional residual
+split) — the JAX package's ``jax.custom_vjp`` rules, rule for rule. Each
+rule and its ε are fixed when the forward runs: autograd runs CUDA
+backwards on threads of its own, which never see the composite.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import torch
 import torch.nn.functional as F
+from torch.nn.modules.utils import _pair
+
+# --------------------------------------------------------------------------- #
+# LRP context
+# --------------------------------------------------------------------------- #
+_LRP = threading.local()
+
+
+@contextmanager
+def lrp_composite(name: str = "epsilon_plus_flat", epsilon: float = 1e-6):
+    """Activate an LRP composite for every layer whose forward runs inside the context.
+
+    Composites:
+    - ``"epsilon_plus_flat"`` (zennit's EpsilonPlusFlat): first conv or
+      dense → flat rule, other convs → z⁺ rule, dense/affine → ε rule.
+    - ``"epsilon"``: ε rule everywhere.
+    - ``"gradient"``: plain gradient (no modified backward).
+
+    Both non-gradient composites also carry the transformer rules:
+    detached-denominator LayerNorm, CP-LRP attention, GELU pass-through and
+    the proportional residual split.
+    """
+    _LRP.composite = name
+    _LRP.epsilon = epsilon
+    _LRP.n_linear_seen = 0
+    try:
+        yield
+    finally:
+        _LRP.composite = None
+
+
+def _lrp_active() -> bool:
+    return getattr(_LRP, "composite", None) not in (None, "gradient")
+
+
+def _next_rule(kind: str) -> tuple[str, float]:
+    """The rule for the next linear op whose forward runs under the composite."""
+    comp = _LRP.composite
+    eps = _LRP.epsilon
+    idx = _LRP.n_linear_seen
+    _LRP.n_linear_seen += 1
+    if comp == "epsilon":
+        return "epsilon", eps
+    if idx == 0:
+        return "flat", eps
+    if kind == "conv":
+        return "zplus", eps
+    return "epsilon", eps
+
+
+def _stabilised(z, eps: float):
+    """``z + ε·sign(z) + ε·[z = 0]`` (the JAX rules' ε denominator), bit for bit, in fewer passes.
+
+    ε is rounded to ``z.dtype`` first, as the JAX package's weakly typed ε
+    is, so ``where(z ≥ 0, z + ε, z − ε)`` gives the same values, zeros and
+    −0 included.
+    """
+    e = float(torch.tensor(eps, dtype=z.dtype))
+    return torch.where(z >= 0, z + e, z - e)
+
+
+def _autograd_vjp(f):
+    """``(s, x) → fᵀ(s)``, the VJP of ``f`` at ``x`` by autograd."""
+
+    def vjp(s, x):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            (c,) = torch.autograd.grad(f(xx), xx, s)
+        return c
+
+    return vjp
+
+
+class _LrpRule(torch.autograd.Function):
+    """Forward ``true_fwd(x)``; backward the ε, z⁺ or flat rule fixed at forward time."""
+
+    @staticmethod
+    def forward(ctx, x, true_fwd, rule, eps, rule_fwd, rule_vjp):
+        z = true_fwd(x)
+        ctx.rule, ctx.eps, ctx.rule_fwd, ctx.rule_vjp = rule, eps, rule_fwd, rule_vjp
+        if rule == "epsilon":
+            ctx.save_for_backward(x, z)  # z is what the JAX rule recomputes: one conv less
+        else:
+            ctx.save_for_backward(x)
+        return z
+
+    @staticmethod
+    def backward(ctx, R):
+        eps = ctx.eps
+        if ctx.rule == "zplus":
+            (x,) = ctx.saved_tensors
+            s = R / (ctx.rule_fwd(x) + eps)
+            return x * ctx.rule_vjp(s, x), None, None, None, None, None
+        if ctx.rule == "flat":
+            (x,) = ctx.saved_tensors
+            ones = torch.ones_like(x)
+            s = R / (ctx.rule_fwd(ones) + eps)
+            return ctx.rule_vjp(s, ones), None, None, None, None, None
+        x, z = ctx.saved_tensors
+        return x * ctx.rule_vjp(R / _stabilised(z, eps), x), None, None, None, None, None
+
+
+def _lrp_wrap(true_fwd, x, rule: str, eps: float, rule_fwd=None, rule_vjp=None):
+    """Attach an LRP backward to a linear(ish) forward.
+
+    ``true_fwd`` computes the real output; the backward redistributes the
+    incoming relevance R by the chosen rule, with ``rule_fwd`` the rule's
+    linear map (z⁺: positive weights, flat: unit weights, both without
+    bias; ε: ``true_fwd``) and ``rule_vjp(s, x)`` its transpose (autograd's
+    VJP of ``rule_fwd`` when not given):
+
+    - ε:     R_x = x ⊙ fᵀ(R / (f(x) + ε·sign(f(x)) + ε·[f(x) = 0]))
+    - z⁺:    R_x = x ⊙ f₊ᵀ(R / (f₊(x) + ε))
+    - flat:  R_x = f₁ᵀ(R / (f₁(1) + ε))
+    """
+    rule_fwd = true_fwd if rule_fwd is None else rule_fwd
+    rule_vjp = _autograd_vjp(rule_fwd) if rule_vjp is None else rule_vjp
+    return _LrpRule.apply(x, true_fwd, rule, eps, rule_fwd, rule_vjp)
+
+
+class _PassThrough(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn):
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, R):
+        return R, None
+
+
+def _lrp_passthrough(fn, x):
+    """Identity-relevance activation (zennit's ``Pass`` rule).
+
+    Between two ε-wrapped linears an elementwise nonlinearity hands
+    relevance through unchanged; autograd's ``fn'(x)·R`` would de-conserve
+    it for any activation whose derivative is not {0, 1} (GELU, sigmoid).
+    ReLU needs no wrap: its mask zeroes only coordinates whose relevance is
+    already zero under ε/z⁺.
+    """
+    return _PassThrough.apply(x, fn)
+
+
+class _ResidualSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, eps):
+        z = a + b
+        ctx.eps = eps
+        ctx.save_for_backward(a, b, z)
+        return z
+
+    @staticmethod
+    def backward(ctx, R):
+        a, b, z = ctx.saved_tensors
+        share = R / _stabilised(z, ctx.eps)
+        return a * share, b * share, None
+
+
+def residual_add(x, h):
+    """``x + h`` whose LRP backward splits relevance proportionally.
+
+    A bare ``+`` duplicates the cotangent into both branches, which under
+    LRP double-counts. Under a composite: R_x = R·x/(x+h), R_h = R·h/(x+h),
+    stabilised like the ε rule. Outside a composite it is exactly ``x + h``.
+    """
+    if not _lrp_active():
+        return x + h
+    return _ResidualSplit.apply(x, h, _LRP.epsilon)
 
 
 def conv2d(x, weight, bias=None, *, stride=1, padding=0, groups=1):
-    """2-D convolution: NCHW input, OIHW weight, torch-style int padding."""
-    out = F.conv2d(x, weight.to(x.dtype), None, stride=stride, padding=padding, groups=groups)
-    if bias is not None:
-        out = out + bias.to(out.dtype).view(1, -1, 1, 1)
-    return out
+    """2-D convolution: NCHW input, OIHW weight, torch-style int padding.
+
+    Under a composite: the flat, z⁺ or ε rule (:func:`_next_rule`), whose
+    transpose is cuDNN's backward-data convolution with the rule's weights.
+    """
+    w = weight.to(x.dtype)
+
+    def conv(xx, ww):
+        return F.conv2d(xx, ww, None, stride=stride, padding=padding, groups=groups)
+
+    def true_fwd(xx):
+        out = conv(xx, w)
+        return out if bias is None else out + bias.to(out.dtype).view(1, -1, 1, 1)
+
+    if not _lrp_active():
+        return true_fwd(x)
+    rule, eps = _next_rule("conv")
+    if rule == "zplus":
+        w_rule = w.clamp(min=0)
+    elif rule == "flat":
+        w_rule = torch.ones_like(w)
+    else:
+        w_rule = w
+
+    def rule_vjp(s, xx):
+        # Backward-data against the real input, whose channels_last layout cuDNN then keeps
+        # (``torch.nn.grad.conv2d_input`` passes a stand-in and gets NCHW back for 1×1 convs).
+        return torch.ops.aten.convolution_backward(
+            s, xx, w_rule, None, _pair(stride), _pair(padding), (1, 1), False, (0, 0), groups,
+            (True, False, False))[0]
+
+    return _lrp_wrap(true_fwd, x, rule, eps, rule_fwd=lambda xx: conv(xx, w_rule), rule_vjp=rule_vjp)
 
 
 def batch_norm(x, weight, bias, running_mean, running_var, *, eps=1e-5):
@@ -35,14 +241,31 @@ def batch_norm(x, weight, bias, running_mean, running_var, *, eps=1e-5):
     by at most one rounding step, in float32 only in the last bits. Written
     as ``x * scale + shift`` the fold takes two broadcast passes, which run
     at a fraction of the memory rate on channels_last tensors (PERF.md).
+
+    Under a composite it is the JAX package's form, ``x·scale + shift`` with
+    scale and shift rounded to ``x.dtype``, carrying the ε rule, so
+    heatmaps see the JAX forward.
     """
+    if _lrp_active():
+        inv = torch.rsqrt(running_var.float() + eps)
+        scale = (weight.float() * inv).to(x.dtype).view(1, -1, 1, 1)
+        shift = (bias.float() - running_mean.float() * weight.float() * inv).to(x.dtype).view(1, -1, 1, 1)
+        return _lrp_wrap(lambda xx: xx * scale + shift, x, "epsilon", _LRP.epsilon,
+                         rule_vjp=lambda s, xx: s * scale)
     return F.batch_norm(x, running_mean.float(), running_var.float(), weight.float(), bias.float(),
                         training=False, eps=eps)
 
 
 def linear(x, weight, bias=None):
-    """Dense layer; ``weight`` is torch's (out, in)."""
-    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+    """Dense layer; ``weight`` is torch's (out, in). Under a composite: flat or ε rule."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if not _lrp_active():
+        return F.linear(x, w, b)
+    rule, eps = _next_rule("linear")
+    w_rule = torch.ones_like(w) if rule == "flat" else w
+    return _lrp_wrap(lambda xx: F.linear(xx, w, b), x, rule, eps, rule_fwd=lambda xx: F.linear(xx, w_rule),
+                     rule_vjp=lambda s, xx: s @ w_rule)
 
 
 def max_pool(x, *, window=3, stride=2, padding=1, ceil_mode=False):
@@ -65,19 +288,40 @@ def global_avg_pool(x):
 
 
 def layer_norm(x, weight, bias, *, eps=1e-5):
-    """LayerNorm over the last axis, computed in float32, cast back to ``x.dtype``."""
+    """LayerNorm over the last axis, computed in float32, cast back to ``x.dtype``.
+
+    Under a composite: the detached-denominator rule (Ali et al. 2022).
+    1/√(var+eps) is a constant, so LN is a linear centring and scaling map
+    and relevance goes through it by the ε rule.
+    """
+    if _lrp_active():
+        with torch.no_grad():
+            inv = torch.rsqrt(torch.var(x.float(), dim=-1, keepdim=True, correction=0) + eps)
+        w32, b32 = weight.float(), bias.float()
+
+        def f(xx):
+            xxf = xx.float()
+            centered = xxf - torch.mean(xxf, dim=-1, keepdim=True)
+            return (centered * inv * w32 + b32).to(x.dtype)
+
+        return _lrp_wrap(f, x, "epsilon", _LRP.epsilon)
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
     return y.to(x.dtype)
 
 
 def quick_gelu(x):
-    """x·sigmoid(1.702x) — OpenAI CLIP's activation."""
+    """x·sigmoid(1.702x) — OpenAI CLIP's activation. LRP: pass-through."""
+    if _lrp_active():
+        return _lrp_passthrough(lambda xx: xx * torch.sigmoid(1.702 * xx), x)
     return x * torch.sigmoid(1.702 * x)
 
 
 def gelu(x, *, approximate=False):
-    """GELU, exact (erf) or tanh-approximate."""
-    return F.gelu(x, approximate="tanh" if approximate else "none")
+    """GELU, exact (erf) or tanh-approximate. LRP: pass-through."""
+    mode = "tanh" if approximate else "none"
+    if _lrp_active():
+        return _lrp_passthrough(lambda xx: F.gelu(xx, approximate=mode), x)
+    return F.gelu(x, approximate=mode)
 
 
 def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
@@ -91,10 +335,12 @@ def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
     d_model = x.shape[-1]
     w_in = params[f"{prefix}.in_proj_weight"]
     b_in = params[f"{prefix}.in_proj_bias"]
-    if kv is None:
-        # Self-attention: one (D, 3D) projection, then slice.
+    if kv is None and not _lrp_active():
+        # Self-attention: one (D, 3D) projection, then slice. Not under a
+        # composite, whose rule stream stays three linears per attention.
         q, k, v = linear(x, w_in, b_in).split(d_model, dim=-1)
     else:
+        kv = x if kv is None else kv
         q = linear(x, w_in[:d_model], b_in[:d_model])
         k = linear(kv, w_in[d_model : 2 * d_model], b_in[d_model : 2 * d_model])
         v = linear(kv, w_in[2 * d_model :], b_in[2 * d_model :])
@@ -108,6 +354,11 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, scale=None):
     ``mask`` is additive (−inf blocks), shaped (T, S). Runs through
     ``F.scaled_dot_product_attention`` (the flash or memory-efficient backend
     on the card), as the JAX package leaves attention to XLA.
+
+    Under a composite this is CP-LRP (Ali et al. 2022): the softmax runs
+    explicitly in float32 and is a constant, so the head is a linear map of
+    the values and relevance goes through it by the ε rule; queries and
+    keys receive none.
     """
     b, t, d = q.shape
     s = k.shape[1]
@@ -116,8 +367,41 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, scale=None):
     def split(z, length):
         return z.reshape(b, length, n_heads, head_dim).transpose(1, 2)
 
+    if _lrp_active():
+        with torch.no_grad():
+            logits = split(q, t).float() @ split(k, s).float().transpose(-1, -2)
+            logits = logits * (head_dim**-0.5 if scale is None else scale)
+            if mask is not None:
+                logits = logits + mask.float()
+            probs = torch.softmax(logits, dim=-1)
+
+        def f(vv):
+            return (probs @ split(vv, s).float()).transpose(1, 2).reshape(b, t, d).to(vv.dtype)
+
+        return _lrp_wrap(f, v, "epsilon", _LRP.epsilon)
+
     attn_mask = None if mask is None else mask.to(q.dtype)
     out = F.scaled_dot_product_attention(
         split(q, t), split(k, s), split(v, s), attn_mask=attn_mask, scale=scale
     )
     return out.transpose(1, 2).reshape(b, t, d)
+
+
+def attn_out_projection(tap, heads_name, proj_name, a, weight, bias, n_heads):
+    """Attention out-projection with the virtual per-head components tap.
+
+    The ``…attn.heads`` tap scores each head's residual-stream contribution
+    per token: ``‖head h's output × its W_O slice‖`` → (B, T, n_heads). It is
+    computed only when requested; the output always takes the plain
+    ``linear`` projection, so tapped and untapped forwards agree bit for
+    bit. (The JAX package's intervention branch waits for the port of
+    interventions.)
+    """
+    if heads_name in tap.requested:
+        b, t, d = a.shape
+        hd = d // n_heads
+        w_o = weight.to(a.dtype).t()  # (in, out)
+        per_head = torch.einsum("bthc,hcd->bthd", a.reshape(b, t, n_heads, hd),
+                                w_o.reshape(n_heads, hd, w_o.shape[-1]))
+        tap(heads_name, torch.linalg.vector_norm(per_head.float(), dim=-1))
+    return tap(proj_name, linear(a, weight, bias))

@@ -5,7 +5,9 @@ ResNet-v1.5 family (variant ``""``, ``groups=1``): ResNet-18/34/50/101/152
 with torchvision module and parameter names, so torchvision state dicts load
 as they are. The forward runs NCHW in channels_last memory (cuDNN's
 preferred layout); ``apply`` takes and returns the JAX package's layouts:
-(B, H, W, 3) input, (B, H, W, C) conv taps. Inference-mode BN.
+(B, H, W, 3) input, (B, H, W, C) conv taps. Inference-mode BN. The residual joins go through
+``layers.residual_add``, which is ``out + identity`` outside an LRP
+composite and splits relevance proportionally inside one.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from semanticlens_tpu_torch.models.layers import (
     global_avg_pool,
     linear,
     max_pool,
+    residual_add,
 )
 from semanticlens_tpu_torch.utils.device import resolve_device
 
@@ -195,7 +198,7 @@ class ResNet(SubjectModel):
         out = tap(f"{prefix}.bn2", self._bn(params, f"{prefix}.bn2", out))
         if f"{prefix}.downsample.0.weight" in params:
             identity = self._downsample(params, prefix, x, stride, tap)
-        out = tap(f"{prefix}.relu", torch.relu(out + identity))
+        out = tap(f"{prefix}.relu", torch.relu(residual_add(out, identity)))
         return tap(prefix, out)
 
     def _bottleneck_block(self, params, prefix, x, stride, tap):
@@ -209,7 +212,7 @@ class ResNet(SubjectModel):
         out = tap(f"{prefix}.bn3", self._bn(params, f"{prefix}.bn3", out))
         if f"{prefix}.downsample.0.weight" in params:
             identity = self._downsample(params, prefix, x, stride, tap)
-        out = tap(f"{prefix}.relu", torch.relu(out + identity))
+        out = tap(f"{prefix}.relu", torch.relu(residual_add(out, identity)))
         return tap(prefix, out)
 
     def apply(self, params: Mapping, x, tap_names: Sequence[str] = ()):

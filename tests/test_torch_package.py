@@ -42,10 +42,11 @@ def test_port_imports_no_jax_or_missing_libraries():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20 and PKG / "serve.py" in files
     for module in ("models/torch_adapter.py", "data/native_decoder.py", "data/image_folder.py",
-                   "foundation_models/clip.py", "utils/helper.py", "collect/activation_based.py"):
+                   "foundation_models/clip.py", "utils/helper.py", "collect/activation_based.py",
+                   "collect/relevance_based.py", "relevance/attribution.py", "utils/render.py", "models/vit.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
-                                                  "sweep_k1.py")]
+                                                  "profile_lrp.py", "sweep_k1.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -58,12 +59,13 @@ def _no_cuda(monkeypatch):
 def test_default_device_raises_without_gpu(monkeypatch):
     from semanticlens_tpu_torch.data import ImageFolder
     from semanticlens_tpu_torch.foundation_models import OpenClip
-    from semanticlens_tpu_torch.models import ResNet, TorchSubjectModel
+    from semanticlens_tpu_torch.models import ResNet, TorchSubjectModel, VisionTransformer
     from semanticlens_tpu_torch.ops.topk import init_topk
     from semanticlens_tpu_torch.utils import resolve_device
 
     _no_cuda(monkeypatch)
-    for make in (resolve_device, lambda: ResNet(depth=18), lambda: OpenClip("ViT-B-32"), lambda: OpenClip("RN50"),
+    for make in (resolve_device, lambda: ResNet(depth=18), lambda: VisionTransformer(depth=1),
+                 lambda: OpenClip("ViT-B-32"), lambda: OpenClip("RN50"),
                  lambda: TorchSubjectModel(torch.nn.Linear(2, 2)), lambda: ImageFolder(FIXTURES),
                  lambda: init_topk(3, 2), lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -178,3 +180,42 @@ def test_cuda_nvjpeg_refuses_truncated_file_with_thumbnail(cuda_device):
     assert decoder.decode(whole).shape == (375, 500, 3)
     with pytest.raises(JpegError, match="cut.jpg: truncated"):
         decoder.decode(whole[: scan + (len(whole) - scan) // 2], "cut.jpg")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("composite, atol", [("epsilon_plus_flat", 1e-3), ("epsilon", 5e-2), ("gradient", 5e-2)])
+def test_cuda_attribution_matches_cpu(cuda_device, composite, atol):
+    """float32 ResNet-18 heatmaps at 64×64 on the card (TF32 off) against the port on the CPU, within
+    chip_smoke's bounds per composite; the crop boxes derived from them are equal."""
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.relevance import make_attribution_fn
+    from semanticlens_tpu_torch.utils import render
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = np.random.default_rng(0).random((4, 64, 64, 3)).astype(np.float32)
+    heats = []
+    for device in (cuda_device, torch.device("cpu")):
+        model = ResNet(depth=18, num_classes=10, dtype=torch.float32, device=device)
+        heat = make_attribution_fn(model, "layer3", composite=composite)(model.init(seed=0), x, 7)
+        heats.append(heat.cpu())
+    np.testing.assert_allclose(heats[0].numpy(), heats[1].numpy(), atol=atol)
+    boxes = [render._square_crop_boxes(render._filtered_heat(h, 51), 0.01) for h in heats]
+    assert boxes[0] == boxes[1]
+
+
+@pytest.mark.cuda
+def test_cuda_batched_attribution_equals_single(cuda_device):
+    """float32 ResNet-50 on the card (TF32 off): K components over their own images in one backward
+    equal K single calls, rtol 1e-4, atol 1e-5 (the JAX package's bound)."""
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.relevance import make_attribution_fn, make_batched_attribution_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = ResNet(depth=50, dtype=torch.float32, device=cuda_device)
+    params = model.init(seed=0)
+    imgs = np.random.default_rng(1).integers(0, 255, (3, 2, 96, 96, 3), dtype=np.uint8)
+    got = make_batched_attribution_fn(model, "layer3")(params, imgs, [4, 9, 4])
+    single = make_attribution_fn(model, "layer3")
+    for k, comp in enumerate((4, 9, 4)):
+        np.testing.assert_allclose(got[k].cpu().numpy(), single(params, imgs[k], comp).cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
