@@ -69,7 +69,28 @@ Phases (any failing check raises; the exit code is then non-zero):
    by CLIP ViT-B/32 bf16), text probing, redundancy and clarity. Prints the
    sweep's images/s, the concept DB's seconds and heatmaps/s with its split
    (attribution, blur + crop, resize, embed), a warm attribution burst and
-   peak memory.
+   peak memory;
+10. siglip — BASELINE config 3 ("ViT-B/16 backbone, MLP/attention components
+   → SigLIP embedding + text_probing search"): the subject ViT-B/16 bf16
+   (seed 0) over 2048 synthetic 224² uint8 images at batch 256,
+   ``blocks.11.mlp.fc1`` (3,072 neurons) and ``blocks.11.attn.heads`` (12)
+   with ``aggregate_transformer_mean`` and 25 samples, SigLIP2 ViT-B/16 bf16
+   from ``create("siglip2")`` (375 M parameters, seed 0, hash tokenizer):
+   the (3,084 × 25 × 768) concept DB, text probing, ``label_components``
+   over 1000 words, clarity, redundancy; then ``python -m
+   semanticlens_tpu_torch.serve --fm siglip2`` in its own process over the
+   DB file Lens wrote, whose ``/text_search`` ids must equal offline probing.
+   Gates, float32 card against CPU: SigLIP's image and text embeddings on 4
+   images and 4 prompts, and config 3 on 16 images as ``[reference]`` does
+   (values, ids, probe scores, clarity, redundancy);
+11. mobileclip — MobileCLIP-S2 bf16 (seed 0): 256 images at 256² and a
+   prompt batch timed beside SigLIP and CLIP ViT-B/32; the head components
+   of phase 10 re-embedded into a MobileCLIP concept DB (their ids from the
+   cache), probing and redundancy at D = 512; float32 card vs CPU on 2
+   images first;
+12. dissect — CLIP ViT-B/32's own block-11 MLP neurons (3,072 × 512) and
+   attention heads (12 × 64 × 512) as joint-space directions, labelled over
+   1000 words; the float32 directions card vs CPU first.
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
 toolkit's nvJPEG and matplotlib exist.
@@ -77,7 +98,7 @@ toolkit's nvJPEG and matplotlib exist.
 Each path's K1 launches are counted from 0 and printed per path; the
 analyze path must launch the tiled kernel, the serve path the streaming
 kernel at least twice per text request (one per layer). Every (batch, M,
-N, D) that K1 launches on the paths of phases 4–9 is recorded, and each
+N, D) that K1 launches on the paths of phases 4–12 is recorded, and each
 that phase 2 did not check is held against the plain version afterwards.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
@@ -140,6 +161,13 @@ LRP_HEAT_ATOL = {"epsilon_plus_flat": 1e-3, "epsilon": 5e-2, "gradient": 5e-2}
 LRP_BATCHED_TOL = {"rtol": 1e-4, "atol": 1e-5}  # the JAX package's batched-vs-single test
 LRP_CONSERVATION_RTOL = 1e-3  # the JAX package's ViT-block conservation test
 LRP_VIT_TOL = {"logits_rel": 1e-3, "heatmap": 1e-3}
+# BASELINE config 3 (ViT-B/16 subject, MLP neurons and attention heads, SigLIP2, text probing) at the
+# quickstart's sizes; its float32 gates, card against CPU, relative to the largest |value|.
+CONFIG3 = {"images": 2048, "batch": 256, "num_samples": 25,
+           "components": {"blocks.11.mlp.fc1": 3072, "blocks.11.attn.heads": 12}}
+FM_GATE_REL = 1e-4
+PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
+TEMPLATES = ["a photo of a {}"]
 
 
 def log(msg: str):
@@ -380,10 +408,22 @@ def phase_kernels(dev):
         "near-duplicates 2048x2048x1024": (near_duplicate_bank(2048, 1024),) * 2,
         "serve query 1x1024x1024": (randn(1, 1024), randn(1024, 1024)),
         "serve query 1x2048x1024": (randn(1, 1024), randn(2048, 1024)),
+        # config 3: SigLIP embeds in 768 dimensions, the first main-path D whose last 512-wide
+        # K group is partial; 3,072 MLP neurons and 12 heads of ViT-B/16
+        "probe 8x3072x768": (randn(8, 768), randn(3072, 768)),
+        "redundancy 3072x3072x768": (randn(3072, 768),) * 2,
+        "near-duplicates 3072x3072x768": (near_duplicate_bank(3072, 768),) * 2,
+        "labels 3072x1000x768": (randn(3072, 768), randn(1000, 768)),
+        "probe 8x12x768": (randn(8, 768), randn(12, 768)),
+        "serve query 1x3072x768": (randn(1, 768), randn(3072, 768)),
+        # MobileCLIP's head DB and the dissected ViT-B/32 directions (D = 512)
+        "probe 8x12x512": (randn(8, 512), randn(12, 512)),
+        "labels 3072x1000x512": (randn(3072, 512), randn(1000, 512)),
+        "labels 768x1000x512": (randn(768, 512), randn(1000, 512)),
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
-             "redundancy 2048x2048x1024")
+             "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768")
     rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
@@ -1561,6 +1601,420 @@ def phase_lrp(dev):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# BASELINE config 3: ViT-B/16 → MLP neurons and attention heads → SigLIP2 → text probing;
+# MobileCLIP-S2; dissection of CLIP ViT-B/32's own neurons
+# --------------------------------------------------------------------------- #
+def rel_gap(card, cpu) -> float:
+    """max |card − cpu| over max |cpu|: float32 card against CPU, relative to the values' scale."""
+    card, cpu = (torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v).float().cpu()
+                 for v in (card, cpu))
+    if card.shape != cpu.shape:
+        raise AssertionError(f"card shape {tuple(card.shape)} != CPU shape {tuple(cpu.shape)}")
+    return float((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+
+
+def config3_models(device, dtype, vit_np, siglip_np):
+    """The subject ViT-B/16 (timm naming) and SigLIP2 from ``create``, both from the given numpy weights."""
+    from semanticlens_tpu_torch.foundation_models import create
+    from semanticlens_tpu_torch.models import VisionTransformer
+
+    model = VisionTransformer(dtype=dtype, device=device)
+    model.params = model.load_jax_params(vit_np)
+    model.name = "vit_b_16"
+    return model, create("siglip2", jax_params=siglip_np, dtype=dtype, device=device)
+
+
+def run_config3(model, fm, images, num_samples, batch_size, cache_dir, vocab=None):
+    """Config 3 through the port's entry points: the fused Collect+Embed pass on the two ViT taps, the
+    SigLIP concept DB, text probing, labels over ``vocab`` (when given), clarity and redundancy."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_transformer_mean
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    on_card = fm.device.type == "cuda"
+    dataset = ArrayDataset(images, name=f"synthetic{len(images)}-224")
+    cv = ActivationComponentVisualizer(
+        model=model, dataset_model=dataset, dataset_fm=dataset, layer_names=list(CONFIG3["components"]),
+        num_samples=num_samples, aggregate_fn=aggregate_transformer_mean, model_preprocess=make_preprocess_fn(size=224),
+        cache_dir=str(cache_dir))
+    lens = Lens(fm)
+    times = {}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t
+        return out
+
+    db = timed("concept_db_s", lambda: lens.compute_concept_db(cv, batch_size=batch_size))
+    agg = {k: v.mean(1) for k, v in db.items()}
+    hits = timed("text_probing_s", lambda: lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES))
+    labels = None
+    if vocab:
+        labels = timed("labels_s", lambda: lens.label_components(vocab, agg, top_m=3, templates=TEMPLATES))
+    clarity = timed("clarity_s", lambda: lens.eval_clarity(db))
+    redundancy = timed("redundancy_s", lambda: lens.eval_redundancy(agg))
+    return {
+        "cv": cv, "lens": lens, "fm": fm, "concept_db": db, "agg": agg, "hits": hits, "labels": labels,
+        "ids": {k: cv.get_max_reference(k) for k in db},
+        "values": {k: cv.actmax_cache[k].activations.float().numpy() for k in db},
+        "clarity": {k: v.cpu().numpy() for k, v in clarity.items()},
+        "redundancy": {k: float(v) for k, v in redundancy.items()},
+        "times": times,
+    }
+
+
+def check_labels(labels, n_components: int, vocab: list, label: str):
+    """Label words come from the vocabulary; cosine scores are finite, in [-1, 1] and sorted."""
+    words, scores = labels
+    known = set(vocab)
+    if len(words) != n_components or scores.shape != (n_components, 3) or not np.isfinite(scores).all():
+        raise AssertionError(f"{label}: labels of shape {scores.shape} for {n_components} components")
+    if any(w not in known for row in words for w in row):
+        raise AssertionError(f"{label}: a label outside the vocabulary")
+    if scores.min() < -1 - 1e-5 or scores.max() > 1 + 1e-5 or (np.diff(scores, axis=1) > 1e-6).any():
+        raise AssertionError(f"{label}: label scores out of [-1, 1] or unsorted")
+
+
+def check_config3(res, n_images, num_samples, label, vocab=None) -> dict:
+    """Shapes, finite values, ids in range and labels in range; returns the unfilled-slot counts."""
+    unfilled = {}
+    for layer, c in CONFIG3["components"].items():
+        db, ids = res["concept_db"][layer], res["ids"][layer]
+        if db.shape != (c, num_samples, 768) or not np.isfinite(db).all():
+            raise AssertionError(f"{label}: concept DB {layer} shape {db.shape} or non-finite values")
+        if ids.shape != (c, num_samples) or ids.min() < -1 or ids.max() >= n_images:
+            raise AssertionError(f"{label}: ids of {layer} out of range [{ids.min()}, {ids.max()}]")
+        if not np.array_equal(np.abs(db).sum(-1) == 0, ids < 0):
+            raise AssertionError(f"{label}: zero rows of {layer} differ from its unfilled slots")
+        if res["hits"][layer].shape != (len(PROBE_WORDS), c) or not np.isfinite(res["hits"][layer]).all():
+            raise AssertionError(f"{label}: probe scores of {layer}")
+        filled = (ids >= 0).all(axis=1)
+        clarity = res["clarity"][layer]
+        if clarity.shape != (c,) or not np.isfinite(clarity[filled]).all():
+            raise AssertionError(f"{label}: clarity of {layer}")
+        if not np.isfinite(res["redundancy"][layer]):
+            raise AssertionError(f"{label}: redundancy of {layer}")
+        if vocab:
+            check_labels(res["labels"][layer], c, vocab, f"{label} {layer}")
+        unfilled[layer] = int((ids < 0).sum())
+    return unfilled
+
+
+def config3_float32_gates(dev, vit_np, siglip_np) -> dict:
+    """float32 card (TF32 off) against the CPU: SigLIP's image and text embeddings on 4 images and 4
+    prompts, then config 3 on 16 images as ``[reference]`` does for the quickstart."""
+    models = {kind: config3_models(d, torch.float32, vit_np, siglip_np)
+              for kind, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    images = _make_images(4, seed=3, size=224)
+    prompts = ["a photo of a dog", "a red car on a road", "tree", "two birds in the sky"]
+    emb = {}
+    for kind, (_, fm) in models.items():
+        with torch.inference_mode():
+            emb[kind] = (fm.encode_image(fm.preprocess(torch.from_numpy(images))).cpu(),
+                         fm.encode_text(fm.tokenize(prompts)).cpu())
+    report = {"siglip_image_rel": rel_gap(emb["card"][0], emb["cpu"][0]),
+              "siglip_text_rel": rel_gap(emb["card"][1], emb["cpu"][1])}
+    if not max(report.values()) <= FM_GATE_REL:
+        raise AssertionError(f"[siglip] float32 SigLIP card vs CPU: {report} > {FM_GATE_REL}")
+
+    images = _make_images(16, seed=1, size=224)
+    results = {}
+    for kind, (model, fm) in models.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            results[kind] = run_config3(model, fm, images, 5, 8, tmp)
+        check_config3(results[kind], 16, 5, f"[siglip] reference[{kind}]")
+    gpu, cpu_res = results["card"], results["cpu"]
+    report["embedding_table_rel"] = rel_gap(gpu["cv"].embedding_table, cpu_res["cv"].embedding_table)
+    if not report["embedding_table_rel"] <= FM_GATE_REL:
+        raise AssertionError(f"[siglip] float32 embedding table card vs CPU: {report['embedding_table_rel']:.3g}")
+    # The card's scores on the CPU run's DB: identical inputs, as in [reference].
+    cpu_db, cpu_agg, lens = cpu_res["concept_db"], cpu_res["agg"], gpu["lens"]
+    hits = lens.text_probing(PROBE_WORDS, cpu_agg, templates=TEMPLATES)
+    clarity = lens.eval_clarity(cpu_db)
+    redundancy = lens.eval_redundancy(cpu_agg)
+    for layer in CONFIG3["components"]:
+        np.testing.assert_allclose(gpu["values"][layer], cpu_res["values"][layer], rtol=2**-7, atol=1e-3)
+        id_match = float((gpu["ids"][layer] == cpu_res["ids"][layer]).mean())
+        if id_match < 0.98:
+            raise AssertionError(f"[siglip] reference: only {id_match:.3f} of {layer} ids agree with the CPU")
+        np.testing.assert_allclose(hits[layer], cpu_res["hits"][layer], atol=1e-4)
+        np.testing.assert_allclose(clarity[layer].cpu().numpy(), cpu_res["clarity"][layer], atol=1e-5)
+        np.testing.assert_allclose(float(redundancy[layer]), cpu_res["redundancy"][layer], atol=1e-5)
+        report[layer] = {"id_match": id_match,
+                         "max_probe_diff": float(np.abs(hits[layer] - cpu_res["hits"][layer]).max())}
+    return report
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_for_server(proc, base: str, log_path: Path, timeout_s: float = 300.0):
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"the serve CLI exited with {proc.returncode}:\n{log_path.read_text()[-4000:]}")
+        try:
+            if _http_json(f"{base}/healthz")[0] == 200:
+                return
+        except (urllib.error.URLError, ConnectionError):
+            pass
+        time.sleep(0.5)
+    raise AssertionError(f"the serve CLI did not answer within {timeout_s} s:\n{log_path.read_text()[-4000:]}")
+
+
+def phase_siglip(dev, root: Path):
+    """Config 3 at full width: ViT-B/16 bf16 → blocks.11.mlp.fc1 (3,072) and blocks.11.attn.heads (12) →
+    SigLIP2 bf16 concept DB → probing, labels over 1,000 words, clarity, redundancy (K1 counted from 0);
+    then ``python -m semanticlens_tpu_torch.serve --fm siglip2`` over the written DB, answering text queries
+    over HTTP while the float32 gates run."""
+    from semanticlens_tpu_torch.foundation_models import create
+    from semanticlens_tpu_torch.foundation_models import siglip as sig
+    from semanticlens_tpu_torch.lens import text_probing
+    from semanticlens_tpu_torch.models import VisionTransformer
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.serve import load_aggregated_db
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, batch, ns = CONFIG3["images"], CONFIG3["batch"], CONFIG3["num_samples"]
+    summary = {}
+    t = time.perf_counter()
+    siglip_np = sig.init_siglip_params_jax_layout(0, sig.SIGLIP_PRESETS["ViT-B-16-SigLIP2"])
+    summary["siglip_numpy_init_s"] = time.perf_counter() - t
+    summary["siglip_params"] = int(sum(v.size for v in siglip_np.values()))
+    images = _make_images(n, seed=0, size=224)
+    vocab = vocabulary(1000)
+
+    t = time.perf_counter()
+    model = VisionTransformer(dtype=torch.bfloat16, device=dev)
+    model.params = model.init(seed=0)
+    model.name = "vit_b_16"
+    fm = create("siglip2", jax_params=siglip_np, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    summary["weights_upload_s"] = time.perf_counter() - t
+    k1.reset_launch_counts()
+    res = run_config3(model, fm, images, ns, batch, root / "cache", vocab=vocab)
+    launches = k1.launch_counts()
+    summary["unfilled_slots"] = check_config3(res, n, ns, "[siglip]", vocab)
+    if launches["streaming"] < 1 or launches["tiled"] < 2:  # probing; labels and redundancy of the MLP layer
+        raise AssertionError(f"[siglip] K1 launches on the path: {launches}")
+    cv = res["cv"]
+
+    def embed_fn(raw):
+        return fm.encode_image(fm.preprocess(raw))
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cv.engine.run_fused(cv.params, cv.dataset, batch, embed_fn)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    with torch.inference_mode():
+        raw = torch.from_numpy(images[:batch]).to(dev)
+        pre = fm.preprocess(raw)
+        tokens8 = fm.tokenize([TEMPLATES[0].format(w) for w in PROBE_WORDS])
+        tokens1000 = fm.tokenize([TEMPLATES[0].format(w) for w in vocab])
+        vit_pre = cv.engine.input_preprocess(raw)
+        summary.update({
+            "siglip_image_ms_per_256": time_ms(lambda: fm.encode_image(pre), 5, 2),
+            "siglip_text_ms_per_8_prompts": time_ms(lambda: fm.encode_text(tokens8), 10, 2),
+            "siglip_text_ms_per_1000_prompts": time_ms(lambda: fm.encode_text(tokens1000), 3, 1),
+            "vit_b16_subject_ms_per_256": time_ms(
+                lambda: model.apply(model.params, vit_pre, tuple(CONFIG3["components"])), 5, 2),
+        })
+    del raw, pre, vit_pre
+
+    # The serve CLI over the DB file Lens wrote, started now and queried after the gates.
+    db_file = next((cv.storage_dir / "concept_database" / fm.name).glob("concept_db-*.safetensors"))
+    port, log_path = _free_port(), root / "serve_cli.log"
+    base = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log_file:
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "semanticlens_tpu_torch.serve", "--db", str(db_file),
+                                 "--fm", "siglip2", "--port", str(port)], cwd=Path(__file__).resolve().parent,
+                                stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            summary["gates"] = config3_float32_gates(dev, model.init_jax_layout(0), siglip_np)
+            _wait_for_server(proc, base, log_path)
+            summary["serve_cli_ready_s"] = time.perf_counter() - t_cli
+            agg = load_aggregated_db(db_file)
+            query_ms, max_diff = [], 0.0
+            for i, word in enumerate(PROBE_WORDS + vocab[:12]):
+                t = time.perf_counter()
+                status, out = _http_json(f"{base}/text_search?q={urllib.parse.quote(word)}&k=5")
+                query_ms.append(1e3 * (time.perf_counter() - t))
+                if status != 200 or sorted(out["results"]) != sorted(CONFIG3["components"]):
+                    raise AssertionError(f"[siglip] the serve CLI's /text_search: {status} {out}")
+                if i < len(PROBE_WORDS):  # served ids equal offline probing of the same DB
+                    probe = text_probing(fm, word, agg, templates=TEMPLATES)
+                    for layer, scores in probe.items():
+                        order = np.argsort(-scores[0], kind="stable")[:5]
+                        if out["results"][layer]["ids"] != order.tolist():
+                            raise AssertionError(f"[siglip] {word!r} {layer}: served ids differ from offline probing")
+                        max_diff = max(max_diff, float(np.abs(np.asarray(out["results"][layer]["scores"])
+                                                              - scores[0][order]).max()))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    times = res["times"]
+    summary.update({
+        "images": n, "batch": batch, "components": {k: v.shape[0] for k, v in res["concept_db"].items()},
+        "concept_db_shape_total": [sum(v.shape[0] for v in res["concept_db"].values()), ns, 768],
+        "images_per_s_fused_cold": n / times["concept_db_s"], "images_per_s_fused_warm": n / warm_s,
+        **{k: round(v, 4) for k, v in times.items()},
+        "serve_cli_text_search": _percentiles(query_ms), "served_vs_offline_max_score_diff": max_diff,
+        "redundancy": res["redundancy"], "k1_launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    log(f"[siglip] {json.dumps(summary)}")
+    return launches, {"model": model, "images": images, "root": root,
+                      "siglip_image_ms_per_256": summary["siglip_image_ms_per_256"],
+                      "head_ids": res["ids"]["blocks.11.attn.heads"]}
+
+
+def phase_mobileclip(dev, ctx):
+    """MobileCLIP-S2 bf16 at full width (seed 0): 256 images at 256² and a prompt batch timed beside
+    SigLIP and CLIP ViT-B/32; the [siglip] phase's 12 head components re-embedded into a MobileCLIP concept
+    DB and probed (K1 at D = 512, counted from 0); float32 card vs CPU on 2 images first."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.foundation_models import ClipMobile, OpenClip, create
+    from semanticlens_tpu_torch.foundation_models import mobileclip as mc
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_transformer_mean
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    summary = {}
+    s2_np = mc.init_mobileclip_params_jax_layout(0, mc.MOBILECLIP_PRESETS["MobileCLIP-S2"])
+    two = torch.from_numpy(_make_images(2, seed=4, size=256))
+    emb = {}
+    for kind, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        fm32 = create("mobileclip-s2", jax_params=s2_np, dtype=torch.float32, device=device)
+        with torch.inference_mode():
+            emb[kind] = fm32.encode_image(fm32.preprocess(two)).cpu()
+    summary["float32_card_vs_cpu_rel"] = rel_gap(emb["card"], emb["cpu"])
+    if not summary["float32_card_vs_cpu_rel"] <= FM_GATE_REL:
+        raise AssertionError(f"[mobileclip] float32 card vs CPU: {summary['float32_card_vs_cpu_rel']:.3g}")
+    del fm32
+
+    t = time.perf_counter()
+    fm = ClipMobile("s2", dtype=torch.bfloat16, device=dev, seed=0)
+    torch.cuda.synchronize()
+    summary["weights_s"] = time.perf_counter() - t
+    summary["params"] = int(sum(v.numel() for v in fm.params.values()))
+    vitb32 = OpenClip("ViT-B-32", dtype=torch.bfloat16, device=dev, seed=0)
+    raw = torch.from_numpy(_make_images(256, seed=0, size=256)).to(dev)
+    with torch.inference_mode():
+        pre, pre32 = fm.preprocess(raw), vitb32.preprocess(raw)
+        tokens = fm.tokenize([TEMPLATES[0].format(w) for w in PROBE_WORDS])
+        embeds = fm.encode_image(pre)
+        if embeds.shape != (raw.shape[0], 512) or not torch.isfinite(embeds).all():
+            raise AssertionError(f"[mobileclip] image embeddings {tuple(embeds.shape)}")
+        text = fm.encode_text(tokens)
+        if text.shape != (len(PROBE_WORDS), 512) or not torch.isfinite(text).all():
+            raise AssertionError(f"[mobileclip] text embeddings {tuple(text.shape)}")
+        summary.update({
+            "mobileclip_s2_image_ms_per_256": time_ms(lambda: fm.encode_image(pre), 5, 2),
+            "mobileclip_s2_text_ms_per_8_prompts": time_ms(lambda: fm.encode_text(tokens), 10, 2),
+            "siglip_image_ms_per_256": ctx["siglip_image_ms_per_256"],
+            "vit_b32_image_ms_per_256": time_ms(lambda: vitb32.encode_image(pre32), 5, 2),
+        })
+    del raw, pre, pre32
+
+    # The [siglip] phase's head components: their collected ids from its cache, re-embedded.
+    dataset = ArrayDataset(ctx["images"], name=f"synthetic{len(ctx['images'])}-224")
+    layer = "blocks.11.attn.heads"
+    k1.reset_launch_counts()
+    cv = ActivationComponentVisualizer(
+        model=ctx["model"], dataset_model=dataset, dataset_fm=dataset, layer_names=[layer],
+        num_samples=CONFIG3["num_samples"], aggregate_fn=aggregate_transformer_mean,
+        model_preprocess=make_preprocess_fn(size=224), cache_dir=str(ctx["root"] / "cache"))
+    lens = Lens(fm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    db = lens.compute_concept_db(cv, batch_size=CONFIG3["batch"])[layer]
+    torch.cuda.synchronize()
+    summary["concept_db_s"] = time.perf_counter() - t
+    agg = {layer: db.mean(1)}
+    hits = lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES)[layer]
+    redundancy = float(lens.eval_redundancy(agg)[layer])
+    launches = k1.launch_counts()
+    if not np.array_equal(cv.get_max_reference(layer), ctx["head_ids"]):
+        raise AssertionError("[mobileclip] the head components' ids differ from the [siglip] phase's")
+    if db.shape != (12, CONFIG3["num_samples"], 512) or not np.isfinite(db).all():
+        raise AssertionError(f"[mobileclip] concept DB shape {db.shape} or non-finite values")
+    if hits.shape != (len(PROBE_WORDS), 12) or not np.isfinite(hits).all() or not np.isfinite(redundancy):
+        raise AssertionError("[mobileclip] probing or redundancy of the head concept DB")
+    if launches["streaming"] < 1:
+        raise AssertionError(f"[mobileclip] K1 launches on the path: {launches}")
+    summary.update({"redundancy": redundancy, "k1_launches": launches,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    log(f"[mobileclip] {json.dumps(summary)}")
+    return launches, vitb32
+
+
+def phase_dissect(dev, fm):
+    """FM dissection on CLIP ViT-B/32 (the quickstart's FM): block 11's 3,072 MLP-neuron directions and
+    its 12 × 64 attention-head directions in the joint space, labelled over 1,000 words (K1 counted from 0);
+    the float32 directions card against CPU first."""
+    from semanticlens_tpu_torch.foundation_models import OpenClip, dissect
+    from semanticlens_tpu_torch.foundation_models.clip import CLIP_PRESETS, init_clip_params_jax_layout
+    from semanticlens_tpu_torch.lens import label_components
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    summary = {}
+    np32 = init_clip_params_jax_layout(0, CLIP_PRESETS["ViT-B-32"])
+    dirs = {}
+    for kind, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        fm32 = OpenClip("ViT-B-32", jax_params=np32, dtype=torch.float32, device=device)
+        dirs[kind] = [fn(fm32.params, fm32.cfg, 11, tower=tower).cpu()
+                             for fn in (dissect.mlp_neuron_directions, dissect.attention_head_directions)
+                             for tower in ("visual", "text")]
+    summary["float32_card_vs_cpu_rel"] = max(rel_gap(a, b) for a, b in zip(dirs["card"], dirs["cpu"]))
+    if not summary["float32_card_vs_cpu_rel"] <= FM_GATE_REL:
+        raise AssertionError(f"[dissect] float32 directions card vs CPU: {summary['float32_card_vs_cpu_rel']:.3g}")
+    del fm32
+
+    vocab = vocabulary(1000)
+    k1.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mlp = dissect.mlp_neuron_directions(fm.params, fm.cfg, 11)
+    heads = dissect.attention_head_directions(fm.params, fm.cfg, 11)
+    labels = label_components(fm, vocab, {"mlp": mlp, "heads": heads.reshape(-1, heads.shape[-1])}, top_m=3,
+                              templates=TEMPLATES)
+    torch.cuda.synchronize()
+    summary["directions_and_labels_s"] = time.perf_counter() - t
+    launches = k1.launch_counts()
+    if mlp.shape != (3072, 512) or heads.shape != (12, 64, 512) or not (torch.isfinite(mlp).all()
+                                                                       and torch.isfinite(heads).all()):
+        raise AssertionError(f"[dissect] directions {tuple(mlp.shape)} {tuple(heads.shape)}")
+    check_labels(labels["mlp"], 3072, vocab, "[dissect] mlp")
+    check_labels(labels["heads"], 768, vocab, "[dissect] heads")
+    if launches["tiled"] < 2:
+        raise AssertionError(f"[dissect] K1 launches on the path: {launches}")
+    summary.update({"top_label_neuron_0": labels["mlp"][0][0], "k1_launches": launches})
+    log(f"[dissect] {json.dumps(summary)}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1584,6 +2038,12 @@ def main():
         by_path["resume"] = phase_resume(dev)
         by_path["folder"] = phase_folder(dev)
         by_path["lrp"] = phase_lrp(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path["siglip"], ctx = phase_siglip(dev, Path(tmp))
+            by_path["mobileclip"], vitb32 = phase_mobileclip(dev, ctx)
+            del ctx
+            by_path["dissect"] = phase_dissect(dev, vitb32)
+            del vitb32
     log(f"[launches] K1 per path: {json.dumps(by_path)}")
     phase_main_path_shapes(dev, shapes, checked, max_err)
 
@@ -1607,14 +2067,17 @@ def main():
             "shape": shape,
         }
 
-    def at_d1024(shape):
+    def at_shape(shape):
         row = next(r for r in rows if r["shape"] == shape)
         return {key: row[key] for key in ("ms", "plain_ms", "library_ms", "device_ms", "device_ms_cold_l2",
                                           "library_device_ms", "library_device_ms_cold_l2", "bound_ms",
                                           "bound_by", "share_of_bound_cold_l2")} | {"shape": shape}
 
-    kernels = {"kernels": [entry("tiled", "redundancy 2048x2048x512") | {"at_d1024": at_d1024("redundancy 2048x2048x1024")},
-                           entry("streaming", "probe 8x2048x512") | {"at_d1024": at_d1024("probe 8x2048x1024")}]}
+    kernels = {"kernels": [
+        entry("tiled", "redundancy 2048x2048x512") | {"at_d1024": at_shape("redundancy 2048x2048x1024"),
+                                                      "at_d768": at_shape("redundancy 3072x3072x768")},
+        entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
+                                                  "at_d768": at_shape("probe 8x3072x768")}]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -4,8 +4,10 @@ The JAX package keeps flat parameter dicts with torch names but XLA layouts
 (conv HWIO, linear (in, out)); the port keeps torch's own layouts (conv OIHW,
 linear (out, in)), i.e. plain torch state dicts. These functions are the
 inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``,
-``semanticlens_tpu.models.vit.VisionTransformer.load_torch_state_dict`` and
-``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``.
+``semanticlens_tpu.models.vit.VisionTransformer.load_torch_state_dict``,
+``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``,
+``semanticlens_tpu.foundation_models.siglip.load_siglip_state_dict`` and
+``semanticlens_tpu.foundation_models.mobileclip.load_mobileclip_state_dict``.
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes, e.g. a JAX array
 on the host); outputs are float32 CPU tensors. The port's own random init
@@ -69,3 +71,21 @@ def vit_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
             arr = arr.T
         out[name] = _tensor(arr)
     return out
+
+
+def siglip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """SigLIP (timm names): the patch conv HWIO → OIHW, linear weights and the text head (in, out) → (out, in).
+
+    The JAX loader's relayout rule is CLIP's; ``visual.pos_embed`` (N, width),
+    the MAP head's ``latent`` and the embeddings keep their layout.
+    """
+    return clip_params_from_jax(params)
+
+
+def mobileclip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """MobileCLIP: convs HWIO → OIHW (depthwise (k, k, 1, C) → (C, 1, k, k)), linear weights transposed.
+
+    The JAX loader's relayout rule is CLIP's; ``visual.head.proj``,
+    ``text_projection`` and the embeddings keep their layout.
+    """
+    return clip_params_from_jax(params)

@@ -345,6 +345,19 @@ def _float32_param(name: str) -> bool:
             or name in ("visual.proj", "text_projection", "logit_scale"))
 
 
+def torch_shape(name: str, shape: tuple) -> tuple:
+    """A spec's JAX-layout shape in torch's layout: convs HWIO → OIHW, linear weights (in, out) → (out, in).
+
+    Embedding tables and the open_clip projections (not named ``…weight``)
+    keep their layout.
+    """
+    if len(shape) == 4:
+        return (shape[3], shape[2], shape[0], shape[1])
+    if len(shape) == 2 and name.endswith("weight") and "embedding" not in name:
+        return tuple(shape[::-1])
+    return tuple(shape)
+
+
 def load_openclip_state_dict(cfg: CLIPConfig, state_dict: Mapping) -> dict[str, torch.Tensor]:
     """An open_clip/OpenAI CLIP torch state dict, checked: float32 CPU tensors in torch's layout.
 
@@ -357,28 +370,26 @@ def load_openclip_state_dict(cfg: CLIPConfig, state_dict: Mapping) -> dict[str, 
     out = {}
     for name, shape, _ in clip_param_specs(cfg):
         t = torch.as_tensor(state_dict[name]).detach().to("cpu", torch.float32)
-        expected = shape
-        if len(shape) == 4:
-            expected = (shape[3], shape[2], shape[0], shape[1])
-        elif len(shape) == 2 and name.endswith("weight") and "embedding" not in name:
-            expected = shape[::-1]
-        if tuple(t.shape) != tuple(expected):
-            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != expected {tuple(expected)}")
+        expected = torch_shape(name, shape)
+        if tuple(t.shape) != expected:
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != expected {expected}")
         out[name] = t
     return out
 
 
-def place_clip_params(state_dict: Mapping, cfg: CLIPConfig, dtype, device) -> dict[str, torch.Tensor]:
-    """An open_clip-named torch-layout state dict, checked and placed for the towers.
-
-    Weights the towers cast to the compute dtype on use are stored in it
-    once; norms and projections stay float32.
-    """
+def place_params(state_dict: Mapping, float32_param, dtype, device) -> dict[str, torch.Tensor]:
+    """Checked float32 CPU tensors placed for a tower: ``float32_param(name)`` ones stay float32, the rest are
+    stored once in the compute dtype the towers cast them to on use; convs channels_last."""
     out = {}
-    for name, t in load_openclip_state_dict(cfg, state_dict).items():
-        t = t.to(device, torch.float32 if _float32_param(name) else dtype)
+    for name, t in state_dict.items():
+        t = t.to(device, torch.float32 if float32_param(name) else dtype)
         out[name] = t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
     return out
+
+
+def place_clip_params(state_dict: Mapping, cfg: CLIPConfig, dtype, device) -> dict[str, torch.Tensor]:
+    """An open_clip-named torch-layout state dict, checked and placed (norms and projections float32)."""
+    return place_params(load_openclip_state_dict(cfg, state_dict), _float32_param, dtype, device)
 
 
 def _load_checkpoint(checkpoint) -> Mapping:
@@ -412,8 +423,10 @@ class OpenClip(AbstractVLM):
     checkpoint : optional open_clip state dict or path to one
         (``.safetensors`` or ``.npz``), as in the JAX package.
     jax_params : optional parameter dict in the JAX package's layout.
-    bpe_path : CLIP BPE merges file for real tokenization; without it a
-        HashTokenizer fallback is used (testing only).
+    bpe_path : CLIP BPE merges file for real tokenization; without it one
+        is looked up (``assets.find_clip_bpe``: next to the checkpoint file,
+        ``$SEMANTICLENS_ASSETS``, the HF cache), else a HashTokenizer
+        fallback is used (testing only).
     dtype : tower compute dtype.
     device : ``None`` → the CUDA card (raises without one), or ``"cpu"``.
     seed : numpy seed of the random weights used when none are given.
@@ -458,6 +471,10 @@ class OpenClip(AbstractVLM):
             params = convert.clip_params_from_jax(jax_params)
         self.params = place_clip_params(params, self.cfg, dtype, self.device)
 
+        if bpe_path is None:
+            from semanticlens_tpu_torch.foundation_models.assets import find_clip_bpe
+
+            bpe_path = find_clip_bpe(near=checkpoint if isinstance(checkpoint, (str, Path)) else None)
         if bpe_path is not None:
             self.tokenizer = ClipBpeTokenizer(bpe_path, self.cfg.text.context_length)
         else:

@@ -316,13 +316,13 @@ def load_aggregated_db(path) -> dict[str, np.ndarray]:
 
 
 def build_foundation_model(name: str, *, checkpoint=None, bpe=None, device=None):
-    """The query FM for ``--fm``: an OpenCLIP preset of the port (ViT or RN), bf16."""
-    from semanticlens_tpu_torch.foundation_models import OpenClip
+    """The query FM for ``--fm``, bf16, through ``foundation_models.create``: an OpenCLIP preset
+    (ViT or RN), ``siglip2`` or ``mobileclip-s1``/``-s2``. ``bpe`` is the CLIP BPE file, or for SigLIP
+    the SentencePiece ``.model``."""
+    from semanticlens_tpu_torch.foundation_models import create
 
-    if name.lower().startswith(("siglip", "vit-b-16-siglip", "mobileclip")):
-        raise ValueError(f"--fm {name}: SigLIP and MobileCLIP are not ported yet (ROADMAP queue 1 item 9); "
-                         "use an OpenCLIP preset such as ViT-B-32 or RN50")
-    return OpenClip(name, checkpoint=checkpoint, bpe_path=bpe, dtype=torch.bfloat16, device=device)
+    return create(name, checkpoint=checkpoint, bpe_path=bpe, tokenizer_path=bpe, dtype=torch.bfloat16,
+                  device=device)
 
 
 def main(argv=None):
@@ -330,9 +330,9 @@ def main(argv=None):
     [--port 8080] [--templates "a photo of a {}"] [--device cuda]``."""
     ap = argparse.ArgumentParser(description="Serve a concept DB for text search and labeling over HTTP.")
     ap.add_argument("--db", required=True, help="concept_db-*.safetensors from Lens.compute_concept_db")
-    ap.add_argument("--fm", default="ViT-B-32")
-    ap.add_argument("--checkpoint", default=None, help="open_clip weights (.safetensors or .npz)")
-    ap.add_argument("--bpe", default=None, help="CLIP BPE merges file")
+    ap.add_argument("--fm", default="ViT-B-32", help="OpenCLIP preset, siglip2, mobileclip-s1 or mobileclip-s2")
+    ap.add_argument("--checkpoint", default=None, help="FM weights (.safetensors or .npz)")
+    ap.add_argument("--bpe", default=None, help="CLIP BPE merges file, or SigLIP's SentencePiece .model")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--templates", nargs="*", default=["a photo of a {}"])
     ap.add_argument("--device", default=None, help="default: the CUDA card")

@@ -43,10 +43,12 @@ def test_port_imports_no_jax_or_missing_libraries():
     assert len(files) > 20 and PKG / "serve.py" in files
     for module in ("models/torch_adapter.py", "data/native_decoder.py", "data/image_folder.py",
                    "foundation_models/clip.py", "utils/helper.py", "collect/activation_based.py",
-                   "collect/relevance_based.py", "relevance/attribution.py", "utils/render.py", "models/vit.py"):
+                   "collect/relevance_based.py", "relevance/attribution.py", "utils/render.py", "models/vit.py",
+                   "foundation_models/siglip.py", "foundation_models/sentencepiece.py", "foundation_models/assets.py",
+                   "foundation_models/reparam.py", "foundation_models/mobileclip.py", "foundation_models/dissect.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
-                                                  "profile_lrp.py", "sweep_k1.py")]
+                                                  "profile_lrp.py", "profile_fm.py", "sweep_k1.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -58,14 +60,15 @@ def _no_cuda(monkeypatch):
 
 def test_default_device_raises_without_gpu(monkeypatch):
     from semanticlens_tpu_torch.data import ImageFolder
-    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.foundation_models import ClipMobile, OpenClip, SigLipV2, create
     from semanticlens_tpu_torch.models import ResNet, TorchSubjectModel, VisionTransformer
     from semanticlens_tpu_torch.ops.topk import init_topk
     from semanticlens_tpu_torch.utils import resolve_device
 
     _no_cuda(monkeypatch)
     for make in (resolve_device, lambda: ResNet(depth=18), lambda: VisionTransformer(depth=1),
-                 lambda: OpenClip("ViT-B-32"), lambda: OpenClip("RN50"),
+                 lambda: OpenClip("ViT-B-32"), lambda: OpenClip("RN50"), SigLipV2, lambda: ClipMobile("s2"),
+                 lambda: create("siglip2"), lambda: create("mobileclip-s1"),
                  lambda: TorchSubjectModel(torch.nn.Linear(2, 2)), lambda: ImageFolder(FIXTURES),
                  lambda: init_topk(3, 2), lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):

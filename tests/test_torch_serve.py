@@ -334,9 +334,30 @@ def test_cli_loads_a_concept_db_written_by_the_jax_package(tmp_path):
     agg = tserve.load_aggregated_db(path)
     np.testing.assert_array_equal(agg["layer3"], raw["layer3"].mean(1))
     np.testing.assert_array_equal(agg["layer4"], raw["layer4"])
-    for family in ("siglip2", "ViT-B-16-SigLIP2", "mobileclip-s1"):
-        with pytest.raises(ValueError, match="queue 1 item 9"):
+    from semanticlens_tpu_torch.foundation_models import mobileclip as tmc
+    from semanticlens_tpu_torch.foundation_models import siglip as tsig
+
+    # --fm siglip2 / mobileclip-s1 build those families (cut-down presets here), --bpe becoming SigLIP's
+    # tokenizer_path, and serve the DB.
+    served = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(tsig.SIGLIP_PRESETS, "ViT-B-16-SigLIP2", tsig.SigLIPConfig(
+            embed_dim=16, image_size=16, patch_size=8, vision_width=16, vision_layers=1, vision_heads=2,
+            text_width=16, text_layers=1, text_heads=2, vocab_size=64, context_length=8))
+        mp.setitem(tmc.MOBILECLIP_PRESETS, "MobileCLIP-S1", tmc.MobileCLIPConfig(
+            embed_dim=16, image_size=32, depths=(1, 1, 1, 1), dims=(8, 16, 24, 32), attn_heads=2,
+            text=tclip.TextCfg(context_length=8, vocab_size=64, width=16, heads=2, layers=1)))
+        mp.setattr(tserve, "serve", lambda service, port: served.append(service))
+        for family, cls in (("siglip2", tsig.SigLipV2), ("ViT-B-16-SigLIP2", tsig.SigLipV2),
+                            ("mobileclip-s1", tmc.ClipMobile)):
             tserve.main(["--db", str(path), "--fm", family, "--device", "cpu"])
+            assert type(served[-1].fm) is cls and served[-1].fm.device == torch.device("cpu")
+            assert len(served[-1].text_search("a dog", 3)["layer4"]["ids"]) == 3
+        from semanticlens_tpu_torch.foundation_models.sentencepiece import SigLipTokenizer, SpModel, serialize_model
+
+        (tmp_path / "toy.model").write_bytes(serialize_model(SpModel(pieces=[("<unk>", 0.0, 2), ("▁a", -1.0, 1)])))
+        tserve.main(["--db", str(path), "--fm", "siglip2", "--bpe", str(tmp_path / "toy.model"), "--device", "cpu"])
+        assert isinstance(served[-1].fm.tokenizer, SigLipTokenizer)
     with pytest.raises(ValueError, match="Unsupported checkpoint"):
         tserve.main(["--db", str(path), "--checkpoint", str(tmp_path / "w.pt"), "--device", "cpu"])
 
