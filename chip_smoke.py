@@ -90,7 +90,25 @@ Phases (any failing check raises; the exit code is then non-zero):
    images first;
 12. dissect — CLIP ViT-B/32's own block-11 MLP neurons (3,072 × 512) and
    attention heads (12 × 64 × 512) as joint-space directions, labelled over
-   1000 words; the float32 directions card vs CPU first.
+   1000 words; the float32 directions card vs CPU first;
+13. sae — the training path: an SAE on ResNet-50 bf16 (seed 0) layer3
+   (d_in 1024, 8192 latents, TopK 32, AuxK 256, 4096 rows per step, 16
+   positions per image, 256 images per batch; the JAX ``tools/train_sae.py``
+   defaults) over 2048 synthetic 224² images through
+   ``SAEComponentVisualizer.train``: one cold epoch, then a warm run of 32
+   steps (l0 = 32 on every step, finite loss and parameters, fvu falling);
+   a run at ``dead_steps=2`` puts AuxK on the loss with finite gradients
+   that reach the dead latents' decoder rows; ``python -m
+   semanticlens_tpu_torch.train_sae --epochs 1 --out …`` in its own process
+   (the JAX tool's JSON keys; its ``.npz`` loads through ``convert`` into an
+   ``SAESubjectModel`` named with the file's digest) while the float32 gates
+   run: 5 steps of TopK+AuxK, ReLU+L1, JumpReLU and a skip transcoder, card
+   against CPU (``SAE_GATE``), and the trained dictionary's top-32 latent
+   ids on 16 images card against CPU; then the audit:
+   ``SAEComponentVisualizer`` with 25 samples and CLIP ViT-B/32 bf16
+   (fused pass cold and warm, the 8192 × 25 × 512 concept DB), probing with
+   8 words, labels over 1000 words, clarity and redundancy over 8192
+   components.
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
 toolkit's nvJPEG and matplotlib exist.
@@ -98,7 +116,7 @@ toolkit's nvJPEG and matplotlib exist.
 Each path's K1 launches are counted from 0 and printed per path; the
 analyze path must launch the tiled kernel, the serve path the streaming
 kernel at least twice per text request (one per layer). Every (batch, M,
-N, D) that K1 launches on the paths of phases 4–12 is recorded, and each
+N, D) that K1 launches on the paths of phases 4–13 is recorded, and each
 that phase 2 did not check is held against the plain version afterwards.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
@@ -166,6 +184,14 @@ LRP_VIT_TOL = {"logits_rel": 1e-3, "heatmap": 1e-3}
 CONFIG3 = {"images": 2048, "batch": 256, "num_samples": 25,
            "components": {"blocks.11.mlp.fc1": 3072, "blocks.11.attn.heads": 12}}
 FM_GATE_REL = 1e-4
+# The SAE phase: the JAX tools/train_sae.py defaults on ResNet-50 layer3, its audit, and the float32
+# card-vs-CPU gates at a small width (parameters and metrics within ``rel`` of the largest magnitude
+# after ``steps`` steps; TopK selections agreeing on at least ``topk_rows`` of the rows).
+SAE = {"images": 2048, "size": 224, "layer": "layer3", "latents": 8192, "k": 32, "aux_k": 256, "batch": 256,
+       "batch_rows": 4096, "positions": 16, "warm_epochs": 4, "aux_images": 1024, "num_samples": 25,
+       "code_images": 16}
+SAE_GATE = {"d_in": 64, "d_out": 32, "latents": 512, "k": 4, "rows": 1024, "batch_rows": 256, "steps": 5,
+            "rel": 1e-5, "topk_rows": 0.99, "code_ids_share": 0.99, "near_tie_rel": 1e-4}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
 
@@ -420,17 +446,23 @@ def phase_kernels(dev):
         "probe 8x12x512": (randn(8, 512), randn(12, 512)),
         "labels 3072x1000x512": (randn(3072, 512), randn(1000, 512)),
         "labels 768x1000x512": (randn(768, 512), randn(1000, 512)),
+        # the SAE audit: 8,192 latents probed (8·8192 = STREAMING_MAX_MN), labelled and compared
+        "probe 8x8192x512": (randn(8, 512), randn(8192, 512)),
+        "labels 8192x1000x512": (randn(8192, 512), randn(1000, 512)),
+        "redundancy 8192x8192x512": (randn(8192, 512),) * 2,
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
-             "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768")
+             "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768", "probe 8x8192x512",
+             "redundancy 8192x8192x512")
     rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
         m, d = x.shape[-2:]
         n = y.shape[-2]
         checked.add((batch, m, n, d))
-        variant = k1.plan_launch(batch, m, n, d, num_sms).variant
+        plan = k1.plan_launch(batch, m, n, d, num_sms)
+        variant = plan.variant
         out = k1.cosine_similarity_matrix(x, y)
         torch.cuda.synchronize()
         ref = k1.cosine_similarity_matrix_plain(x, y)
@@ -441,6 +473,8 @@ def phase_kernels(dev):
             raise AssertionError(f"K1 {label} ({variant}): max abs err {err:.3g} > {ATOL}")
         max_err[variant] = max(max_err[variant], err)
         row = {"shape": label, "variant": variant, "max_abs_err": err}
+        if variant == "tiled":
+            row["tile"] = list(k1.TILE_CONFIGS[plan.config])
         if label in timed:
             bounds = cosine_bounds_ms(batch, m, n, d)
             bound, bound_by = named_bound(variant, bounds)
@@ -2015,6 +2049,293 @@ def phase_dissect(dev, fm):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# The training path: an SAE on ResNet-50 layer3 (8192 latents, TopK 32), its latents audited as components
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def recording_sae_steps(record: list):
+    """Append ``(stats, per-step metrics)`` of every run of optimizer steps the SAE trainers make
+    inside to ``record`` (device tensors, read after the timed work)."""
+    from semanticlens_tpu_torch import sae
+
+    run_steps = sae._run_steps
+
+    def recording(cfg, optimizer, paired=False):
+        run = run_steps(cfg, optimizer, paired)
+
+        def recorded(*args):
+            out = run(*args)
+            record.append((out[2], out[3]))
+            return out
+
+        return recorded
+
+    sae._run_steps = recording
+    try:
+        yield
+    finally:
+        sae._run_steps = run_steps
+
+
+def sae_history(record: list) -> dict:
+    """Every step's metrics of a recorded run, as host numpy arrays."""
+    return {name: torch.cat([m[name] for _, m in record]).cpu().numpy() for name in record[0][1]}
+
+
+def sae_float32_gates(dev) -> dict:
+    """float32 card (TF32 off) against the CPU, from the same initial parameters on the same rows:
+    ``SAE_GATE["steps"]`` steps of TopK with AuxK, ReLU+L1, JumpReLU and a skip transcoder. The card
+    runs once more with TF32 on, as a control: the bound must hold for every sound run and be broken
+    by every control, else it could not tell a TF32 GEMM from float32."""
+    from semanticlens_tpu_torch import sae
+
+    g, cpu = SAE_GATE, torch.device("cpu")
+    rng = np.random.default_rng(0)
+    rows = rng.normal(size=(g["rows"], g["d_in"])).astype(np.float32)
+    targets = np.tanh(rows @ rng.normal(size=(g["d_in"], g["d_out"])) / 8.0).astype(np.float32)
+    flavours = {"topk_auxk": {"k": g["k"], "aux_k": 64, "dead_steps": 2}, "relu_l1": {"k": 0},
+                "jumprelu": {"k": 0, "jumprelu": True}, "skip_transcoder": {"k": g["k"], "d_out": g["d_out"],
+                                                                            "skip": True}}
+    out = {"bound_rel": g["rel"], "float32": {}, "tf32_control": {}}
+    for name, kw in flavours.items():
+        cfg = sae.SAEConfig(d_in=g["d_in"], n_latents=g["latents"], batch_rows=g["batch_rows"], seed=0, **kw)
+        y = targets if cfg.is_transcoder else None
+        init = sae.init_sae(torch.Generator().manual_seed(0), cfg, cpu)
+        if y is not None:
+            init = sae._calibrate_transcoder_init(init, torch.from_numpy(rows), torch.from_numpy(y))
+        init = {n: v.numpy() for n, v in init.items()}
+        cp, cs, cm = sae.train_sae_from_rows(rows, cfg, targets=y, steps=g["steps"], params=init, device=cpu)
+        for mode, tf32 in (("float32", False), ("tf32_control", True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                gp, gs, gm = sae.train_sae_from_rows(rows, cfg, targets=y, steps=g["steps"], params=init, device=dev)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            entry = {"params_rel": max(rel_gap(gp[n], cp[n]) for n in cp if n != "k"),
+                     "metrics_rel": max(abs(gm[n] - cm[n]) / max(abs(cm[n]), 1e-12) for n in cm),
+                     "stats_equal": bool(torch.equal(gs["last_fired"].cpu(), cs["last_fired"])
+                                         and torch.equal(gs["step"].cpu(), cs["step"]))}
+            if cfg.aux_k:
+                entry["dead_latents"] = int((cs["last_fired"] >= cfg.dead_steps).sum())
+            if cfg.k:
+                x = torch.from_numpy(rows)
+                sel = [torch.topk(sae._pre_activations(p, x.to(d)), cfg.k).indices.sort(-1).values.cpu()
+                       for p, d in ((gp, dev), (cp, cpu))]
+                entry["topk_rows_agree"] = float((sel[0] == sel[1]).all(-1).float().mean())
+            out[mode][name] = entry
+        entry = out["float32"][name]
+        if not (entry["params_rel"] <= g["rel"] and entry["metrics_rel"] <= g["rel"] and entry["stats_equal"]
+                and entry.get("topk_rows_agree", 1.0) >= g["topk_rows"] and entry.get("dead_latents", 1) > 0):
+            raise AssertionError(f"[sae] float32 card vs CPU, {name}: {entry}")
+    if any(max(e["params_rel"], e["metrics_rel"]) <= g["rel"] for e in out["tf32_control"].values()):
+        raise AssertionError(f"[sae] a TF32 control stays within the float32 bound {g['rel']}: {out}")
+    return out
+
+
+def sae_code_gate(dev, dictionary, images) -> dict:
+    """The trained dictionary on ``images`` through a float32 ResNet-50 (seed 0, TF32 off), card against
+    CPU: the top-k latent ids of every position, equal up to near-ties (latents whose CPU pre-activation
+    is within ``near_tie_rel`` of the row's largest |value| from the k-th)."""
+    from semanticlens_tpu_torch import sae
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    layer, k, prep = SAE["layer"], SAE["k"], make_preprocess_fn(size=SAE["size"])
+    weights = ResNet(depth=50, device="cpu").init_jax_layout(0)
+    pre, ids = [], []  # card, CPU
+    for device in (dev, torch.device("cpu")):
+        model = ResNet(depth=50, dtype=torch.float32, device=device)
+        wrapped = sae.SAESubjectModel(model, layer, dictionary, base_params=model.load_jax_params(weights))
+        with torch.inference_mode():
+            _, taps = wrapped.base.apply(wrapped.params["base"], prep(torch.from_numpy(images).to(device)), (layer,))
+            p = sae._pre_activations(wrapped.params["sae"], taps[layer]).reshape(-1, SAE["latents"])
+            pre.append(p.cpu())
+            ids.append(torch.topk(p, k).indices.sort(-1).values.cpu())
+    same = (ids[0] == ids[1]).all(-1)
+    cpu_pre = pre[1]
+    kth = torch.topk(cpu_pre, k).values[:, -1:]
+    near = (cpu_pre - kth).abs() <= SAE_GATE["near_tie_rel"] * cpu_pre.abs().amax(-1, keepdim=True)
+    for row in torch.nonzero(~same).flatten().tolist():
+        differ = set(ids[0][row].tolist()) ^ set(ids[1][row].tolist())
+        if not all(bool(near[row, j]) for j in differ):
+            raise AssertionError(f"[sae] position {row}: card and CPU top-{k} latents differ beyond near-ties")
+    share = float(same.float().mean())
+    if share < SAE_GATE["code_ids_share"]:
+        raise AssertionError(f"[sae] top-{k} latent ids equal on only {share:.4f} of positions")
+    return {"positions": int(same.numel()), "ids_equal_share": share, "pre_rel": rel_gap(pre[0], pre[1])}
+
+
+def phase_sae(dev, root: Path):
+    """The training path at full width: an SAE on ResNet-50 bf16 layer3 (8192 latents, TopK 32) trained
+    through ``SAEComponentVisualizer.train`` (cold epoch, warm run, AuxK run), the CLI in its own process
+    while the float32 gates run, then the audit of the 8192 latents with CLIP ViT-B/32 (K1 counted from 0)."""
+    import dataclasses
+    import hashlib
+
+    from semanticlens_tpu_torch import Lens, convert, sae
+    from semanticlens_tpu_torch.collect import SAEComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset, Subset
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.train_sae import REPORT_KEYS
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, layer, batch = SAE["images"], SAE["layer"], SAE["batch"]
+    tap = f"{layer}.sae"
+    images = _make_images(n, seed=0, size=SAE["size"])
+    dataset = ArrayDataset(images, name=f"synthetic{n}-{SAE['size']}")
+    model = ResNet(depth=50, dtype=torch.bfloat16, device=dev)
+    model.params = model.init(seed=0)
+    model.name = "resnet50"
+    prep = make_preprocess_fn(size=SAE["size"])
+    cfg = sae.SAEConfig(d_in=1024, n_latents=SAE["latents"], k=SAE["k"], aux_k=SAE["aux_k"],
+                        batch_rows=SAE["batch_rows"], positions_per_image=SAE["positions"], seed=0)
+    summary = {"config": {k: v for k, v in dataclasses.asdict(cfg).items() if k in (
+        "d_in", "n_latents", "k", "aux_k", "dead_steps", "lr", "batch_rows", "positions_per_image")}}
+    k1.reset_launch_counts()
+
+    # 1. Train: one cold epoch, then a warm run of 32 steps (4 epochs of 8 image batches).
+    runs = {}
+    for name, epochs in (("cold", 1), ("warm", SAE["warm_epochs"])):
+        record = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording_sae_steps(record):
+            trained = SAEComponentVisualizer.train(model, dataset, layer, cfg, batch_size=batch, epochs=epochs,
+                                                   model_preprocess=prep)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        hist, stats = sae_history(record), record[-1][0]
+        steps = int(stats["step"])
+        runs[name] = trained
+        summary[f"train_{name}"] = {
+            "epochs": epochs, "steps": steps, "seconds": seconds, "steps_per_s": steps / seconds,
+            "rows_per_s": steps * cfg.batch_rows / seconds,
+            "images_per_s": epochs * (n // batch) * batch / seconds,
+            "final_loss": float(hist["loss"][-1]), "final_fvu": float(hist["fvu"][-1]),
+            "first_fvu": float(hist["fvu"][0]), "final_l0": float(hist["l0"][-1]),
+            "fired_latents": int((stats["last_fired"] < steps).sum()),  # fired on at least one step of the run
+        }
+        if name == "warm":
+            expected = epochs * (n // batch) * (batch * cfg.positions_per_image // cfg.batch_rows)  # 32
+            if steps != expected or not (hist["l0"] == SAE["k"]).all():
+                raise AssertionError(f"[sae] warm run: {steps} steps, l0 per step {hist['l0'].tolist()}")
+            if not np.isfinite(hist["loss"]).all() or not hist["fvu"][-1] < hist["fvu"][0]:
+                raise AssertionError(f"[sae] warm run: loss {hist['loss'].tolist()}, fvu {hist['fvu'].tolist()}")
+    if not all(torch.isfinite(v).all() for n_, v in runs["warm"].items() if n_ != "k"):
+        raise AssertionError("[sae] non-finite trained parameters")
+    summary["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # The AuxK run: dead_steps=2 on 1024 images (4 steps); AuxK must be on the loss and its gradients finite.
+    aux_cfg = dataclasses.replace(cfg, dead_steps=2)
+    record = []
+    with recording_sae_steps(record):
+        aux_params = SAEComponentVisualizer.train(model, Subset(dataset, 0, SAE["aux_images"]), layer, aux_cfg,
+                                                  batch_size=batch, model_preprocess=prep)
+    hist, last_fired = sae_history(record), record[-1][0]["last_fired"]
+    dead = last_fired >= aux_cfg.dead_steps
+    extract = sae._make_row_extractor(sae._PreprocessedModel(model, prep), layer, cfg)
+    rows = extract(model.params, torch.from_numpy(images[:batch]).to(dev),
+                   torch.Generator(device=dev).manual_seed(1))[: cfg.batch_rows]
+    leaves = {n_: v.detach().requires_grad_(True) for n_, v in aux_params.items() if n_ != "k"}
+    loss, (_, metrics) = sae._loss_fn(leaves, rows, aux_cfg, last_fired)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    summary["auxk"] = {"dead_latents": int(dead.sum()), "aux_term": float(loss.detach() - metrics["mse"]),
+                       "loss_minus_mse_per_step": (hist["loss"] - hist["mse"]).tolist(),
+                       "dead_decoder_rows_grad_abs_sum": float(grads["W_dec"][dead].abs().sum())}
+    if not (summary["auxk"]["dead_latents"] > 0 and summary["auxk"]["aux_term"] > 0
+            and summary["auxk"]["dead_decoder_rows_grad_abs_sum"] > 0
+            and all(torch.isfinite(g).all() for g in grads.values())):
+        raise AssertionError(f"[sae] AuxK at dead_steps=2: {summary['auxk']}")
+    del leaves, grads, rows, aux_params
+
+    # 2. The CLI in its own process (the JAX tool's defaults, one epoch), while the float32 gates run.
+    npz, log_path = root / "sae.npz", root / "train_sae_cli.log"
+    with open(log_path, "w") as log_file:
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "semanticlens_tpu_torch.train_sae", "--epochs", "1",
+                                 "--out", str(npz)], cwd=Path(__file__).resolve().parent, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+        try:
+            summary["float32_gates"] = sae_float32_gates(dev)
+            summary["code_gate"] = sae_code_gate(dev, runs["warm"], images[: SAE["code_images"]])
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    summary["cli_process_s"] = time.perf_counter() - t_cli
+    lines = log_path.read_text().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"[sae] the train_sae CLI exited with {rc}:\n" + "\n".join(lines[-40:]))
+    report = json.loads(lines[-1])
+    if tuple(report) != REPORT_KEYS or report["l0"] != SAE["k"] or not np.isfinite(report["final_loss"]):
+        raise AssertionError(f"[sae] the train_sae CLI's JSON line: {report}")
+    with np.load(npz) as arrays:
+        digest = hashlib.sha256(np.ascontiguousarray(arrays["W_dec"], np.float32).tobytes()).hexdigest()[:8]
+    cli_model = sae.SAESubjectModel(model, layer, convert.load_sae_npz(npz, dev))
+    if not cli_model.name.endswith(f"_{SAE['latents']}k{SAE['k']}_{digest}"):
+        raise AssertionError(f"[sae] {cli_model.name} does not carry the file's digest {digest}")
+    summary["cli"] = {"report": report, "artifact_digest": digest, "subject_name": cli_model.name}
+    del cli_model
+
+    # 4. The audit: the warm run's dictionary as 8192 components, CLIP ViT-B/32, 25 samples each.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fm = OpenClip("ViT-B-32", dtype=torch.bfloat16, device=dev, seed=0)
+    lens = Lens(fm)
+    cv = SAEComponentVisualizer(model, dataset, dataset, layer, runs["warm"], SAE["num_samples"],
+                                model_preprocess=prep, cache_dir=str(root / "cache"))
+    vocab = vocabulary(1000)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    db = lens.compute_concept_db(cv, batch_size=batch)[tap]
+    torch.cuda.synchronize()
+    summary["concept_db_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cv.engine.run_fused(cv.params, cv.dataset, batch, lambda raw: fm.encode_image(fm.preprocess(raw)))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    agg = {tap: db.mean(axis=1)}
+    t = time.perf_counter()
+    hits = lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES)[tap]
+    labels = lens.label_components(vocab, agg, top_m=3, templates=TEMPLATES)[tap]
+    clarity = lens.eval_clarity({tap: db})[tap].cpu().numpy()
+    redundancy = float(lens.eval_redundancy(agg)[tap])
+    torch.cuda.synchronize()
+    summary["analyze_s"] = time.perf_counter() - t
+    launches = k1.launch_counts()
+    ids = cv.get_max_reference(tap)
+    filled = ids >= 0
+    zero_rows = np.abs(db).sum(axis=-1) == 0
+    c = SAE["latents"]
+    if db.shape != (c, SAE["num_samples"], 512) or not np.isfinite(db).all():
+        raise AssertionError(f"[sae] concept DB shape {db.shape} or non-finite values")
+    if ids.shape != (c, SAE["num_samples"]) or ids.min() < -1 or ids.max() >= n:
+        raise AssertionError(f"[sae] ids out of range [{ids.min()}, {ids.max()}]")
+    if not np.array_equal(zero_rows, ~filled):
+        raise AssertionError(f"[sae] zero rows {int(zero_rows.sum())} vs unfilled slots {int((~filled).sum())}")
+    if hits.shape != (len(PROBE_WORDS), c) or not np.isfinite(hits).all() or not np.isfinite(redundancy):
+        raise AssertionError("[sae] probing or redundancy of the SAE concept DB")
+    check_labels(labels, c, vocab, "[sae]")
+    if clarity.shape != (c,):
+        raise AssertionError(f"[sae] clarity shape {clarity.shape}")
+    if launches["streaming"] < 1 or launches["tiled"] < 2:
+        raise AssertionError(f"[sae] K1 launches on the path: {launches}")
+    summary.update({
+        "images": n, "batch": batch, "components": c, "num_samples": SAE["num_samples"],
+        "images_per_s_fused_cold": n / summary["concept_db_s"], "images_per_s_fused_warm": n / warm_s,
+        "latents_with_evidence": int(filled.any(axis=1).sum()), "unfilled_slots": int((~filled).sum()),
+        "redundancy": redundancy, "clarity_finite": int(np.isfinite(clarity).sum()), "k1_launches": launches,
+        "audit_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    log(f"[sae] {json.dumps(summary)}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2025,25 +2346,46 @@ def main():
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_start = time.perf_counter()
+    marks = [t_start]
+    phase_s = {}
+
+    def done(phase: str):  # wall seconds of each phase, printed as [phases]
+        marks.append(time.perf_counter())
+        phase_s[phase] = round(marks[-1] - marks[-2], 2)
 
     phase_build()
     phase_env()
+    done("build_env")
     rows, max_err, checked = phase_kernels(dev)
+    done("kernels")
     phase_reference(dev)
+    done("reference")
     shapes = set()
     with recording_k1_shapes(shapes):
         launches, res = phase_quickstart(dev)
-        by_path = {"quickstart": launches, "analyze": phase_analyze(dev, res), "serve": phase_serve(dev, res)}
+        done("quickstart")
+        by_path = {"quickstart": launches, "analyze": phase_analyze(dev, res)}
+        done("analyze")
+        by_path["serve"] = phase_serve(dev, res)
+        done("serve")
         del res
         by_path["resume"] = phase_resume(dev)
+        done("resume")
         by_path["folder"] = phase_folder(dev)
+        done("folder")
         by_path["lrp"] = phase_lrp(dev)
+        done("lrp")
         with tempfile.TemporaryDirectory() as tmp:
             by_path["siglip"], ctx = phase_siglip(dev, Path(tmp))
             by_path["mobileclip"], vitb32 = phase_mobileclip(dev, ctx)
             del ctx
             by_path["dissect"] = phase_dissect(dev, vitb32)
             del vitb32
+        done("siglip_mobileclip_dissect")
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path["sae"] = phase_sae(dev, Path(tmp))
+        done("sae")
+    log(f"[phases] wall seconds: {json.dumps(phase_s)}")
     log(f"[launches] K1 per path: {json.dumps(by_path)}")
     phase_main_path_shapes(dev, shapes, checked, max_err)
 
@@ -2071,13 +2413,16 @@ def main():
         row = next(r for r in rows if r["shape"] == shape)
         return {key: row[key] for key in ("ms", "plain_ms", "library_ms", "device_ms", "device_ms_cold_l2",
                                           "library_device_ms", "library_device_ms_cold_l2", "bound_ms",
-                                          "bound_by", "share_of_bound_cold_l2")} | {"shape": shape}
+                                          "bound_by", "share_of_bound_cold_l2")} | {"shape": shape} | (
+            {"tile": row["tile"]} if "tile" in row else {})
 
     kernels = {"kernels": [
         entry("tiled", "redundancy 2048x2048x512") | {"at_d1024": at_shape("redundancy 2048x2048x1024"),
-                                                      "at_d768": at_shape("redundancy 3072x3072x768")},
+                                                      "at_d768": at_shape("redundancy 3072x3072x768"),
+                                                      "at_sae": at_shape("redundancy 8192x8192x512")},
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
-                                                  "at_d768": at_shape("probe 8x3072x768")}]}
+                                                  "at_d768": at_shape("probe 8x3072x768"),
+                                                  "at_sae": at_shape("probe 8x8192x512")}]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -4,6 +4,7 @@ from semanticlens_tpu_torch.collect.activation_based import ActivationComponentV
 from semanticlens_tpu_torch.collect.activation_caching import ActMax, ActMaxCache
 from semanticlens_tpu_torch.collect.engine import CollectEngine
 from semanticlens_tpu_torch.collect.relevance_based import RelevanceComponentVisualizer
+from semanticlens_tpu_torch.collect.sae_based import SAEComponentVisualizer
 
 __all__ = ["ActMax", "ActMaxCache", "ActivationComponentVisualizer", "CollectEngine",
-           "RelevanceComponentVisualizer"]
+           "RelevanceComponentVisualizer", "SAEComponentVisualizer"]

@@ -8,6 +8,9 @@ inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``,
 ``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``,
 ``semanticlens_tpu.foundation_models.siglip.load_siglip_state_dict`` and
 ``semanticlens_tpu.foundation_models.mobileclip.load_mobileclip_state_dict``.
+SAE and transcoder dictionaries keep the JAX layout in both packages
+(``sae_params_from_jax`` / ``sae_params_to_jax``, and the ``.npz`` that the
+JAX ``tools/train_sae.py --out`` and the port's ``train_sae --out`` write).
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes, e.g. a JAX array
 on the host); outputs are float32 CPU tensors. The port's own random init
@@ -21,6 +24,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from semanticlens_tpu_torch.utils.device import resolve_device
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -89,3 +94,34 @@ def mobileclip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     ``text_projection`` and the embeddings keep their layout.
     """
     return clip_params_from_jax(params)
+
+
+def sae_params_from_jax(arrays: Mapping, device=None) -> dict:
+    """An SAE or transcoder dictionary in the JAX layout → float32 tensors on
+    ``device`` (None → the card) under the same names, ``k`` as an int.
+
+    The layouts are the same (``W_enc (d_in, n_latents)``, ``W_dec
+    (n_latents, d_out)``), so the float32 bytes, and the cache digest of
+    ``W_dec``, are too.
+    """
+    from semanticlens_tpu_torch.sae import _place
+
+    return _place(arrays, resolve_device(device))
+
+
+def sae_params_to_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """The inverse: float32 numpy arrays, ``k`` as a 0-d int32 array (what the JAX trainers stamp)."""
+    return {name: np.asarray(int(value), np.int32) if name == "k"
+            else np.ascontiguousarray(torch.as_tensor(value).detach().to("cpu", torch.float32).numpy())
+            for name, value in params.items()}
+
+
+def load_sae_npz(path, device=None) -> dict:
+    """Read a dictionary ``.npz`` written by either package's SAE trainer tool."""
+    with np.load(path) as arrays:
+        return sae_params_from_jax(dict(arrays), device)
+
+
+def save_sae_npz(path, params: Mapping) -> None:
+    """Write a dictionary as the ``.npz`` the JAX ``tools/train_sae.py --out`` writes."""
+    np.savez(path, **sae_params_to_jax(params))

@@ -45,10 +45,11 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "foundation_models/clip.py", "utils/helper.py", "collect/activation_based.py",
                    "collect/relevance_based.py", "relevance/attribution.py", "utils/render.py", "models/vit.py",
                    "foundation_models/siglip.py", "foundation_models/sentencepiece.py", "foundation_models/assets.py",
-                   "foundation_models/reparam.py", "foundation_models/mobileclip.py", "foundation_models/dissect.py"):
+                   "foundation_models/reparam.py", "foundation_models/mobileclip.py", "foundation_models/dissect.py",
+                   "sae.py", "collect/sae_based.py", "train_sae.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
-                                                  "profile_lrp.py", "profile_fm.py", "sweep_k1.py")]
+                                                  "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -65,8 +66,16 @@ def test_default_device_raises_without_gpu(monkeypatch):
     from semanticlens_tpu_torch.ops.topk import init_topk
     from semanticlens_tpu_torch.utils import resolve_device
 
+    from semanticlens_tpu_torch import convert, sae
+
+    cfg = sae.SAEConfig(d_in=4, n_latents=8, batch_rows=2)
+    rows = np.zeros((4, 4), np.float32)
     _no_cuda(monkeypatch)
-    for make in (resolve_device, lambda: ResNet(depth=18), lambda: VisionTransformer(depth=1),
+    for make in (lambda: sae.init_sae(torch.Generator(), cfg), lambda: sae.init_stats(cfg),
+                 lambda: sae.train_sae_from_rows(rows, cfg, steps=1), lambda: convert.sae_params_from_jax({"k": 1}),
+                 lambda: sae.load_gemma_scope_params({n: rows for n in ("W_enc", "b_enc", "W_dec", "b_dec",
+                                                                         "threshold")}),
+                 resolve_device, lambda: ResNet(depth=18), lambda: VisionTransformer(depth=1),
                  lambda: OpenClip("ViT-B-32"), lambda: OpenClip("RN50"), SigLipV2, lambda: ClipMobile("s2"),
                  lambda: create("siglip2"), lambda: create("mobileclip-s1"),
                  lambda: TorchSubjectModel(torch.nn.Linear(2, 2)), lambda: ImageFolder(FIXTURES),
@@ -222,3 +231,30 @@ def test_cuda_batched_attribution_equals_single(cuda_device):
     for k, comp in enumerate((4, 9, 4)):
         np.testing.assert_allclose(got[k].cpu().numpy(), single(params, imgs[k], comp).cpu().numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_sae_steps_match_cpu(cuda_device):
+    """Five float32 TopK + AuxK steps on the card (TF32 off) against the CPU from the same initial
+    parameters and rows: parameters and metrics within 1e-5 of their scale (the bound of
+    ``chip_smoke.py``'s float32 SAE gate), ``last_fired`` and ``step`` equal."""
+    from semanticlens_tpu_torch import sae
+
+    cfg = sae.SAEConfig(d_in=64, n_latents=512, k=8, aux_k=64, dead_steps=2, batch_rows=256)
+    rows = np.random.default_rng(0).normal(size=(1024, 64)).astype(np.float32)
+    init = {n: v.numpy() for n, v in sae.init_sae(torch.Generator().manual_seed(0), cfg, device="cpu").items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {d: sae.train_sae_from_rows(rows, cfg, steps=5, params=init, device=d) for d in (cuda_device, "cpu")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (gp, gs, gm), (cp, cs, cm) = out[cuda_device], out["cpu"]
+    for n in cp:
+        if n != "k":
+            scale = float(cp[n].abs().max())
+            assert float((gp[n].cpu() - cp[n]).abs().max()) <= 1e-5 * scale, n
+    for n in cm:
+        assert abs(gm[n] - cm[n]) <= 1e-5 * max(abs(cm[n]), 1e-12), n
+    assert gm["l0"] == cm["l0"] == 8.0
+    assert torch.equal(gs["last_fired"].cpu(), cs["last_fired"]) and torch.equal(gs["step"].cpu(), cs["step"])
