@@ -108,7 +108,36 @@ Phases (any failing check raises; the exit code is then non-zero):
    ``SAEComponentVisualizer`` with 25 samples and CLIP ViT-B/32 bf16
    (fused pass cold and warm, the 8192 × 25 × 512 concept DB), probing with
    8 words, labels over 1000 words, clarity and redundancy over 8192
-   components.
+   components;
+14. audit — BASELINE config 5 (``AUDIT5``): ``full_audit.main`` in process
+   twice on 2048 synthetic 224² images, ResNet-50 bf16 → layer1–layer4
+   (3,840 components, 25 samples) → CLIP ViT-B/32 bf16 at batch 256, the
+   three default queries, 1000 words and two image queries: cosine labels
+   cold, soft-WPMI labels warm. Gates: the DB shapes, finite scores, each
+   run's top-5 per query and the cold labels equal to dense K1 + stable
+   sort; ``python -m semanticlens_tpu_torch.full_audit --image-dir`` over a
+   512-image 4-class JPEG folder in its own process (the report's keys,
+   class composition) while the float32 gate runs: the audit on 16 images
+   card against CPU, all four layers (evidence ids, and the card's scores
+   and top-5 on the CPU run's DB within 1e-5 relative / equal);
+15. causal — ResNet-50 float32 layer3 (``CAUSAL``): the necessity ratios of
+   the 32 components with the strongest evidence over 512 synthetic
+   images, ``ablation_effects`` over all 1,024 channels on 8 images (8,192
+   forward rows), ``python -m semanticlens_tpu_torch.causal_audit --depth
+   50 --image-size 224`` in its own process; invariants on the card
+   (keep-all mask, ``steer`` at alpha 0, whole-layer patching, K·B rows
+   against K forwards, the SAE and transcoder paths against each other) and
+   ablation, patching, steering and necessity ratios card against CPU
+   (``CAUSAL_GATE``);
+16. featviz — ``featviz.synthesize`` on ResNet-50 bf16 layer3 at 224² (K =
+   16, 64 steps; cold then warm), ``SynthesisComponentVisualizer`` (32
+   components × 2 variants) → CLIP ViT-B/32 concept DB → probing, labels,
+   clarity, redundancy, a second visualizer reloading the gallery without
+   optimizing, and the float32 gate (4 steps on 2 canvases, card against
+   CPU, ``FEATVIZ_GATE``).
+
+Each of phases 14–16 prints its wall seconds beside its bound
+(``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
 toolkit's nvJPEG and matplotlib exist.
@@ -116,7 +145,7 @@ toolkit's nvJPEG and matplotlib exist.
 Each path's K1 launches are counted from 0 and printed per path; the
 analyze path must launch the tiled kernel, the serve path the streaming
 kernel at least twice per text request (one per layer). Every (batch, M,
-N, D) that K1 launches on the paths of phases 4–13 is recorded, and each
+N, D) that K1 launches on the paths of phases 4–16 is recorded, and each
 that phase 2 did not check is held against the plain version afterwards.
 
 Prints the kernels' JSON line and the card's name and power limit, and as
@@ -131,6 +160,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib.util
+import io
 import json
 import math
 import shutil
@@ -192,6 +222,36 @@ SAE = {"images": 2048, "size": 224, "layer": "layer3", "latents": 8192, "k": 32,
        "code_images": 16}
 SAE_GATE = {"d_in": 64, "d_out": 32, "latents": 512, "k": 4, "rows": 1024, "batch_rows": 256, "steps": 5,
             "rel": 1e-5, "topk_rows": 0.99, "code_ids_share": 0.99, "near_tie_rel": 1e-4}
+# BASELINE config 5 (tools/full_audit.py): ResNet-50 bf16 → layer1–layer4 → CLIP ViT-B/32 bf16, the JAX
+# tool's defaults at 2048 synthetic images (in process, cold then warm) and over a 512-image JPEG
+# folder (the CLI in its own process); the float32 gate, card against CPU, on ``gate_images``.
+AUDIT5 = {"images": 2048, "folder_images": 512, "gate_images": 16, "gate_samples": 5, "gate_batch": 8,
+          "image_queries": [0, 1], "bound_s": 90,
+          "db_shapes": {"layer1": [256, 25, 512], "layer2": [512, 25, 512], "layer3": [1024, 25, 512],
+                        "layer4": [2048, 25, 512]}}
+# The causal path on ResNet-50 float32 layer3: card-vs-CPU gates on ``gate_images``, the necessity ratios of
+# the ``components`` strongest components over an evidence sweep of ``images``, and the whole layer's
+# ablation profile on ``profile_images``; an SAE / transcoder of ``latents`` (TopK ``k``) drawn from seed 0.
+CAUSAL = {"images": 512, "size": 224, "layer": "layer3", "gate_images": 4, "gate_components": 8,
+          "patch_components": 4, "components": 32, "evidence": 8, "profile_images": 8, "latents": 1024, "k": 32,
+          "bound_s": 45}
+# Feature synthesis: the JAX tools/bench_featviz.py defaults (ResNet-50 bf16 layer3 at 224², K = 16 canvases,
+# 64 steps), the synthesis visualizer (32 components × 2 variants at max_batch 64) and the float32 gate.
+FEATVIZ = {"k": 16, "steps": 64, "layer": "layer3", "size": 224, "cv_components": 32, "cv_variants": 2,
+           "max_batch": 64, "gate_canvases": 2, "gate_steps": 4, "bound_s": 60}
+# Card-vs-CPU float32 gates of the causal and synthesis phases.
+# A Δ is a difference of two float32 forwards: its error scales with the logits, not with |Δ| (float32
+# against float64 on these inputs reads 1.4e-5 / 1.1e-4 of the largest |Δ| for zero / mean ablation and
+# 7.4e-7 of the logits: precision_float32.py), so Δs and outputs are held to the output scale, the ratios
+# (quotients of Δ norms) relative.
+CAUSAL_GATE = {"card_vs_cpu_of_output": 1e-5, "necessity_rel": 1e-4, "invariant": 1e-6}
+# Synthesis: float32 moves step 1's canvas gradient by ~2e-3 (L2, relative) from float64 while its loss
+# moves by ~2e-7, and Adam moves every canvas entry by about lr whatever its gradient's size, so canvases a
+# few steps on part far more than the forward (precision_float32.py, on the CPU). The backward's function
+# is held in float64, card against CPU; each device's float32 gradient against its own float64 one.
+FEATVIZ_GATE = {"step1_loss_rel": 1e-5, "step1_objective_rel": 1e-5, "step1_grad_float64_card_vs_cpu": 1e-8,
+                "step1_grad_float32_vs_float64_card": 5e-2, "step1_grad_float32_vs_float64_cpu": 5e-2,
+                "steps_objective_rel": 5e-2}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
 
@@ -394,6 +454,8 @@ def phase_kernels(dev):
     cases = {
         "probe 8x1024x512": (randn(8, 512), randn(1024, 512)),
         "probe 8x2048x512": (randn(8, 512), randn(2048, 512)),
+        "redundancy 256x256x512": (randn(256, 512),) * 2,  # the full audit's layer1 and layer2
+        "redundancy 512x512x512": (randn(512, 512),) * 2,
         "redundancy 1024x1024x512": (randn(1024, 512),) * 2,
         "redundancy 2048x2048x512": (randn(2048, 512),) * 2,
         "audit 4096x8192x512": (randn(4096, 512), randn(8192, 512)),
@@ -451,7 +513,8 @@ def phase_kernels(dev):
         "labels 8192x1000x512": (randn(8192, 512), randn(1000, 512)),
         "redundancy 8192x8192x512": (randn(8192, 512),) * 2,
     }
-    timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 1024x1024x512",
+    timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 256x256x512", "redundancy 512x512x512",
+             "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
              "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768", "probe 8x8192x512",
              "redundancy 8192x8192x512")
@@ -1150,12 +1213,12 @@ def synthetic_scenes(gen, n, h, w, dev) -> torch.Tensor:
     return img.clamp_(0, 255).round_().to(torch.uint8)
 
 
-def make_jpeg_folder(dev, root: Path) -> dict:
-    """FOLDER["images"] synthetic images encoded with nvJPEG (quality 90, 4:2:0) into a
+def make_jpeg_folder(dev, root: Path, n: int = FOLDER["images"]) -> dict:
+    """``n`` synthetic images encoded with nvJPEG (quality 90, 4:2:0) into a
     class-per-subdirectory folder; returns the encode's numbers."""
     from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
 
-    n, h, w, classes = FOLDER["images"], FOLDER["height"], FOLDER["width"], FOLDER["classes"]
+    h, w, classes = FOLDER["height"], FOLDER["width"], FOLDER["classes"]
     encoder = NvJpegDecoder(dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     total_bytes, t0, chunk = 0, time.perf_counter(), 256
@@ -1378,6 +1441,26 @@ def phase_folder(dev):
     })
     log(f"[folder] {json.dumps(summary)}")
     return launches
+
+
+def imagenet_preprocess_as_input(x):
+    """:func:`imagenet_preprocess` for float pixels, in their own dtype (float64 in the precision gates)."""
+    from semanticlens_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
+    mean = torch.tensor(IMAGENET_MEAN, device=x.device, dtype=x.dtype)
+    std = torch.tensor(IMAGENET_STD, device=x.device, dtype=x.dtype)
+    return (x / 255.0 - mean) / std
+
+
+def batch_norm_any_dtype(x, weight, bias, running_mean, running_var, *, eps=1e-5):
+    """The port's inference batch norm, with float64 statistics for a float64 ``x`` (the port's casts
+    them to float32, so a float64 ResNet runs only with this in place of ``resnet.batch_norm``)."""
+    from semanticlens_tpu_torch.models import layers
+
+    if x.dtype != torch.float64:
+        return layers.batch_norm(x, weight, bias, running_mean, running_var, eps=eps)
+    return torch.nn.functional.batch_norm(x, running_mean.double(), running_var.double(), weight.double(),
+                                          bias.double(), training=False, eps=eps)
 
 
 def imagenet_preprocess(x):
@@ -2336,6 +2419,571 @@ def phase_sae(dev, root: Path):
     return launches
 
 
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of ``obj`` inside the block, restore them after."""
+    old = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(obj, name, value)
+
+
+@contextlib.contextmanager
+def recording_concept_dbs(record: list):
+    """Append ``(lens, cv, concept DB)`` of every ``Lens.compute_concept_db`` call made inside."""
+    from semanticlens_tpu_torch.lens import Lens
+
+    compute = Lens.compute_concept_db
+
+    def recording(self, cv, **kwargs):
+        db = compute(self, cv, **kwargs)
+        record.append((self, cv, db))
+        return db
+
+    with patched(Lens, compute_concept_db=recording):
+        yield
+
+
+def _max_rel(got, want, scale) -> float:
+    """max |got − want| over ``scale`` (tensors or arrays, compared in float64 on the host)."""
+    def host(x):
+        return x.detach().to("cpu", torch.float64).numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float64)
+
+    return float(np.abs(host(got) - host(want)).max() / scale)
+
+
+def _scale(x) -> float:
+    return float((x.detach().abs().max() if isinstance(x, torch.Tensor) else np.abs(x).max()))
+
+
+def audit_float32_gate(dev) -> tuple[dict, list]:
+    """``full_audit.main`` in float32 (ResNet-50 and CLIP ViT-B/32 at full width, seed 0) on the card and on
+    the CPU over the same 16 images, all four layers. The collected evidence agrees (as ``[reference]``
+    holds it), and the card's Analyze on the CPU run's concept DB and query embeddings (identical
+    inputs, so a bf16 near-tie in one top-k slot is not mistaken for a scoring error) gives the CPU
+    report's clarity and redundancy within 1e-5 relative and its top-5 ids, up to components whose
+    float64 cosines tie within K1's atol (the banks' components sit at cosines ≈ 0.99 of each other).
+    Returns the measurements and the layers that miss."""
+    from semanticlens_tpu_torch import full_audit, scores
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+
+    images = _make_images(AUDIT5["gate_images"], seed=1, size=224)
+
+    def build_model(args, device):
+        model = ResNet(depth=50, dtype=torch.float32, device=device)
+        model.params, model.name = model.init(seed=0), "resnet50-audit"
+        return model, aggregate_conv_mean
+
+    runs = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        record = []
+        argv = ["--n-samples", str(AUDIT5["gate_samples"]), "--batch", str(AUDIT5["gate_batch"])]
+        with patched(full_audit, build_model=build_model,
+                     build_fm=lambda args, d: OpenClip("ViT-B-32", dtype=torch.float32, device=d, seed=0),
+                     load_dataset=lambda args, d: ArrayDataset(images, name="audit-gate")), \
+                recording_concept_dbs(record), contextlib.redirect_stdout(io.StringIO()):
+            report = full_audit.main(argv + (["--cpu"] if device.type == "cpu" else []))
+        runs[key] = (report, *record[0])
+    (gpu, glens, gcv, gdb), (cpu, clens, ccv, cdb) = runs["card"], runs["cpu"]
+    queries = ["dog", "car wheel", "striped pattern"]
+    with torch.inference_mode():
+        q_cpu = clens.fm.encode_text(clens.fm.tokenize(queries)).float()
+    out, failed = {}, []
+    for layer in AUDIT5["db_shapes"]:
+        agg_cpu = cdb[layer].mean(1)
+        clarity = float(glens.eval_clarity({layer: cdb[layer]})[layer].mean())
+        redundancy = float(glens.eval_redundancy({layer: agg_cpu})[layer])
+        _, top5 = scores.topk_cosine_search(q_cpu.to(dev), torch.as_tensor(agg_cpu, device=dev), 5)
+        top5 = {q: top5[i].tolist() for i, q in enumerate(queries)}
+        q64, b64 = q_cpu.double().cpu().numpy(), agg_cpu.astype(np.float64)
+        norms = np.outer(np.linalg.norm(q64, axis=1), np.linalg.norm(b64, axis=1))
+        cos64 = (q64 @ b64.T) / np.maximum(norms, 1e-12)  # zero rows (silent components) give 0, as in K1
+        want = cpu["top5_per_query"][layer]
+        tie_gap = max(float(np.abs(np.sort(cos64[i, top5[w]]) - np.sort(cos64[i, want[w]])).max())
+                      for i, w in enumerate(queries))
+        c_cpu, r_cpu = cpu["scores"][layer]["clarity_mean"], cpu["scores"][layer]["redundancy"]
+        out[layer] = {
+            "evidence_ids_share": float((gcv.get_max_reference(layer) == ccv.get_max_reference(layer)).mean()),
+            "db_max_abs_diff": float(np.abs(gdb[layer] - cdb[layer]).max()),
+            "clarity_rel_diff": abs(clarity - c_cpu) / abs(c_cpu),
+            "redundancy_rel_diff": abs(redundancy - r_cpu) / abs(r_cpu),
+            "top5_equal": top5 == want,
+            "top5_float64_cosine_gap": tie_gap,  # between the two top-5 sets' true cosines
+            # the card's own report against the CPU's (its DB differs where a bf16 top-k slot tips)
+            "report_clarity_rel_diff": abs(gpu["scores"][layer]["clarity_mean"] - c_cpu) / abs(c_cpu),
+            "report_redundancy_rel_diff": abs(gpu["scores"][layer]["redundancy"] - r_cpu) / abs(r_cpu),
+            "report_top5_equal": gpu["top5_per_query"][layer] == cpu["top5_per_query"][layer],
+        }
+        o = out[layer]
+        if not (o["evidence_ids_share"] >= 0.98 and o["clarity_rel_diff"] <= 1e-5 and o["redundancy_rel_diff"] <= 1e-5
+                and tie_gap <= ATOL):
+            failed.append(layer)
+    if gpu["db_shapes"] != cpu["db_shapes"]:
+        failed.append("db_shapes")
+    return out, failed
+
+
+def phase_audit(dev, root: Path):
+    """BASELINE config 5 at full width through ``full_audit.main`` (K1 counted from 0 around the two
+    in-process runs); the CLI over a JPEG folder in its own process while the float32 gate runs."""
+    from semanticlens_tpu_torch import full_audit
+    from semanticlens_tpu_torch.lens import _embed_vocabulary
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    words, queries, templates = vocabulary(1000), ["dog", "car wheel", "striped pattern"], ["a photo of a {}"]
+    argv = ["--n-synthetic", str(AUDIT5["images"]), "--vocabulary", *words,
+            "--image-query-indices", *map(str, AUDIT5["image_queries"])]
+    reports, walls, record, shapes = {}, {}, [], set()
+    k1.reset_launch_counts()
+    with recording_k1_shapes(shapes), recording_concept_dbs(record), contextlib.redirect_stdout(io.StringIO()):
+        for name, extra in (("cold", []), ("warm", ["--label-scoring", "wpmi"])):
+            t = time.perf_counter()
+            reports[name] = full_audit.main(argv + extra)
+            walls[name] = time.perf_counter() - t
+    launches = k1.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # Gates on the two reports (not counted).
+    for name, report in reports.items():
+        if tuple(report) != full_audit.REPORT_KEYS or report["db_shapes"] != AUDIT5["db_shapes"]:
+            raise AssertionError(f"[audit] {name}: keys {list(report)}, db shapes {report['db_shapes']}")
+        values = [v for s in report["scores"].values() for v in s.values()]
+        if len(values) != 16 or not np.isfinite(values).all():
+            raise AssertionError(f"[audit] {name}: scores {report['scores']}")
+        if set(report["image_probe_top_neuron"]) != set(AUDIT5["db_shapes"]):
+            raise AssertionError(f"[audit] {name}: image probing {report['image_probe_top_neuron']}")
+    if launches["streaming"] < 1 or launches["tiled"] < 1:
+        raise AssertionError(f"[audit] K1 launches on the path: {launches}")
+    # Each run's top-5 and the cold run's cosine labels against dense K1 + stable sort over its own banks.
+    for (name, report), (lens, _, db) in zip(reports.items(), record):
+        fm = lens.fm
+        with torch.inference_mode():
+            q = fm.encode_text(fm.tokenize(queries)).float()
+        vocab_embeds = _embed_vocabulary(fm, words, templates, 1024) if name == "cold" else None
+        for layer, shape in AUDIT5["db_shapes"].items():
+            bank = torch.as_tensor(db[layer].mean(1), device=dev)
+            _, idx = dense_topk(q, bank, 5)
+            if report["top5_per_query"][layer] != {w: idx[i].tolist() for i, w in enumerate(queries)}:
+                raise AssertionError(f"[audit] {name}: top-5 of {layer} differ from dense K1 + stable sort")
+            got = report["component_labels"][layer]
+            if vocab_embeds is not None:
+                vals, idx = dense_topk(bank, vocab_embeds, 1)
+                if [got[str(i)]["word"] for i in range(16)] != [words[j] for j in idx[:16, 0].tolist()] or not (
+                        np.allclose([got[str(i)]["score"] for i in range(16)], vals[:16, 0].cpu().numpy(),
+                                    rtol=0, atol=1e-6)):
+                    raise AssertionError(f"[audit] cosine labels of {layer} differ from dense K1 + stable sort")
+            elif len(got) != min(16, shape[0]) or any(v["word"] not in words or not np.isfinite(v["score"])
+                                                      for v in got.values()):
+                raise AssertionError(f"[audit] soft-WPMI labels of {layer}: {got}")
+    del record, db, lens, fm, vocab_embeds
+    torch.cuda.empty_cache()
+
+    # The CLI in its own process over a 4-class JPEG folder, while the float32 gate runs.
+    encode = make_jpeg_folder(dev, root / "jpegs", AUDIT5["folder_images"])
+    out_path, err_path = root / "full_audit_cli.json", root / "full_audit_cli.log"
+    with open(out_path, "w") as out_file, open(err_path, "w") as err_file:
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "semanticlens_tpu_torch.full_audit", "--image-dir",
+                                 str(root / "jpegs")], cwd=Path(__file__).resolve().parent, stdout=out_file,
+                                stderr=err_file)
+        try:
+            gate, gate_missed = audit_float32_gate(dev)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    cli_s = time.perf_counter() - t_cli
+    lines = out_path.read_text().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"[audit] the full_audit CLI exited with {rc}:\n{err_path.read_text()[-4000:]}")
+    cli = json.loads(lines[-1])
+    if (tuple(cli) != full_audit.REPORT_KEYS or cli["n_images"] != AUDIT5["folder_images"]
+            or cli["db_shapes"] != AUDIT5["db_shapes"] or "class-composition" not in cli["stages"]
+            or set(cli["class_selective_components"]) != set(AUDIT5["db_shapes"])):
+        raise AssertionError(f"[audit] the CLI's report: {json.dumps(cli)[:2000]}")
+    phase_s = time.perf_counter() - t_phase
+    summary = {
+        "images": AUDIT5["images"], "components": sum(s[0] for s in AUDIT5["db_shapes"].values()),
+        "db_shapes": reports["cold"]["db_shapes"],
+        "images_per_s_fused_cold": reports["cold"]["stages"]["collect+embed"]["items_per_sec"],
+        "images_per_s_fused_warm": reports["warm"]["stages"]["collect+embed"]["items_per_sec"],
+        "main_wall_s": walls,
+        "stages_s": {name: {stage: round(v["seconds"], 4) for stage, v in r["stages"].items()}
+                     for name, r in reports.items()},
+        "scores_cold": reports["cold"]["scores"],
+        "k1_launches": launches, "k1_shapes": sorted(list(s) for s in shapes),
+        "peak_mem_gb": peak_gb,
+        "float32_gate": gate,
+        "cli": {"process_s": cli_s, "n_images": cli["n_images"], "jpeg_encode": encode,
+                "images_per_s_fused": cli["stages"]["collect+embed"]["items_per_sec"],
+                "stages_s": {stage: round(v["seconds"], 4) for stage, v in cli["stages"].items()},
+                "class_selective_components": {k: len(v) for k, v in cli["class_selective_components"].items()}},
+        "phase_s": phase_s, "bound_s": AUDIT5["bound_s"], "within_bound": phase_s <= AUDIT5["bound_s"],
+    }
+    log(f"[audit] {json.dumps(summary)}")
+    if gate_missed:  # after the line, so that a miss still prints every measurement
+        raise AssertionError(f"[audit] float32 card vs CPU misses on {gate_missed}")
+    return launches
+
+
+def _causal_models(device):
+    from semanticlens_tpu_torch import sae
+    from semanticlens_tpu_torch.models import ResNet
+
+    model = ResNet(depth=50, dtype=torch.float32, device=device)
+    model.params, model.name = model.init(seed=0), "resnet50"
+    dictionaries = {}
+    for kind, d_out in (("sae", 0), ("tc", 1024)):
+        cfg = sae.SAEConfig(d_in=1024, n_latents=CAUSAL["latents"], k=CAUSAL["k"], d_out=d_out, seed=0)
+        dictionaries[kind] = sae.finalize_sae_params(sae.init_sae(torch.Generator().manual_seed(0), cfg, device), cfg)
+    return model, dictionaries
+
+
+def causal_measurements(device, images, source) -> dict:
+    """The causal functions' outputs on ``device`` for the card-vs-CPU gates (float32 ResNet-50 layer3)."""
+    from semanticlens_tpu_torch import causal, sae
+
+    model, dicts = _causal_models(device)
+    p, layer = model.params, CAUSAL["layer"]
+    ids = (np.arange(CAUSAL["gate_components"]) * 127).tolist()
+    direction = np.random.default_rng(4).normal(scale=0.1, size=1024).astype(np.float32)
+    with torch.no_grad():
+        clean = model.apply(p, causal._images(model, images))[0]
+    out = {"clean": clean}
+    for mode in ("zero", "mean"):
+        out[f"ablation_{mode}"] = causal.ablation_effects(model, p, layer, images, ids, mode=mode)
+    out["patch"] = causal.activation_patch(model, p, layer, images, source, ids[: CAUSAL["patch_components"]])[0]
+    out["steer"] = causal.steer(model, p, layer, images, direction, alpha=1.0)
+    half = images.shape[0] // 2
+    out["necessity"] = causal.necessity_ratio(model, p, layer, ids, images[:half], images[half:])
+    out["sae_ablation"] = causal.sae_latent_ablation(model, p, layer, dicts["sae"], images, list(range(8)))
+    tc = sae.TranscoderSubjectModel(model, "layer3.0", layer, dicts["tc"], replace=True)
+    with torch.no_grad():
+        out["transcoder"] = tc.apply(tc.params, causal._images(model, images))[0]
+    return out
+
+
+def causal_card_invariants(dev, images, source) -> dict:
+    """Invariants on the card, each as max |Δ| over the clean output's scale."""
+    from semanticlens_tpu_torch import causal, sae
+    from semanticlens_tpu_torch.models import interventions
+
+    model, dicts = _causal_models(dev)
+    p, layer = model.params, CAUSAL["layer"]
+    x, src = causal._images(model, images), causal._images(model, source)
+    ids = (np.arange(CAUSAL["gate_components"]) * 127).tolist()
+    with torch.no_grad():
+        clean = model.apply(p, x)[0]
+        scale = _scale(clean)
+        keep_all = causal._masked_forwards(model, p, layer, x, torch.ones((1, 1024), device=dev),
+                                           lambda v, m: (v * m).to(v.dtype))[0]
+        src_logits = model.apply(p, src)[0]
+        sub = sae.SAESubjectModel(model, layer, dicts["sae"])
+        with interventions({sub.sae_tap: lambda z: z}):
+            sae_identity = sub.apply(sub.params, x)[0]
+        keep = torch.ones(CAUSAL["latents"], device=dev)
+        keep[3] = 0.0
+        with interventions({sub.sae_tap: lambda z: z * keep}):
+            sae_ablated = sub.apply(sub.params, x)[0]
+        tc = sae.TranscoderSubjectModel(model, "layer3.0", layer, dicts["tc"])
+        with interventions({tc.tc_tap: lambda z: z}):
+            tc_identity = tc.apply(tc.params, x)[0]
+        tc_replace = sae.TranscoderSubjectModel(model, "layer3.0", layer, dicts["tc"], replace=True)
+        tc_replaced = tc_replace.apply(tc_replace.params, x)[0]
+    batched = causal.ablation_effects(model, p, layer, x, ids)
+    singles = torch.cat([causal.ablation_effects(model, p, layer, x, [c]) for c in ids])
+    latent = causal.sae_latent_ablation(model, p, layer, dicts["sae"], x, [3])[0]
+    return {
+        "keep_all_mask_delta": _max_rel(keep_all, clean, scale),
+        "steer_alpha0_vs_clean": _max_rel(causal.steer(model, p, layer, x, torch.ones(1024, device=dev), alpha=0.0),
+                                          clean, scale),
+        "patch_whole_layer_vs_source": _max_rel(causal.activation_patch(model, p, layer, x, src)[0], src_logits,
+                                                _scale(src_logits)),
+        "batched_vs_single_forwards": _max_rel(batched, singles, scale),
+        # an SAE latent through sae_latent_ablation and through SAESubjectModel's intervention path
+        "sae_latent_vs_subject_intervention": _max_rel(latent, sae_identity - sae_ablated, scale),
+        "transcoder_replace_vs_identity_intervention": _max_rel(tc_replaced, tc_identity, _scale(tc_identity)),
+        "transcoder_patch_moves_output": _max_rel(tc_replaced, clean, scale),
+    }
+
+
+def phase_causal(dev, root: Path):
+    """Interventions on ResNet-50 float32 (TF32 off): the whole layer3 necessity profile and the
+    necessity ratios of its strongest components, invariants on the card, the card against the CPU,
+    and ``python -m semanticlens_tpu_torch.causal_audit`` in its own process (K1 is not on this path)."""
+    from semanticlens_tpu_torch import causal
+    from semanticlens_tpu_torch.causal_audit import REPORT_KEYS
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_max_auto
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    layer, size = CAUSAL["layer"], CAUSAL["size"]
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 255, size=(CAUSAL["images"], size, size, 3), dtype=np.uint8).astype(np.float32) / 255.0
+    model, _ = _causal_models(dev)
+    k1.reset_launch_counts()
+
+    # 1. Necessity ratios of the 32 components with the strongest evidence (8 evidence, 8 control images).
+    t = time.perf_counter()
+    ds = ArrayDataset(images, name="causal-synthetic")
+    cv = ActivationComponentVisualizer(model=model, dataset_model=ds, dataset_fm=ds, layer_names=[layer],
+                                       num_samples=CAUSAL["evidence"], aggregate_fn=aggregate_max_auto)
+    act = cv.run(batch_size=128)[layer]
+    torch.cuda.synchronize()
+    evidence_s = time.perf_counter() - t
+    comps = np.argsort(-act.activations.to(torch.float32).numpy()[:, 0])[: CAUSAL["components"]]
+    t = time.perf_counter()
+    ratios = []
+    for comp in comps:
+        ev = act.sample_ids[comp]
+        ev = ev[ev >= 0]
+        control = rng.choice(len(images), size=ev.size, replace=False)
+        ratios.append(float(causal.necessity_ratio(model, model.params, layer, [int(comp)], images[ev],
+                                                   images[control])[0]))
+    ratio_s = time.perf_counter() - t
+
+    # 2. The whole layer's necessity profile: all 1,024 channels on 8 images, 8,192 forward rows.
+    x = causal._images(model, images[: CAUSAL["profile_images"]])
+    causal.ablation_effects(model, model.params, layer, x, [0, 1])  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    profile = causal.ablation_effects(model, model.params, layer, x, list(range(1024)))
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t
+    launches = k1.launch_counts()
+    rows = 1024 * CAUSAL["profile_images"]
+    necessity = torch.linalg.vector_norm(profile, dim=-1).mean(1)  # (1024,) per-channel effect
+    if profile.shape != (1024, CAUSAL["profile_images"], 1000) or not torch.isfinite(profile).all():
+        raise AssertionError(f"[causal] ablation profile {tuple(profile.shape)} or non-finite values")
+    if not (np.isfinite(ratios).all() and min(ratios) > 0):
+        raise AssertionError(f"[causal] necessity ratios {ratios}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del profile, model, cv, act
+    torch.cuda.empty_cache()
+
+    # 3. The CLI in its own process while the invariants and the card-vs-CPU gates run.
+    out_path, err_path = root / "causal_audit_cli.json", root / "causal_audit_cli.log"
+    gate_images = images[: CAUSAL["gate_images"]]
+    source = images[CAUSAL["gate_images"] : 2 * CAUSAL["gate_images"]]
+    with open(out_path, "w") as out_file, open(err_path, "w") as err_file:
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "semanticlens_tpu_torch.causal_audit", "--depth", "50",
+                                 "--image-size", str(size)], cwd=Path(__file__).resolve().parent, stdout=out_file,
+                                stderr=err_file)
+        try:
+            invariants = causal_card_invariants(dev, gate_images, source)
+            card = causal_measurements(dev, gate_images, source)
+            cpu = causal_measurements(torch.device("cpu"), gate_images, source)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    cli_s = time.perf_counter() - t_cli
+    lines = out_path.read_text().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"[causal] the causal_audit CLI exited with {rc}:\n{err_path.read_text()[-4000:]}")
+    cli = json.loads(lines[-1])
+    out_scale = _scale(cpu["clean"])
+    gates = {name: {"vs_output_scale": _max_rel(card[name], cpu[name], out_scale),
+                    "vs_largest_delta": _max_rel(card[name], cpu[name], _scale(cpu[name]))}
+             for name in ("ablation_zero", "ablation_mean", "patch", "steer", "sae_ablation", "transcoder")}
+    gates["necessity"] = {"rel": _max_rel(card["necessity"], cpu["necessity"], _scale(cpu["necessity"]))}
+    phase_s = time.perf_counter() - t_phase
+    summary = {
+        "layer": layer, "size": size, "dtype": "float32",
+        "evidence_images": len(images), "evidence_s": evidence_s,
+        "necessity_components": len(ratios), "necessity_s": ratio_s,
+        "median_ratio": float(np.median(ratios)), "min_ratio": float(np.min(ratios)), "max_ratio": float(np.max(ratios)),
+        "profile": {"channels": 1024, "images": CAUSAL["profile_images"], "rows": rows, "seconds": profile_s,
+                    "ablated_forwards_per_s": rows / profile_s, "rows_per_forward": causal.ROWS_PER_FORWARD,
+                    "most_necessary": torch.argsort(necessity, descending=True)[:5].tolist()},
+        "invariants_vs_output_scale": invariants, "card_vs_cpu": gates,
+        "cli": {"process_s": cli_s, "report": cli}, "k1_launches": launches, "peak_mem_gb": peak_gb,
+        "phase_s": phase_s, "bound_s": CAUSAL["bound_s"], "within_bound": phase_s <= CAUSAL["bound_s"],
+    }
+    log(f"[causal] {json.dumps(summary)}")
+    # Gates after the line, so that a miss still prints every measurement.
+    missed = [name for name, g in gates.items() if name != "necessity"
+              and not g["vs_output_scale"] <= CAUSAL_GATE["card_vs_cpu_of_output"]]
+    if not gates["necessity"]["rel"] <= CAUSAL_GATE["necessity_rel"]:
+        missed.append("necessity")
+    missed += [name for name, v in invariants.items() if name != "transcoder_patch_moves_output"
+               and not v <= CAUSAL_GATE["invariant"]]
+    if not invariants["transcoder_patch_moves_output"] > 0:
+        missed.append("transcoder_patch_moves_output")
+    if tuple(cli) != REPORT_KEYS or cli["components"] != 8 or not np.isfinite(cli["median_ratio"]):
+        missed.append("cli")
+    if missed:
+        raise AssertionError(f"[causal] gates missed: {missed}")
+    return launches
+
+
+def phase_featviz(dev, root: Path):
+    """Feature synthesis on ResNet-50 bf16 layer3 at 224² (cold, then warm), the synthesis visualizer
+    through Lens with CLIP ViT-B/32 (K1 counted from 0 around both), the gallery reload, and the
+    float32 gate card against CPU."""
+    from semanticlens_tpu_torch import Lens, featviz
+    from semanticlens_tpu_torch.collect import SynthesisComponentVisualizer
+    from semanticlens_tpu_torch.collect import synthesis_based
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.models import resnet as resnet_module
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    layer, size, k, steps = FEATVIZ["layer"], FEATVIZ["size"], FEATVIZ["k"], FEATVIZ["steps"]
+    model = ResNet(depth=50, dtype=torch.bfloat16, device=dev)
+    model.params, model.name = model.init(seed=0), "resnet50"
+    cfg = featviz.SynthesisConfig(steps=steps)
+    k1.reset_launch_counts()
+
+    # 1. synthesize: components 0–15 cold (seed 0), 16–31 warm (seed 1).
+    runs, missed = {}, []
+    for name, ids, seed in (("cold", list(range(k)), 0), ("warm", list(range(k, 2 * k)), 1)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        images, objective, trace = featviz.synthesize(model, model.params, layer, ids, aggregate_conv_mean,
+                                                      image_size=size, model_preprocess=imagenet_preprocess,
+                                                      config=cfg, seed=seed, return_trace=True)
+        seconds = time.perf_counter() - t
+        z0 = featviz._init_canvas(cfg, k, size + 2 * cfg.jitter, torch.Generator().manual_seed(seed)).to(dev)
+        img0 = torch.sigmoid(z0)[:, cfg.jitter : cfg.jitter + size, cfg.jitter : cfg.jitter + size]
+        with torch.no_grad():
+            start = featviz._forward_objective(model, model.params, layer, aggregate_conv_mean, imagenet_preprocess,
+                                               img0, torch.tensor(ids, device=dev)).float().cpu().numpy()
+        # a component silent at the start and at the end (a ReLU that never fires) has no gradient to ascend
+        silent = (start == 0.0) & (objective == 0.0)
+        runs[name] = {"seconds": seconds, "fwd_bwd_per_s": k * steps / seconds, "canvases_per_s": k / seconds,
+                      "objective_start": start.tolist(), "objective_final": objective.tolist(),
+                      "canvases_ascended": int((objective > start).sum()), "silent_canvases": int(silent.sum()),
+                      "trace_first_last": [float(trace[0]), float(trace[-1])]}
+        if not (np.isfinite(objective).all() and np.isfinite(trace).all() and ((objective > start) | silent).all()
+                and images.shape == (k, size, size, 3) and images.min() >= 0.0 and images.max() <= 1.0):
+            missed.append(f"{name} synthesis")
+
+    # 2. The synthesis visualizer: 32 components × 2 variants, one synthesize call of 64 canvases.
+    fm = OpenClip("ViT-B-32", dtype=torch.bfloat16, device=dev, seed=0)
+    lens = Lens(fm)
+    cv_args = dict(layer_names=[layer], n_components=FEATVIZ["cv_components"], num_samples=FEATVIZ["cv_variants"],
+                   aggregate_fn=aggregate_conv_mean, image_size=size, model_preprocess=imagenet_preprocess,
+                   config=cfg, seed=0, max_batch=FEATVIZ["max_batch"], cache_dir=str(root / "featviz"))
+    cv = SynthesisComponentVisualizer(model, **cv_args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cv.run()
+    gallery_s = time.perf_counter() - t
+    t = time.perf_counter()
+    db = lens.compute_concept_db(cv, batch_size=256)[layer]
+    torch.cuda.synchronize()
+    db_s = time.perf_counter() - t
+    agg = {layer: db.mean(1)}
+    t = time.perf_counter()
+    hits = lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES)[layer]
+    labels = lens.label_components(vocabulary(1000), agg, top_m=3, templates=TEMPLATES)[layer]
+    redundancy = float(lens.eval_redundancy(agg)[layer])
+    clarity = lens.eval_clarity({layer: db})[layer].cpu().numpy()
+    torch.cuda.synchronize()
+    analyze_s = time.perf_counter() - t
+    launches = k1.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    c = FEATVIZ["cv_components"]
+    if db.shape != (c, FEATVIZ["cv_variants"], 512) or not np.isfinite(db).all():
+        raise AssertionError(f"[featviz] concept DB shape {db.shape} or non-finite values")
+    if hits.shape != (len(PROBE_WORDS), c) or not np.isfinite(hits).all() or not np.isfinite(redundancy):
+        raise AssertionError("[featviz] probing or redundancy of the synthesized DB")
+    if clarity.shape != (c,) or not np.isfinite(clarity).all():
+        raise AssertionError("[featviz] clarity of the synthesized DB")
+    check_labels(labels, c, vocabulary(1000), "[featviz]")
+    if launches["total"] < 1:
+        raise AssertionError(f"[featviz] K1 launches on the path: {launches}")
+
+    # A second visualizer on the same cache_dir reloads the gallery without optimizing, and its DB is identical.
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return featviz.synthesize(*args, **kwargs)
+
+    with patched(synthesis_based, synthesize=counting):
+        cv2 = SynthesisComponentVisualizer(model, **cv_args)
+        db2 = cv2._compute_concept_db(fm, batch_size=256)[layer]
+    reload = {"synthesize_calls": len(calls), "db_max_abs_diff": float(np.abs(db2 - db).max())}
+    if calls or not np.array_equal(db2, db):
+        missed.append("reload")
+
+    # 3. Card against CPU on the same z0 and draws (the CPU generator's, on both devices): step 1's loss,
+    # objective and canvas gradient in float64 (the same function: the backward's formula) and in float32
+    # (each within float32's reach of its float64 gradient), then 4 whole float32 steps.
+    gate_cfg, n_gate = featviz.SynthesisConfig(steps=FEATVIZ["gate_steps"]), FEATVIZ["gate_canvases"]
+    step1, after = {}, {}
+    with patched(resnet_module, batch_norm=batch_norm_any_dtype):
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            for dtype in (torch.float32, torch.float64):
+                m = ResNet(depth=50, dtype=dtype, device=device)
+                m.params = {name: v.to(dtype) for name, v in m.init(seed=0).items()}
+                generator = torch.Generator().manual_seed(0)
+                leaf = featviz._init_canvas(gate_cfg, n_gate, size + 2 * gate_cfg.jitter, generator)
+                leaf = leaf.to(device, dtype).requires_grad_(True)
+                offsets, flips = featviz._draws(gate_cfg, n_gate, generator)
+                loss, obj = featviz._loss(m, m.params, layer, aggregate_conv_mean, imagenet_preprocess_as_input,
+                                          gate_cfg, size, leaf, torch.arange(n_gate, device=device),
+                                          offsets[0].tolist(), flips[0].to(device))
+                (grad,) = torch.autograd.grad(loss, [leaf])
+                step1[key, dtype] = (float(loss.detach()), float(obj.detach()), grad.detach().double().cpu())
+                if dtype == torch.float32:
+                    after[key] = featviz.synthesize(m, m.params, layer, list(range(n_gate)), aggregate_conv_mean,
+                                                    image_size=size, model_preprocess=imagenet_preprocess,
+                                                    config=gate_cfg, seed=0)
+
+    def grad_rel(a, b):
+        return float((step1[a][2] - step1[b][2]).norm() / step1[b][2].norm())
+
+    f32, f64 = torch.float32, torch.float64
+    gate_err = {
+        "step1_loss_rel": abs(step1["card", f32][0] - step1["cpu", f32][0]) / abs(step1["cpu", f32][0]),
+        "step1_objective_rel": abs(step1["card", f32][1] - step1["cpu", f32][1]) / abs(step1["cpu", f32][1]),
+        "step1_grad_float64_card_vs_cpu": grad_rel(("card", f64), ("cpu", f64)),
+        "step1_grad_float32_vs_float64_card": grad_rel(("card", f32), ("card", f64)),
+        "step1_grad_float32_vs_float64_cpu": grad_rel(("cpu", f32), ("cpu", f64)),
+        "step1_grad_float32_card_vs_cpu": grad_rel(("card", f32), ("cpu", f32)),
+        "steps_images_max_abs": float(np.abs(after["card"][0] - after["cpu"][0]).max()),
+        "steps_objective_rel": _max_rel(after["card"][1], after["cpu"][1], _scale(after["cpu"][1])),
+    }
+    phase_s = time.perf_counter() - t_phase
+    summary = {
+        "layer": layer, "size": size, "k": k, "steps": steps, "synthesize": runs,
+        "visualizer": {"components": c, "variants": FEATVIZ["cv_variants"], "max_batch": FEATVIZ["max_batch"],
+                       "gallery_s": gallery_s, "fwd_bwd_per_s": c * FEATVIZ["cv_variants"] * steps / gallery_s,
+                       "concept_db_s": db_s, "analyze_s": analyze_s, "redundancy": redundancy},
+        "reload": reload, "float32_gate": gate_err, "k1_launches": launches, "peak_mem_gb": peak_gb,
+        "phase_s": phase_s, "bound_s": FEATVIZ["bound_s"], "within_bound": phase_s <= FEATVIZ["bound_s"],
+    }
+    log(f"[featviz] {json.dumps(summary)}")
+    missed += [name for name, bound in FEATVIZ_GATE.items() if not gate_err[name] <= bound]
+    if missed:  # after the line, so that a miss still prints every measurement
+        raise AssertionError(f"[featviz] gates missed: {missed}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2385,6 +3033,10 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             by_path["sae"] = phase_sae(dev, Path(tmp))
         done("sae")
+        for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz)):
+            with tempfile.TemporaryDirectory() as tmp:
+                by_path[name] = phase(dev, Path(tmp))
+            done(name)
     log(f"[phases] wall seconds: {json.dumps(phase_s)}")
     log(f"[launches] K1 per path: {json.dumps(by_path)}")
     phase_main_path_shapes(dev, shapes, checked, max_err)
@@ -2417,7 +3069,9 @@ def main():
             {"tile": row["tile"]} if "tile" in row else {})
 
     kernels = {"kernels": [
-        entry("tiled", "redundancy 2048x2048x512") | {"at_d1024": at_shape("redundancy 2048x2048x1024"),
+        entry("tiled", "redundancy 2048x2048x512") | {"at_layer1": at_shape("redundancy 256x256x512"),
+                                                      "at_layer2": at_shape("redundancy 512x512x512"),
+                                                      "at_d1024": at_shape("redundancy 2048x2048x1024"),
                                                       "at_d768": at_shape("redundancy 3072x3072x768"),
                                                       "at_sae": at_shape("redundancy 8192x8192x512")},
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),

@@ -17,11 +17,44 @@ Workflow (the JAX package's three stages):
    DB in the safetensors format the JAX package reads.
 3. **Analyze** — ``scores`` and ``Lens`` probing; every cosine matrix runs
    through the hand-written CUDA kernel ``ops.cosine`` (``csrc/cosine.cu``).
+
+Beyond the three stages: ``causal`` (ablation, patching, steering through
+``models.interventions``), ``featviz`` and ``collect.SynthesisComponentVisualizer``
+(synthesized concept examples), ``sae`` (sparse autoencoders and
+transcoders), and the entry points ``python -m semanticlens_tpu_torch.full_audit``
+(BASELINE config 5), ``.causal_audit``, ``.train_sae`` and ``.serve``.
 """
 
+from semanticlens_tpu_torch import (
+    causal,
+    collect,
+    data,
+    foundation_models,
+    models,
+    ops,
+    relevance,
+    sae,
+    scores,
+    utils,
+)
 from semanticlens_tpu_torch.lens import Lens
 from semanticlens_tpu_torch.scores import clarity_score, polysemanticity_score, redundancy_score
 
-__all__ = ["Lens", "clarity_score", "polysemanticity_score", "redundancy_score"]
+__all__ = [
+    "causal",
+    "collect",
+    "data",
+    "foundation_models",
+    "models",
+    "ops",
+    "relevance",
+    "sae",
+    "scores",
+    "utils",
+    "Lens",
+    "clarity_score",
+    "polysemanticity_score",
+    "redundancy_score",
+]
 
 __version__ = "0.1.0"

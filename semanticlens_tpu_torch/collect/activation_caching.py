@@ -5,7 +5,8 @@ wraps one layer's device-resident :class:`~semanticlens_tpu_torch.ops.topk.TopKS
 and writes it with the same bytes, dtypes, metadata and file names as the
 JAX package and the reference (bf16 ``activations``, int64 ``sample_ids``,
 ``{agg_fn}-{n_collect}-{layer}.safetensors``), so a cache written by either
-package loads in the other. ``ActMaxCache`` manages the per-layer instances.
+package loads in the other. ``ActMaxCache`` manages the per-layer instances;
+``ActCache`` captures raw activations for ad-hoc inspection.
 """
 
 from __future__ import annotations
@@ -112,6 +113,30 @@ class ActMax:
             ids=tensors["sample_ids"].to(device, torch.int32),
         )
         return instance
+
+
+class ActCache:
+    """Raw per-layer activation capture for a batch of inputs.
+
+    :meth:`capture` runs the tapped forward and stores each requested
+    layer's raw output in ``.cache`` as host float32 numpy (the reference's
+    ``.detach().cpu()``). Use :class:`ActMaxCache` for streaming top-k;
+    this class is for ad-hoc inspection of full activations.
+    """
+
+    def __init__(self, layer_names: list[str]):
+        self.layer_names = list(layer_names)
+        self.cache: dict[str, np.ndarray] = {}
+
+    def capture(self, model, params, x) -> dict[str, np.ndarray]:
+        """Forward ``x`` through ``model`` and cache the requested taps."""
+        with torch.inference_mode():
+            _, taps = model.apply(params, x, tuple(self.layer_names))
+            self.cache = {name: taps[name].to("cpu", torch.float32).numpy() for name in self.layer_names}
+        return self.cache
+
+    def clear(self):
+        self.cache = {}
 
 
 class ActMaxCache:

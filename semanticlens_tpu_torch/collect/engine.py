@@ -18,6 +18,12 @@ checkpointed by either package resumes in the other:
 ``state-{layer}.safetensors`` (``values`` bf16, ``ids`` int32),
 ``embeds-{first row:012d}.safetensors`` (``embeds`` f32) and
 ``progress.json`` (``next_start``, ``layers``).
+
+The JAX engine memoizes its jitted step and keys the memo on
+``interventions_fingerprint`` (a step traced inside an ``interventions``
+context bakes the rewrites in). This engine runs each batch eagerly and
+memoizes no captured program, so every forward consults the interventions
+active at that moment and needs no such key.
 """
 
 from __future__ import annotations

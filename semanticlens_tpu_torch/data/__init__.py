@@ -1,6 +1,14 @@
 """Datasets and batch streaming."""
 
-from semanticlens_tpu_torch.data.dataset import ArrayDataset, Batch, Subset, iter_batches, prefetch_batches
+from semanticlens_tpu_torch.data.dataset import (
+    ArrayDataset,
+    Batch,
+    Subset,
+    device_prefetch_batches,
+    iter_batches,
+    prefetch_batches,
+)
 from semanticlens_tpu_torch.data.image_folder import ImageFolder
 
-__all__ = ["ArrayDataset", "Batch", "ImageFolder", "Subset", "iter_batches", "prefetch_batches"]
+__all__ = ["ArrayDataset", "Batch", "ImageFolder", "Subset", "device_prefetch_batches", "iter_batches",
+           "prefetch_batches"]

@@ -391,17 +391,34 @@ def attn_out_projection(tap, heads_name, proj_name, a, weight, bias, n_heads):
     """Attention out-projection with the virtual per-head components tap.
 
     The ``…attn.heads`` tap scores each head's residual-stream contribution
-    per token: ``‖head h's output × its W_O slice‖`` → (B, T, n_heads). It is
-    computed only when requested; the output always takes the plain
-    ``linear`` projection, so tapped and untapped forwards agree bit for
-    bit. (The JAX package's intervention branch waits for the port of
-    interventions.)
+    per token: ``‖head h's output × its W_O slice‖`` → (B, T, n_heads).
+
+    - tap not requested, no intervention: the plain ``linear`` projection;
+      the per-head einsum is never built;
+    - tap requested: the per-head contributions are computed for the norms,
+      and the output still takes the plain ``linear`` path, so tapped and
+      untapped forwards agree bit for bit;
+    - an intervention on ``heads_name``: the tap value (the norms) is
+      rewritten and the rewrite is causal — head h's contribution is
+      rescaled by ``new_norm / old_norm`` (zero-ablating a head removes it,
+      steering a head's score scales it) and the output is the rescaled sum
+      plus the bias. A head whose contribution is exactly zero stays zero.
     """
-    if heads_name in tap.requested:
+    from semanticlens_tpu_torch.models.base import has_intervention
+
+    live = heads_name is not None and has_intervention(heads_name)
+    if heads_name in tap.requested or live:
         b, t, d = a.shape
         hd = d // n_heads
         w_o = weight.to(a.dtype).t()  # (in, out)
         per_head = torch.einsum("bthc,hcd->bthd", a.reshape(b, t, n_heads, hd),
                                 w_o.reshape(n_heads, hd, w_o.shape[-1]))
-        tap(heads_name, torch.linalg.vector_norm(per_head.float(), dim=-1))
+        old = torch.linalg.vector_norm(per_head.float(), dim=-1)  # (B, T, H)
+        new = tap(heads_name, old)
+        if live:
+            scale = torch.where(old > 0.0, new.float() / torch.clamp_min(old, 1e-30), 0.0)
+            out = (per_head * scale[..., None].to(per_head.dtype)).sum(dim=2)
+            if bias is not None:
+                out = out + bias.to(out.dtype)
+            return tap(proj_name, out)
     return tap(proj_name, linear(a, weight, bias))

@@ -217,7 +217,7 @@ class ResNet(SubjectModel):
 
     def apply(self, params: Mapping, x, tap_names: Sequence[str] = ()):
         """Forward pass. x: (B, H, W, 3) float. Returns (logits, taps), taps NHWC."""
-        tap = TapCollector(tap_names)
+        tap = TapCollector(tap_names, channels_first=True)
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # channels_last NCHW for NHWC-contiguous x
         x = tap("conv1", conv2d(x, params["conv1.weight"], stride=2, padding=3))
         x = tap("bn1", self._bn(params, "bn1", x))

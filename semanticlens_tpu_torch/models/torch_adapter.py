@@ -27,9 +27,12 @@ Contract (the JAX adapter's):
 - ``init`` returns ``{}`` and ``apply`` ignores ``params``: the weights live
   in the module.
 
-Interventions are not ported (``models/base.py``), so the JAX adapter's
-``_reject_interventions`` has nothing to check yet (ROADMAP queue 1 item
-12). The engine sizes its states from a one-image forward
+An active ``interventions`` context that targets one of the module's names
+raises ``NotImplementedError`` naming the targeted modules, as the JAX
+adapter does: its host callback cannot feed rewrites back. Here a forward
+hook that returns a modified output could rewrite the activation, but the
+JAX package refuses instead, and the port adds no capability the JAX
+package lacks. The engine sizes its states from a one-image forward
 (``CollectEngine.infer_n_latents``), so the JAX adapter's shape probe
 ``_result_shapes`` has no counterpart.
 """
@@ -40,7 +43,7 @@ from typing import Mapping, Sequence
 
 import torch
 
-from semanticlens_tpu_torch.models.base import SubjectModel
+from semanticlens_tpu_torch.models.base import SubjectModel, has_intervention
 from semanticlens_tpu_torch.utils.device import resolve_device
 
 
@@ -85,8 +88,19 @@ class TorchSubjectModel(SubjectModel):
         """Weights live inside the torch module: there is nothing to init."""
         return {}
 
+    def _reject_interventions(self):
+        """Silent no-ops would fabricate all-zero causal results, so refuse loudly."""
+        targeted = [n for n in self.module_names if has_intervention(n)]
+        if targeted:
+            raise NotImplementedError(
+                f"interventions on TorchSubjectModel modules {targeted} are not "
+                "supported (rewrites cannot feed the wrapped module's forward). "
+                "Port the subject to a native family for causal analysis."
+            )
+
     def apply(self, params: Mapping, x, tap_names: Sequence[str] = ()):
         """(B, H, W, C) float → (output float32, {name: activation float32}); rank-4 taps NHWC."""
+        self._reject_interventions()
         tap_names = tuple(tap_names)
         if self.channels_last and x.ndim == 4:
             x = x.permute(0, 3, 1, 2).contiguous()  # the JAX adapter's NCHW input, in its memory order

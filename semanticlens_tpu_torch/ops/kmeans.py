@@ -79,3 +79,12 @@ def batched_kmeans(V, k: int = 2, *, n_init: int = 10, max_iters: int = 300, see
     best = torch.argmin(inertia, dim=1)
     rows = torch.arange(m, device=x.device)
     return centers[rows, best], labels[rows, best], counts[rows, best]
+
+
+def kmeans(x, k: int = 2, *, n_init: int = 10, max_iters: int = 300, seed: int = 123, tol: float = 1e-8):
+    """Seeded k-means for a single (n, d) point set: :func:`batched_kmeans` over one set.
+
+    Returns centers (k, d), labels (n,) and counts (k,), float32 on ``x``'s device.
+    """
+    centers, labels, counts = batched_kmeans(x[None], k, n_init=n_init, max_iters=max_iters, seed=seed, tol=tol)
+    return centers[0], labels[0], counts[0]

@@ -77,3 +77,7 @@ def alive_latents(state: TopKState) -> torch.Tensor:
     """Indices of latents with any non-zero collected activation."""
     mask = torch.sum(torch.abs(state.values.float()), dim=1) > 0
     return torch.nonzero(mask).flatten()
+
+
+# The JAX package's standalone jitted update with a donated state; the port runs eagerly.
+topk_update_jit = topk_update

@@ -34,9 +34,12 @@ they cannot match the JAX trainers draw for draw. Initial parameters come
 from an explicit ``torch.Generator`` on the CPU, so a seed gives the same
 dictionary on the card and on the CPU (not the JAX package's).
 
-Multi-device training (``mesh=``) waits for ROADMAP queue 1 item 13; the
-causal branches of the virtual taps (interventions on ``"{layer}.sae"``,
-``TranscoderSubjectModel(replace=True)``) for item 12.
+The virtual taps are causal as in the JAX package: an intervention on
+``"{layer}.sae"`` substitutes the layer with encode → rewrite → decode, and
+``TranscoderSubjectModel(replace=True)`` (or an intervention on
+``"{tap_in}.tc"``) substitutes the target tap with the transcoder's
+prediction. Multi-device training (``mesh=``) waits for ROADMAP queue 1
+item 13.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, iter_batches
-from semanticlens_tpu_torch.models.base import SubjectModel
+from semanticlens_tpu_torch.models.base import SubjectModel, apply_interventions, has_intervention, interventions
 from semanticlens_tpu_torch.utils.device import as_tensor, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -355,20 +358,16 @@ def _renorm_decoder(params):
     return {**params, "W_dec": _unit_rows(params["W_dec"])}
 
 
-class ClipAdam:
-    """``optax.chain(clip_by_global_norm(1.0), adam(lr))`` in plain torch,
-    with optax's defaults as constants.
+class Adam:
+    """``optax.adam(lr)`` in plain torch, with optax's defaults as constants.
 
-    The clip leaves the gradient alone when its global norm is below
-    ``MAX_NORM`` and otherwise scales it by ``MAX_NORM / norm`` — without
-    the ``+ 1e-6`` that ``torch.nn.utils.clip_grad_norm_`` adds. Adam is
-    optax's (``b1=0.9``, ``b2=0.999``, ``eps=1e-8``): moments
-    ``(1 − b)·g + b·m``, bias-corrected by ``1 − bᵗ``, the update
-    ``−lr · m̂ / (√v̂ + eps)`` with ``eps`` outside the square root.
-    The state is ``{"count": int, "mu": {...}, "nu": {...}}``.
+    Moments ``(1 − b)·g + b·m``, bias-corrected by ``1 − bᵗ``, the update
+    ``−lr · m̂ / (√v̂ + eps)`` with ``eps`` outside the square root
+    (``b1=0.9``, ``b2=0.999``, ``eps=1e-8``). The state is ``{"count":
+    int, "mu": {...}, "nu": {...}}`` over a dict of tensors.
     """
 
-    MAX_NORM, B1, B2, EPS = 1.0, 0.9, 0.999, 1e-8
+    B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, lr: float):
         self.lr = lr
@@ -379,9 +378,6 @@ class ClipAdam:
 
     def update(self, grads: Mapping, state: Mapping):
         """``(updates, new_state)`` for ``grads``."""
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        below = norm < self.MAX_NORM
-        grads = {n: torch.where(below, g, g / norm * self.MAX_NORM) for n, g in grads.items()}
         count = state["count"] + 1
         mu = {n: (1 - self.B1) * g + self.B1 * state["mu"][n] for n, g in grads.items()}
         nu = {n: (1 - self.B2) * (g * g) + self.B2 * state["nu"][n] for n, g in grads.items()}
@@ -389,6 +385,24 @@ class ClipAdam:
         c1, c2 = (float(np.float32(1) - np.float32(b) ** np.float32(count)) for b in (self.B1, self.B2))
         updates = {n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.EPS) * -self.lr for n in grads}
         return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+class ClipAdam(Adam):
+    """``optax.chain(clip_by_global_norm(1.0), adam(lr))``: :class:`Adam` after the clip.
+
+    The clip leaves the gradient alone when its global norm is below
+    ``MAX_NORM`` and otherwise scales it by ``MAX_NORM / norm`` — without
+    the ``+ 1e-6`` that ``torch.nn.utils.clip_grad_norm_`` adds.
+    """
+
+    MAX_NORM = 1.0
+
+    def update(self, grads: Mapping, state: Mapping):
+        """``(updates, new_state)`` for ``grads``."""
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        below = norm < self.MAX_NORM
+        return super().update({n: torch.where(below, g, g / norm * self.MAX_NORM) for n, g in grads.items()},
+                              state)
 
 
 def make_optimizer(cfg: SAEConfig) -> ClipAdam:
@@ -765,8 +779,14 @@ class SAESubjectModel(_CodesTap):
     aggregator applies; base taps stay available. ``params`` is ``{"base":
     base_params, "sae": sae_params}``, the dictionary placed on the base
     model's device. The default name carries a digest of ``W_dec``, so a
-    retrained dictionary never hits a stale cache. The causal path (an
-    intervention on the virtual tap) waits for ROADMAP queue 1 item 12.
+    retrained dictionary never hits a stale cache.
+
+    Causal path: an SAE latent never feeds the forward directly, so an
+    intervention on ``"{layer}.sae"`` substitutes the layer's activation
+    with encode → rewrite → decode (the semantics of
+    ``causal.sae_latent_ablation``: the baseline includes the SAE's
+    reconstruction error; compare against an identity rewrite, not the raw
+    forward, to isolate a latent's effect).
     """
 
     def __init__(self, base: SubjectModel, layer_name: str, sae_params: Mapping, *, k: int | None = None,
@@ -783,16 +803,43 @@ class SAESubjectModel(_CodesTap):
             "semanticlens_tpu_torch.sae (whose trainers stamp 'k' into the params).",
         )
 
+    def apply(self, params, x, tap_names=()):
+        if not has_intervention(self.sae_tap):
+            return super().apply(params, x, tap_names)
+        if "b_in" in params["sae"]:
+            raise ValueError(
+                "this dictionary is a transcoder (decodes into a DIFFERENT tap's space); in-place "
+                f"substitution of '{self.layer_name}' would be dimensionally wrong — use "
+                "TranscoderSubjectModel, which replaces the target tap instead"
+            )
+        tap_names = tuple(tap_names)
+        stash = {}
+
+        def _substitute(v):
+            z = apply_interventions(self.sae_tap, encode(params["sae"], v, k=self.k))
+            stash["codes"] = z
+            return decode(params["sae"], z).to(v.dtype)
+
+        with interventions({self.layer_name: _substitute}):
+            out, taps = self.base.apply(params["base"], x, tuple(t for t in tap_names if t != self.sae_tap))
+        if self.sae_tap in tap_names:
+            taps[self.sae_tap] = stash["codes"]
+        return out, taps
+
 
 class TranscoderSubjectModel(_CodesTap):
     """Subject model exposing a trained transcoder's codes as a virtual tap ``"{tap_in}.tc"``.
 
     The codes keep the input tap's structure and flow through the standard
     pipeline like SAE latents. ``params`` is ``{"base": base_params, "tc":
-    transcoder_params}``. The patch path (``replace=True``, or an
-    intervention on the virtual tap), which substitutes the target tap with
-    the transcoder's prediction, waits for the interventions stack (ROADMAP
-    queue 1 item 12).
+    transcoder_params}``.
+
+    Patch path: when the virtual tap carries an intervention, or with
+    ``replace=True``, the TARGET tap's activation is substituted with
+    ``decode(rewrite(encode(tap_in)))`` (plus ``W_skip`` · ``tap_in`` for a
+    skip transcoder) — the MLP-replacement patch of transcoder circuit
+    analysis (arXiv:2406.11944); ``replace=True`` with no rewrite measures
+    the patched model's fidelity.
     """
 
     def __init__(self, base: SubjectModel, tap_in: str, tap_out: str, tc_params: Mapping, *, k: int | None = None,
@@ -810,13 +857,34 @@ class TranscoderSubjectModel(_CodesTap):
                 "tc_params is a plain SAE dictionary (no 'b_in'); train via "
                 "train_transcoder_on_layer / train_transcoder_from_rows"
             )
-        if replace:
-            raise ValueError("replace=True patches the target tap through the interventions stack, which is "
-                             "not ported yet (ROADMAP queue 1 item 12)")
         self.tap_in, self.tap_out = tap_in, tap_out
+        self.replace = bool(replace)
         self.tc_tap = f"{tap_in}.tc"
         super().__init__(base, tap_in, self.tc_tap, "tc", tc_params, k, base_params, name, "tc",
                          "pass k= or train via semanticlens_tpu_torch.sae (trainers stamp 'k' into the params)")
+
+    def apply(self, params, x, tap_names=()):
+        if not (self.replace or has_intervention(self.tc_tap)):
+            return super().apply(params, x, tap_names)
+        # capture tap_in in flight, rewrite its codes, substitute the prediction for
+        # tap_out; tap_in precedes tap_out in the forward, so its stash is ready
+        tap_names = tuple(tap_names)
+        tc = params["tc"]
+        stash = {}
+
+        def _capture(v):
+            stash["codes"] = apply_interventions(self.tc_tap, encode(tc, v, k=self.k))
+            stash["x"] = v
+            return v
+
+        def _substitute(v):
+            return decode(tc, stash["codes"], stash["x"] if "W_skip" in tc else None).to(v.dtype)
+
+        with interventions({self.tap_in: _capture, self.tap_out: _substitute}):
+            out, taps = self.base.apply(params["base"], x, tuple(t for t in tap_names if t != self.tc_tap))
+        if self.tc_tap in tap_names:
+            taps[self.tc_tap] = stash["codes"]
+        return out, taps
 
 
 def _params_digest(sae_params: Mapping, n: int = 8) -> str:

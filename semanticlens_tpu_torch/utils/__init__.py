@@ -1,4 +1,4 @@
-"""Helpers: device resolution, cache naming, preprocessing, the safetensors layout."""
+"""Helpers: device resolution, cache naming, preprocessing, logging, stage timing, the safetensors layout."""
 
 from semanticlens_tpu_torch.utils.device import resolve_device
 from semanticlens_tpu_torch.utils.helper import (
@@ -7,6 +7,8 @@ from semanticlens_tpu_torch.utils.helper import (
     make_preprocess_fn,
     to_transforms_compose,
 )
+from semanticlens_tpu_torch.utils.log_setup import setup_colored_logging
+from semanticlens_tpu_torch.utils.profiling import StageTimer, device_trace, force_materialize
 
 __all__ = ["get_denormalization_transform", "get_fallback_name", "make_preprocess_fn", "resolve_device",
-           "to_transforms_compose"]
+           "to_transforms_compose", "setup_colored_logging", "StageTimer", "device_trace", "force_materialize"]

@@ -116,3 +116,28 @@ def test_concept_db_file_cross_loads(tmp_path):
 def test_lambda_aggregation_rejected():
     with pytest.raises(ValueError):
         TCache(["layer4"], lambda x: x, n_collect=3, device="cpu")
+
+
+def test_act_cache_captures_the_raw_taps_as_jax():
+    """``collect.ActCache`` (JAX ``activation_caching.py:128-150``): host float32 arrays of the requested taps."""
+    from semanticlens_tpu.collect import ActCache as JActCache
+    from semanticlens_tpu.models.resnet import ResNet as JResNet
+    from semanticlens_tpu_torch.collect import ActCache
+    from semanticlens_tpu_torch.models import ResNet
+
+    tmodel = ResNet(depth=18, dtype=torch.float32, device="cpu")
+    weights = tmodel.init_jax_layout(0)
+    params = tmodel.load_jax_params(weights)
+    jmodel = JResNet(depth=18, dtype=jnp.float32)
+    x = np.random.default_rng(4).random((2, 32, 32, 3)).astype(np.float32)
+    cache = ActCache(["layer1", "layer4", "fc"])
+    got = cache.capture(tmodel, params, torch.from_numpy(x))
+    want = JActCache(["layer1", "layer4", "fc"]).capture(jmodel, {k: jnp.asarray(v) for k, v in weights.items()},
+                                                         jnp.asarray(x))
+    for name in want:
+        assert isinstance(got[name], np.ndarray) and got[name].dtype == np.float32
+        assert got[name].shape == want[name].shape, name
+        np.testing.assert_allclose(got[name], want[name], atol=1e-4 * float(np.abs(want[name]).max()))
+    assert cache.cache is got
+    cache.clear()
+    assert cache.cache == {}

@@ -203,3 +203,22 @@ def test_preprocess_float_input_and_crop_geometry_match_jax():
     ref = np.asarray(j_preprocess(jnp.asarray(img), size=8, crop=6, mean=(0, 0, 0), std=(1, 1, 1)))
     ours = t_preprocess(torch.from_numpy(img), size=8, crop=6, mean=(0, 0, 0), std=(1, 1, 1)).numpy()
     np.testing.assert_allclose(ours, ref, atol=1e-6)
+
+
+def test_kmeans_of_one_set_is_batched_kmeans_and_finds_the_jax_clusters():
+    """``ops.kmeans`` is ``batched_kmeans`` over one set (the same generator); on three separated blobs it
+    finds the JAX ``kmeans`` partition and centers (numbering may differ: other random streams)."""
+    from semanticlens_tpu.ops.kmeans import kmeans as j_kmeans
+    from semanticlens_tpu_torch.ops import batched_kmeans, kmeans
+
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.normal(loc=c, scale=0.05, size=(10, 4)) for c in (-2.0, 0.0, 3.0)]).astype(np.float32)
+    centers, labels, counts = kmeans(torch.from_numpy(x), 3)
+    b_centers, b_labels, b_counts = batched_kmeans(torch.from_numpy(x)[None], 3)
+    assert torch.equal(centers, b_centers[0]) and torch.equal(labels, b_labels[0]) and torch.equal(counts, b_counts[0])
+    j_centers, j_labels, j_counts = (np.asarray(a) for a in j_kmeans(jnp.asarray(x), k=3))
+    order, j_order = np.argsort(centers[:, 0].numpy()), np.argsort(j_centers[:, 0])
+    np.testing.assert_allclose(centers.numpy()[order], j_centers[j_order], atol=1e-5)
+    np.testing.assert_array_equal(counts.numpy()[order], j_counts[j_order])
+    relabel = {int(o): int(jo) for o, jo in zip(order, j_order)}
+    np.testing.assert_array_equal([relabel[int(v)] for v in labels], j_labels)

@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 PKG = Path(__file__).resolve().parent.parent / "semanticlens_tpu_torch"
 FIXTURES = Path(__file__).resolve().parent / "data" / "torch_jpeg"
 FORBIDDEN = {"jax", "jaxlib", "flax", "semanticlens_tpu", "safetensors", "ml_dtypes", "PIL",
-             "transformers", "sklearn", "matplotlib"}
+             "transformers", "sklearn", "matplotlib", "optax"}
 
 
 def _imported_roots(path: Path):
@@ -46,10 +46,12 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "collect/relevance_based.py", "relevance/attribution.py", "utils/render.py", "models/vit.py",
                    "foundation_models/siglip.py", "foundation_models/sentencepiece.py", "foundation_models/assets.py",
                    "foundation_models/reparam.py", "foundation_models/mobileclip.py", "foundation_models/dissect.py",
-                   "sae.py", "collect/sae_based.py", "train_sae.py"):
+                   "sae.py", "collect/sae_based.py", "train_sae.py", "causal.py", "causal_audit.py", "featviz.py",
+                   "collect/synthesis_based.py", "full_audit.py", "utils/profiling.py", "utils/log_setup.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
-                                                  "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py")]
+                                                  "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",
+                                                  "precision_float32.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)

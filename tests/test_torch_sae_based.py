@@ -120,8 +120,24 @@ def test_constructor_errors_match_jax(pair, dictionaries):
         with pytest.raises(ValueError, match=match):
             t_cls(tmodel, *taps, t_dict, **kw)
     assert tsae.SAESubjectModel(tmodel, LAYER, {n: v for n, v in tp.items() if n != "k"}, k=K).k == K
-    with pytest.raises(ValueError, match="item 12"):
-        tsae.TranscoderSubjectModel(tmodel, LAYER, "layer3", ttc, replace=True)
+    # replace=True builds the patch path (held against JAX in test_transcoder_replace_patch_matches_jax)
+    assert tsae.TranscoderSubjectModel(tmodel, LAYER, "layer3", ttc, replace=True).replace
+    assert jsae.TranscoderSubjectModel(jmodel, LAYER, "layer3", jtc, replace=True).replace
+
+
+def test_transcoder_replace_patch_matches_jax(pair, dictionaries):
+    """``replace=True``: the skip transcoder's prediction from ``layer2.0`` substitutes ``layer2.1``."""
+    jmodel, tmodel = pair
+    jp, tp = dictionaries["tc"]
+    jsub = jsae.TranscoderSubjectModel(jmodel, "layer2.0", "layer2.1", jp, replace=True)
+    tsub = tsae.TranscoderSubjectModel(tmodel, "layer2.0", "layer2.1", tp, replace=True)
+    jout, jt = jsub.apply(jsub.params, jnp.asarray(IMAGES[:6]), ("layer2.1", "layer2.0.tc"))
+    tout, tt = tsub.apply(tsub.params, torch.from_numpy(IMAGES[:6]), ("layer2.1", "layer2.0.tc"))
+    _close(tout.numpy(), jout, 1e-4, "patched logits")
+    _close(tt["layer2.1"].numpy(), jt["layer2.1"], 1e-4, "substituted tap")
+    _close(tt["layer2.0.tc"].numpy(), jt["layer2.0.tc"], 1e-4, "codes")
+    clean, _ = tmodel.apply(tmodel.params, torch.from_numpy(IMAGES[:6]))
+    assert float((tout - clean).abs().max()) > 0
 
 
 def test_dictionary_moves_to_the_base_models_device(pair, dictionaries):
