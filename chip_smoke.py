@@ -136,7 +136,31 @@ Phases (any failing check raises; the exit code is then non-zero):
    optimizing, and the float32 gate (4 steps on 2 canvases, card against
    CPU, ``FEATVIZ_GATE``).
 
-Each of phases 14–16 prints its wall seconds beside its bound
+17. lm — the LM subjects (``LM``, ``LM_GATE``): the float32 gates first (every
+   family at its published width cut to 2 layers — Llama-3.2-1B, GPT-2,
+   Gemma-2-2B, Qwen2.5-0.5B, Phi-3-mini — weights drawn on the card from seed
+   0, 8 left-padded rows of 64 tokens: logits, the MLP and heads taps card
+   against CPU, a left-padded row against its unpadded tokens, the keep-all
+   ablation Δ) while ``python -m semanticlens_tpu_torch.lm_audit --family
+   gemma2`` runs at the tool's defaults in its own process (its three JSON
+   stages' keys against ``REPORT_KEYS``); then the JAX ``tools/lm_audit.py``
+   workflow at full width on Llama-3.2-1B bf16 (``model.layers.15.mlp.act_fn``,
+   8,192 neurons, and ``…self_attn.heads``, 32) and GPT-2 bf16
+   (``transformer.h.11.mlp.act``, 3,072, and ``…attn.heads``, 12) over the
+   tool's topic corpus at 2048 texts of 64 tokens, CLIP ViT-B/32 float32
+   embedding the evidence strings: collect and embed (cold, then warm
+   apart), soft-WPMI labels over the topics, clarity and redundancy,
+   necessity ratios of the 32 clearest neurons, ε-plus-flat token relevance
+   of 8 evidence rows (Llama's conserving the target within
+   ``LM_GATE["conservation_rel"]``), highlighted evidence and the text
+   report; then ``TextSAEComponentVisualizer.train`` on GPT-2's
+   ``transformer.h.6.mlp.act`` (8192 latents, TopK 32, one epoch of 32 steps
+   of 4096 token rows: l0 = 32 on every step, fvu falling) and the latents
+   audited. Prints the weight draws' seconds (numpy in the JAX layout on
+   GPT-2, on the card for both), tokens/s, strings/s and every stage's
+   seconds.
+
+Each of phases 14–17 prints its wall seconds beside its bound
 (``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
@@ -252,6 +276,33 @@ CAUSAL_GATE = {"card_vs_cpu_of_output": 1e-5, "necessity_rel": 1e-4, "invariant"
 FEATVIZ_GATE = {"step1_loss_rel": 1e-5, "step1_objective_rel": 1e-5, "step1_grad_float64_card_vs_cpu": 1e-8,
                 "step1_grad_float32_vs_float64_card": 5e-2, "step1_grad_float32_vs_float64_cpu": 5e-2,
                 "steps_objective_rel": 5e-2}
+# The LM subjects (ROADMAP item 10): the JAX tools/lm_audit.py workflow at the full width of Llama-3.2-1B
+# (bf16, 16 layers, vocab 128256) and GPT-2 (no cut) over the tool's topic corpus at 2048 texts of 64
+# tokens with its stand-in tokenizer (codepoints mod vocab, pad id vocab − 1); CLIP ViT-B/32 in float32
+# (the tool's dtype) embeds the evidence strings. The text SAE: GPT-2 block 6's MLP (d_in 3072) → 8192
+# latents, TopK 32 (AuxK 256, as [sae]), one epoch of the corpus's 131,072 token rows, 4096 per step.
+LM = {"texts": 2048, "seq_len": 64, "evidence": 5, "batch": 128, "necessity_components": 32,
+      "relevance_rows": 8, "llama": "llama-3.2-1b",
+      "llama_layers": ["model.layers.15.mlp.act_fn", "model.layers.15.self_attn.heads"],
+      "gpt2_layers": ["transformer.h.11.mlp.act", "transformer.h.11.attn.heads"],
+      "sae_layer": "transformer.h.6.mlp.act", "sae_latents": 8192, "sae_k": 32, "sae_aux_k": 256,
+      "sae_batch_rows": 4096, "sae_batch": 64, "bound_s": 120,
+      "db_shapes": {"model.layers.15.mlp.act_fn": [8192, 5, 512], "model.layers.15.self_attn.heads": [32, 5, 512],
+                    "transformer.h.11.mlp.act": [3072, 5, 512], "transformer.h.11.attn.heads": [12, 5, 512],
+                    "transformer.h.6.mlp.act.sae": [8192, 5, 512]}}
+# Float32 card-vs-CPU gates of every LM family at its published width, depth cut to 2, on 8 left-padded
+# rows of 64 tokens (vocabularies real): logits and the audited MLP and heads taps within 1e-5 of each
+# one's scale; a left-padded row against its unpadded tokens at the real positions within the same bound;
+# the keep-all ablation mask's Δ within CAUSAL_GATE["invariant"] of the logits. Token relevance in bf16 on
+# Llama-3.2-1B (bias-free, no position embeddings) conserves the component's summed activation within
+# ``conservation_rel`` of its l1 norm over the tokens (ε-plus-flat, ε 1e-6).
+LM_GATE = {"rows": 8, "seq_len": 64, "depth": 2, "rel": 1e-5, "conservation_rel": 0.1,
+           "families": [("llama-3.2-1b", "Llama", "model.layers.1.mlp.act_fn", "model.layers.1.self_attn.heads"),
+                        ("gpt2", "GPT2", "transformer.h.1.mlp.act", "transformer.h.1.attn.heads"),
+                        ("gemma-2-2b", "Gemma2", "model.layers.1.mlp.act_fn", "model.layers.1.self_attn.heads"),
+                        ("qwen2.5-0.5b", "Qwen2", "model.layers.1.mlp.act_fn", "model.layers.1.self_attn.heads"),
+                        ("phi-3-mini-4k", "Phi3", "model.layers.1.mlp.activation_fn",
+                         "model.layers.1.self_attn.heads")]}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
 
@@ -512,12 +563,16 @@ def phase_kernels(dev):
         "probe 8x8192x512": (randn(8, 512), randn(8192, 512)),
         "labels 8192x1000x512": (randn(8192, 512), randn(1000, 512)),
         "redundancy 8192x8192x512": (randn(8192, 512),) * 2,
+        # the LM subjects: GPT-2's 3,072 MLP neurons compared, topics against Llama's and GPT-2's neurons
+        "redundancy 3072x3072x512": (randn(3072, 512),) * 2,
+        "topics 5x8192x512": (randn(5, 512), randn(8192, 512)),
+        "topics 5x3072x512": (randn(5, 512), randn(3072, 512)),
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 256x256x512", "redundancy 512x512x512",
              "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
              "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768", "probe 8x8192x512",
-             "redundancy 8192x8192x512")
+             "redundancy 8192x8192x512", "redundancy 3072x3072x512")
     rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
@@ -2984,6 +3039,327 @@ def phase_featviz(dev, root: Path):
     return launches
 
 
+def lm_corpus(vocab: int, n: int, seq_len: int):
+    """The JAX lm_audit tool's topic corpus, its stand-in tokenizer at ``vocab``, left-padded with vocab − 1."""
+    from semanticlens_tpu_torch.collect import TokenTextDataset
+    from semanticlens_tpu_torch.lm_audit import TOPICS
+
+    texts = [f"{TOPICS[i % len(TOPICS)]} appears in sentence {i}" for i in range(n)]
+    return TokenTextDataset.from_texts(texts, lambda t: [ord(c) % vocab for c in t], seq_len, pad="left",
+                                       pad_id=vocab - 1, name=f"lm-topics-{n}x{seq_len}")
+
+
+def lm_subject(family: str, cls_name: str, device, dtype, depth: int | None = None):
+    """A published-width LM subject from its zoo name, pad-aware (pad id vocab − 1), optionally cut in depth."""
+    from semanticlens_tpu_torch import models
+
+    cls = getattr(models, cls_name)
+    preset = cls._HF_VARIANTS[family]
+    if cls is models.GPT2:
+        kw = dict(zip(("width", "depth", "heads"), preset))
+        vocab = 50257
+    else:
+        kw = dict(preset)
+        vocab = kw["vocab_size"]
+    if depth is not None:
+        kw["depth"] = depth
+    return cls(**kw, dtype=dtype, pad_id=vocab - 1, device=device)
+
+
+def lm_float32_gates(dev) -> dict:
+    """Every family at its published width, depth 2, float32 (TF32 off), card against the port on the CPU
+    on 8 left-padded rows of 64 tokens: logits and taps; on the card, a left-padded row against its
+    unpadded tokens, and the keep-all ablation mask's Δ (weights drawn on the card from seed 0)."""
+    from semanticlens_tpu_torch import causal
+
+    out = {}
+    t_rows, t = LM_GATE["rows"], LM_GATE["seq_len"]
+    for family, cls_name, mlp, heads in LM_GATE["families"]:
+        card = lm_subject(family, cls_name, dev, torch.float32, depth=LM_GATE["depth"])
+        cpu = lm_subject(family, cls_name, "cpu", torch.float32, depth=LM_GATE["depth"])
+        t0 = time.perf_counter()
+        params = card.init(0, device_draw=True)
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        init_s = time.perf_counter() - t0
+        vocab, pad = card.vocab_size, card.pad_id
+        ids = np.random.default_rng(1).integers(0, vocab - 1, size=(t_rows, t)).astype(np.int32)
+        for r in range(t_rows):
+            ids[r, : 4 * r] = pad  # row r left-padded by 4·r tokens
+        x = torch.from_numpy(ids)
+        with torch.no_grad():
+            c_out, c_taps = card.apply(params, x, (mlp, heads))
+            t0 = time.perf_counter()
+            p_out, p_taps = cpu.apply(cpu_params, x, (mlp, heads))
+            cpu_s = time.perf_counter() - t0
+            gate = {"logits": _max_rel(c_out, p_out, _scale(p_out)),
+                    "mlp_tap": _max_rel(c_taps[mlp], p_taps[mlp], _scale(p_taps[mlp])),
+                    "heads_tap": _max_rel(c_taps[heads], p_taps[heads], _scale(p_taps[heads]))}
+            n_pad = 4 * (t_rows - 1)
+            u_out, u_taps = card.apply(params, x[t_rows - 1 :, n_pad:], (mlp,))
+            gate["padded_row_vs_unpadded"] = max(
+                _max_rel(c_out[t_rows - 1 :, n_pad:], u_out, _scale(u_out)),
+                _max_rel(c_taps[mlp][t_rows - 1 :, n_pad:], u_taps[mlp], _scale(u_taps[mlp])))
+            keep_all = torch.ones((1, c_taps[mlp].shape[-1]), dtype=torch.float32, device=dev)
+            kept = causal._masked_forwards(card, params, mlp, x.to(dev), keep_all, lambda v, m: (v * m).to(v.dtype))
+            gate["keep_all_delta_of_logits"] = _max_rel(kept[0], c_out, _scale(c_out))
+        out[family] = {**gate, "vocab": vocab, "width": card.width, "init_s": init_s, "cpu_forward_s": cpu_s,
+                       "finite": bool(torch.isfinite(c_out).all())}
+        del card, cpu, params, cpu_params, c_out, c_taps, p_out, p_taps, kept
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_audit_stages(dev, lm, layers, ds, fm, lens, root: Path, label: str) -> tuple[dict, object]:
+    """The lm_audit workflow on one full-width subject: collect → embed (cold, then warm apart) → soft-WPMI
+    labels over the topics → clarity and redundancy (cold and warm) → necessity ratios of the clearest MLP
+    components against control rows → ε-plus-flat token relevance of 8 evidence rows → highlighted evidence
+    → the text report. Returns the summary and the visualizer."""
+    from semanticlens_tpu_torch import causal
+    from semanticlens_tpu_torch.collect import TextActivationComponentVisualizer
+    from semanticlens_tpu_torch.lm_audit import TOPICS
+    from semanticlens_tpu_torch.relevance import highlight_evidence, make_token_relevance_fn
+
+    n, seq, batch = len(ds), ds.images.shape[1], LM["batch"]
+    mlp = layers[0]
+    rng = np.random.default_rng(0)
+    cv = TextActivationComponentVisualizer(model=lm, dataset_model=ds, dataset_fm=ds.texts_view(),
+                                           layer_names=layers, num_samples=LM["evidence"], cache_dir=str(root))
+    summary = {"layers": layers, "texts": n, "seq_len": seq, "batch": batch}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    db, s = timed(lambda: lens.compute_concept_db(cv, batch_size=batch))
+    summary["collect_embed_cold_s"] = s
+    _, s = timed(lambda: cv._run(batch_size=batch, checkpoint=0))
+    summary["collect_warm"] = {"seconds": s, "tokens_per_s": n * seq / s, "texts_per_s": n / s}
+    _, s = timed(lambda: cv._embed_vision_dataset(lens.fm, batch, checkpoint=0))
+    summary["embed_warm"] = {"seconds": s, "strings_per_s": n / s}
+    summary["collect_embed_cold"] = {"tokens_per_s": n * seq / summary["collect_embed_cold_s"]}
+    db = {k: np.asarray(v) for k, v in db.items()}
+    agg = {k: v.mean(1) for k, v in db.items()}
+    ids = {k: np.asarray(cv.get_max_reference(k)) for k in layers}
+    summary["sentinel_slots"] = {}
+    for k in layers:
+        if list(db[k].shape) != LM["db_shapes"][k] or not np.isfinite(db[k]).all():
+            raise AssertionError(f"[lm] {label} {k}: DB {db[k].shape} or non-finite values")
+        # A slot no sample filled keeps the reference's sentinel (id −1, value 0.0): a component whose
+        # token-mean is never positive has one. Every filled slot names a sample with a non-empty text.
+        filled = ids[k] >= 0
+        values = cv.actmax_cache[k].activations.float().numpy()
+        if ids[k].min() < -1 or ids[k].max() >= n or (values[~filled] != 0.0).any():
+            raise AssertionError(f"[lm] {label} {k}: evidence ids out of [0, {n}) or a sentinel with a value")
+        texts = cv.get_max_reference_texts(k)
+        if not all(t for row, ok in zip(texts, filled) for t, f in zip(row, ok) if f):
+            raise AssertionError(f"[lm] {label} {k}: an empty evidence string")
+        summary["sentinel_slots"][k] = {"slots": int((~filled).sum()), "components": int((~filled).any(1).sum())}
+
+    stages = {}
+    for run in ("cold", "warm"):
+        labels, s_lab = timed(lambda: lens.label_components(
+            TOPICS, agg, scoring="wpmi", evidence_ids=ids, image_embeds=cv.embedding_table))
+        clarity, s_cla = timed(lambda: lens.eval_clarity(db))
+        redundancy, s_red = timed(lambda: lens.eval_redundancy(agg))
+        stages[run] = {"labels_s": s_lab, "clarity_s": s_cla, "redundancy_s": s_red}
+    summary["analyze"] = stages
+    clarity = {k: torch.as_tensor(v).float().cpu().numpy() for k, v in clarity.items()}
+    for k in layers:
+        words = labels[k][0]
+        if len(words) != db[k].shape[0] or not all(w[0] in TOPICS for w in words):
+            raise AssertionError(f"[lm] {label} {k}: labels outside the topic vocabulary")
+        if not np.isfinite(clarity[k]).all() or not np.isfinite(float(torch.as_tensor(redundancy[k]))):
+            raise AssertionError(f"[lm] {label} {k}: non-finite clarity or redundancy")
+    summary["clarity_mean"] = {k: float(np.mean(v)) for k, v in clarity.items()}
+    summary["redundancy"] = {k: float(torch.as_tensor(v)) for k, v in redundancy.items()}
+
+    full = (ids[mlp] >= 0).all(1)  # components with every evidence slot filled
+    clearest = np.argsort(-np.where(full, clarity[mlp], -np.inf))[: LM["necessity_components"]]
+    tokens = ds.images
+
+    def necessity():
+        ratios = []
+        for comp in clearest:
+            ev = ids[mlp][comp]
+            ctl = rng.choice(n, size=ev.size, replace=False)
+            ratios.append(float(causal.necessity_ratio(lm, lm.params, mlp, [int(comp)], tokens[ev], tokens[ctl])[0]))
+        return ratios
+
+    ratios, s = timed(necessity)
+    if not (np.isfinite(ratios).all() and min(ratios) > 0):
+        raise AssertionError(f"[lm] {label} necessity ratios {ratios}")
+    summary["necessity"] = {"components": len(ratios), "seconds": s, "median": float(np.median(ratios)),
+                            "min": float(np.min(ratios)), "max": float(np.max(ratios))}
+
+    # Token relevance: the top evidence row of each of the 8 clearest components, unnormalised, so the
+    # per-row sums can be held against the component's summed activation.
+    fn = make_token_relevance_fn(lm, mlp, composite="epsilon_plus_flat", abs_norm=False)
+    pairs = [(int(c), int(ids[mlp][c][0])) for c in clearest[: LM["relevance_rows"]]]
+
+    def relevance():
+        return torch.cat([fn(lm.params, tokens[row : row + 1], comp) for comp, row in pairs])
+
+    rel, s = timed(relevance)
+    _, s_warm = timed(relevance)
+    rows = np.array([row for _, row in pairs])
+    with torch.no_grad():
+        _, taps = lm.apply(lm.params, tokens[rows], (mlp,))
+    act = taps[mlp].float()[torch.arange(len(pairs)), :, torch.as_tensor([c for c, _ in pairs])]  # (8, T)
+    conservation = ((rel.sum(1) - act.sum(1)).abs() / act.abs().sum(1)).cpu().numpy()
+    if rel.shape != (len(pairs), seq) or not torch.isfinite(rel).all():
+        raise AssertionError(f"[lm] {label} token relevance {tuple(rel.shape)} or non-finite values")
+    pad = lm.pad_id
+    strings = [["" if tok == pad else chr(tok) for tok in tokens[row]] for row in rows]
+    highlighted = highlight_evidence(strings, rel)
+    if not all("**" in h for h in highlighted):
+        raise AssertionError(f"[lm] {label} highlight_evidence marked no token")
+    summary["relevance"] = {"rows": len(pairs), "cold_s": s, "rows_per_s_cold": len(pairs) / s,
+                            "warm_s": s_warm, "rows_per_s_warm": len(pairs) / s_warm,
+                            "conservation_rel": [float(c) for c in conservation], "example": highlighted[0]}
+    report = cv.visualize_components(clearest[:4].tolist(), mlp)
+    path = cv.storage_dir / "plots" / f"{mlp}-components.txt"
+    if not path.exists() or path.read_text() != report or "''" in report:
+        raise AssertionError(f"[lm] {label} the text report is missing or has empty evidence")
+    return summary, cv
+
+
+def phase_lm(dev, root: Path):
+    """The LM subjects: the float32 gates of every family at published width (the gemma2 CLI in its own
+    process meanwhile), then the lm_audit workflow on Llama-3.2-1B bf16 and GPT-2 bf16 at full width with
+    CLIP ViT-B/32 float32, and the text SAE on GPT-2 trained and audited (K1 counted from 0 around both)."""
+    from semanticlens_tpu_torch import Lens, sae
+    from semanticlens_tpu_torch.collect import TextSAEComponentVisualizer
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.lm_audit import REPORT_KEYS, TOPICS
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    summary = {}
+
+    # 1. The gemma2 CLI at the tool's defaults in its own process while the float32 gates run.
+    out_path, err_path = root / "lm_audit_cli.json", root / "lm_audit_cli.log"
+    with open(out_path, "w") as out_file, open(err_path, "w") as err_file:
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "semanticlens_tpu_torch.lm_audit", "--family", "gemma2"],
+                                cwd=Path(__file__).resolve().parent, stdout=out_file, stderr=err_file)
+        try:
+            gates = lm_float32_gates(dev)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    summary["gates"] = gates
+    cli_lines = [json.loads(line) for line in out_path.read_text().splitlines() if line.startswith("{")]
+    summary["cli"] = {"family": "gemma2", "process_s": time.perf_counter() - t_cli, "rc": rc, "stages": cli_lines}
+    gates_s = time.perf_counter() - t_phase
+
+    # 2. Weights: the numpy draw in the JAX layout (init(seed)) timed on GPT-2, the device draw on both.
+    ds = lm_corpus(128256, LM["texts"], LM["seq_len"])
+    init = {}
+    llama = lm_subject(LM["llama"], "Llama", dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llama.params = llama.init(0, device_draw=True)
+    torch.cuda.synchronize()
+    init["llama_device_draw_s"] = time.perf_counter() - t0
+    init["llama_weights"] = sum(v.numel() for v in llama.params.values())
+    llama.name = "llama-3.2-1b-seed0"
+    gpt2 = lm_subject("gpt2", "GPT2", dev, torch.bfloat16)
+    t0 = time.perf_counter()
+    numpy_params = gpt2.init(0)
+    torch.cuda.synchronize()
+    init["gpt2_numpy_draw_s"] = time.perf_counter() - t0
+    init["gpt2_weights"] = sum(v.numel() for v in numpy_params.values())
+    del numpy_params
+    t0 = time.perf_counter()
+    gpt2.params = gpt2.init(0, device_draw=True)
+    torch.cuda.synchronize()
+    init["gpt2_device_draw_s"] = time.perf_counter() - t0
+    gpt2.name = "gpt2-seed0"
+    t0 = time.perf_counter()
+    fm = OpenClip("ViT-B-32", dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    init["clip_numpy_draw_s"] = time.perf_counter() - t0
+    init["numpy_weights_per_s"] = init["gpt2_weights"] / init["gpt2_numpy_draw_s"]
+    summary["init"] = init
+    lens = Lens(fm)
+
+    # 3. The main path, K1 counted from 0: Llama-3.2-1B, GPT-2, the text SAE trained and audited.
+    k1.reset_launch_counts()
+    summary["llama"], _ = lm_audit_stages(dev, llama, LM["llama_layers"], ds, fm, lens, root / "llama", "llama")
+    del llama
+    torch.cuda.empty_cache()
+    ds_gpt2 = lm_corpus(50257, LM["texts"], LM["seq_len"])
+    summary["gpt2"], _ = lm_audit_stages(dev, gpt2, LM["gpt2_layers"], ds_gpt2, fm, lens, root / "gpt2", "gpt2")
+    cfg = sae.SAEConfig(d_in=3072, n_latents=LM["sae_latents"], k=LM["sae_k"], aux_k=LM["sae_aux_k"],
+                        batch_rows=LM["sae_batch_rows"], seed=0)
+    record = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_sae_steps(record):
+        dictionary = TextSAEComponentVisualizer.train(gpt2, ds_gpt2, LM["sae_layer"], cfg,
+                                                      batch_size=LM["sae_batch"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    hist = sae_history(record)
+    steps = len(hist["l0"])
+    cv_sae = TextSAEComponentVisualizer(gpt2, ds_gpt2, ds_gpt2.texts_view(), LM["sae_layer"], dictionary,
+                                        LM["evidence"], cache_dir=str(root / "sae"))
+    tap = cv_sae.layer_names[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sae_db = np.asarray(lens.compute_concept_db(cv_sae, batch_size=LM["batch"])[tap])
+    sae_agg = sae_db.mean(1)
+    sae_words = lens.label_components(TOPICS, {tap: sae_agg}, scoring="wpmi",
+                                      evidence_ids={tap: cv_sae.get_max_reference(tap)},
+                                      image_embeds=cv_sae.embedding_table)[tap][0]
+    sae_clarity = torch.as_tensor(lens.eval_clarity({tap: sae_db})[tap]).float().cpu().numpy()
+    sae_red = float(torch.as_tensor(lens.eval_redundancy({tap: sae_agg})[tap]))
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    launches = k1.launch_counts()
+    summary["sae"] = {"layer": LM["sae_layer"], "d_in": cfg.d_in, "latents": cfg.n_latents, "k": cfg.k,
+                      "aux_k": cfg.aux_k, "batch_rows": cfg.batch_rows, "steps": steps, "train_s": train_s,
+                      "steps_per_s": steps / train_s, "rows_per_s": steps * cfg.batch_rows / train_s,
+                      "l0": [float(hist["l0"].min()), float(hist["l0"].max())],
+                      "fvu_first": float(hist["fvu"][0]), "fvu_last": float(hist["fvu"][-1]),
+                      "audit_s": audit_s, "clarity_mean": float(np.nanmean(sae_clarity)), "redundancy": sae_red}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    phase_s = time.perf_counter() - t_phase
+    summary.update({"k1_launches": launches, "peak_mem_gb": peak_gb, "gates_and_cli_s": gates_s,
+                    "phase_s": phase_s, "bound_s": LM["bound_s"], "within_bound": phase_s <= LM["bound_s"]})
+    log(f"[lm] {json.dumps(summary)}")
+
+    # Gates after the line, so that a miss still prints every measurement.
+    missed = [f"{family}:{name}" for family, g in gates.items() for name in
+              ("logits", "mlp_tap", "heads_tap", "padded_row_vs_unpadded") if not g[name] <= LM_GATE["rel"]]
+    missed += [f"{family}:keep_all" for family, g in gates.items()
+               if not g["keep_all_delta_of_logits"] <= CAUSAL_GATE["invariant"]]
+    missed += [f"{family}:finite" for family, g in gates.items() if not g["finite"]]
+    if not max(summary["llama"]["relevance"]["conservation_rel"]) <= LM_GATE["conservation_rel"]:
+        missed.append("llama:conservation")
+    if rc != 0 or [c.get("stage") for c in cli_lines] != list(REPORT_KEYS) or any(
+            tuple(c) != REPORT_KEYS[c["stage"]] for c in cli_lines):
+        missed.append("cli")
+    if steps != LM["texts"] * LM["seq_len"] // cfg.batch_rows or not np.all(hist["l0"] == cfg.k):
+        missed.append("sae:l0")
+    if not hist["fvu"][-1] < hist["fvu"][0] or not np.isfinite(hist["loss"]).all():
+        missed.append("sae:fvu")
+    if list(sae_db.shape) != LM["db_shapes"][tap] or not np.isfinite(sae_db).all() or len(sae_words) != cfg.n_latents:
+        missed.append("sae:audit")
+    if not (launches["streaming"] > 0 and launches["tiled"] > 0):
+        missed.append("k1_launches")
+    if missed:
+        raise AssertionError(f"[lm] gates missed: {missed}{'' if rc == 0 else chr(10) + err_path.read_text()[-4000:]}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3033,7 +3409,8 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             by_path["sae"] = phase_sae(dev, Path(tmp))
         done("sae")
-        for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz)):
+        for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz),
+                            ("lm", phase_lm)):
             with tempfile.TemporaryDirectory() as tmp:
                 by_path[name] = phase(dev, Path(tmp))
             done(name)
@@ -3073,7 +3450,8 @@ def main():
                                                       "at_layer2": at_shape("redundancy 512x512x512"),
                                                       "at_d1024": at_shape("redundancy 2048x2048x1024"),
                                                       "at_d768": at_shape("redundancy 3072x3072x768"),
-                                                      "at_sae": at_shape("redundancy 8192x8192x512")},
+                                                      "at_sae": at_shape("redundancy 8192x8192x512"),
+                                                      "at_gpt2": at_shape("redundancy 3072x3072x512")},
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
                                                   "at_d768": at_shape("probe 8x3072x768"),
                                                   "at_sae": at_shape("probe 8x8192x512")}]}

@@ -12,7 +12,13 @@ from semanticlens_tpu_torch.collect.engine import CollectEngine
 from semanticlens_tpu_torch.collect.relevance_based import RelevanceComponentVisualizer
 from semanticlens_tpu_torch.collect.sae_based import SAEComponentVisualizer
 from semanticlens_tpu_torch.collect.synthesis_based import SynthesisComponentVisualizer
+from semanticlens_tpu_torch.collect.text_based import (
+    TextActivationComponentVisualizer,
+    TextSAEComponentVisualizer,
+    TokenTextDataset,
+)
 
 __all__ = ["AbstractComponentVisualizer", "ActCache", "ActMax", "ActMaxCache", "ActivationComponentVisualizer",
            "CollectEngine", "DEFAULT_AGGREGATION_FUNCTION_MAP", "MissingNameWarning",
-           "RelevanceComponentVisualizer", "SAEComponentVisualizer", "SynthesisComponentVisualizer"]
+           "RelevanceComponentVisualizer", "SAEComponentVisualizer", "SynthesisComponentVisualizer",
+           "TextActivationComponentVisualizer", "TextSAEComponentVisualizer", "TokenTextDataset"]

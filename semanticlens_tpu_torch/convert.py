@@ -6,8 +6,10 @@ linear (out, in)), i.e. plain torch state dicts. These functions are the
 inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``,
 ``semanticlens_tpu.models.vit.VisionTransformer.load_torch_state_dict``,
 ``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``,
-``semanticlens_tpu.foundation_models.siglip.load_siglip_state_dict`` and
-``semanticlens_tpu.foundation_models.mobileclip.load_mobileclip_state_dict``.
+``semanticlens_tpu.foundation_models.siglip.load_siglip_state_dict``,
+``semanticlens_tpu.foundation_models.mobileclip.load_mobileclip_state_dict``
+and the LM subjects' loaders (``semanticlens_tpu.models.gpt``, ``.llama``,
+``.gemma``, ``.phi``).
 SAE and transcoder dictionaries keep the JAX layout in both packages
 (``sae_params_from_jax`` / ``sae_params_to_jax``, and the ``.npz`` that the
 JAX ``tools/train_sae.py --out`` and the port's ``train_sae --out`` write).
@@ -94,6 +96,25 @@ def mobileclip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     ``text_projection`` and the embeddings keep their layout.
     """
     return clip_params_from_jax(params)
+
+
+LM_EMBEDDINGS = ("transformer.wte.weight", "transformer.wpe.weight", "model.embed_tokens.weight")
+
+
+def lm_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """LM subjects (GPT-2, Llama, Qwen2, Gemma, Gemma 2, Phi-3): every linear weight (in, out) → (out, in).
+
+    The token and position embeddings (V, D) / (P, D), norm scales and
+    biases keep their layout. The JAX layout is HF GPT-2's ``Conv1D``
+    layout, so an HF GPT-2 state dict converts here too; HF Llama-family
+    state dicts are already the port's layout. Values may be numpy arrays
+    or CPU tensors.
+    """
+    out = {}
+    for name, value in params.items():
+        t = _tensor(value)
+        out[name] = t.t().contiguous() if t.ndim == 2 and name not in LM_EMBEDDINGS else t
+    return out
 
 
 def sae_params_from_jax(arrays: Mapping, device=None) -> dict:

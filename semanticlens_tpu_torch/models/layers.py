@@ -324,6 +324,50 @@ def gelu(x, *, approximate=False):
     return F.gelu(x, approximate=mode)
 
 
+def rms_norm(x, weight, *, eps=1e-6):
+    """RMSNorm over the last axis in float32, ``x · rsqrt(mean(x²) + eps) · weight`` (HF ``LlamaRMSNorm``).
+
+    Under a composite: the detached-denominator rule, as for
+    :func:`layer_norm`. ``rsqrt(mean(x²) + eps)`` is a constant, so the
+    map is a per-row scaling and relevance goes through it by the ε rule.
+    """
+    xf, w32 = x.float(), weight.float()
+    if _lrp_active():
+        with torch.no_grad():
+            inv = torch.rsqrt(torch.mean(xf.square(), dim=-1, keepdim=True) + eps)
+        return _lrp_wrap(lambda xx: (xx.float() * inv * w32).to(x.dtype), x, "epsilon", _LRP.epsilon)
+    inv = torch.rsqrt(torch.mean(xf.square(), dim=-1, keepdim=True) + eps)
+    return (xf * inv * w32).to(x.dtype)
+
+
+def silu(x):
+    """SiLU. LRP: pass-through (its derivative is not {0, 1})."""
+    if _lrp_active():
+        return _lrp_passthrough(F.silu, x)
+    return F.silu(x)
+
+
+def gate_scale(x, gate):
+    """``x * gate`` for a data-dependent gate (a gated MLP's activation).
+
+    Under a composite the gate is a constant (the CP-LRP convention) and the
+    scaling carries the ε rule: relevance stays in ``x``, none reaches the
+    branch that computed the gate.
+    """
+    if _lrp_active():
+        g = gate.detach()
+        return _lrp_wrap(lambda xx: xx * g, x, "epsilon", _LRP.epsilon, rule_vjp=lambda s, xx: s * g)
+    return x * gate
+
+
+def channel_scale(x, gamma):
+    """Per-channel (or scalar) scaling. LRP: ε rule, where autograd's γ·R would rescale relevance."""
+    if _lrp_active():
+        g = gamma.to(x.dtype)
+        return _lrp_wrap(lambda xx: xx * g, x, "epsilon", _LRP.epsilon, rule_vjp=lambda s, xx: s * g)
+    return x * gamma.to(x.dtype)
+
+
 def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
     """Torch-style ``nn.MultiheadAttention`` with fused in-proj weights.
 
@@ -348,43 +392,73 @@ def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
     return linear(out, params[f"{prefix}.out_proj.weight"], params[f"{prefix}.out_proj.bias"])
 
 
-def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, scale=None):
-    """Batched MHA core: (B, T, D) q / (B, S, D) k, v → (B, T, D).
+def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None, scale=None, logit_cap=None):
+    """Batched MHA core: (B, T, H·hd) q / (B, S, KV·hd) k, v → (B, T, H·hd).
 
-    ``mask`` is additive (−inf blocks), shaped (T, S). Runs through
-    ``F.scaled_dot_product_attention`` (the flash or memory-efficient backend
-    on the card), as the JAX package leaves attention to XLA.
+    ``mask`` is additive (−inf blocks): (T, S), or (B, 1, T, S) for
+    per-row masks (pad-aware LMs); lower ranks broadcast from the left.
+    ``scale`` overrides ``head_dim**-0.5`` (Gemma 2's
+    ``query_pre_attn_scalar**-0.5``). ``n_kv_heads`` < ``n_heads`` is
+    grouped-query attention: kv head g serves the g-th group of
+    ``n_heads // n_kv_heads`` consecutive query heads (HF ``repeat_kv``,
+    ``repeat_interleave`` over heads). ``logit_cap`` soft-caps the scaled
+    logits, ``cap·tanh(logits/cap)``, before the mask is added (Gemma 2);
+    that path runs explicitly in float32, as the JAX package's does.
+    Otherwise ``F.scaled_dot_product_attention`` (the flash or
+    memory-efficient backend on the card), as the JAX package leaves
+    attention to XLA.
 
-    Under a composite this is CP-LRP (Ali et al. 2022): the softmax runs
-    explicitly in float32 and is a constant, so the head is a linear map of
-    the values and relevance goes through it by the ε rule; queries and
-    keys receive none.
+    Under a composite this is CP-LRP (Ali et al. 2022): the softmax (capped
+    where asked) runs in float32 over the repeated keys and is a constant,
+    so the head is a linear map of the values and relevance goes through it
+    by the ε rule; queries and keys receive none.
     """
     b, t, d = q.shape
     s = k.shape[1]
     head_dim = d // n_heads
+    kv_heads = n_kv_heads or n_heads
 
-    def split(z, length):
-        return z.reshape(b, length, n_heads, head_dim).transpose(1, 2)
+    def split(z, length, heads=n_heads):
+        return z.reshape(b, length, heads, head_dim).transpose(1, 2)
+
+    def split_kv(z):  # (B, S, KV·hd) → (B, H, S, hd), HF grouping order
+        z = split(z, s, kv_heads)
+        return z if kv_heads == n_heads else z.repeat_interleave(n_heads // kv_heads, dim=1)
+
+    def float32_probs():
+        logits = (split(q, t).float() @ split_kv(k).float().transpose(-1, -2)) * (
+            head_dim**-0.5 if scale is None else scale)
+        if logit_cap is not None:
+            logits = torch.tanh(logits / logit_cap) * logit_cap
+        if mask is not None:
+            logits = logits + mask.float()
+        return torch.softmax(logits, dim=-1)
+
+    def merge(out, dtype):
+        return out.transpose(1, 2).reshape(b, t, d).to(dtype)
 
     if _lrp_active():
         with torch.no_grad():
-            logits = split(q, t).float() @ split(k, s).float().transpose(-1, -2)
-            logits = logits * (head_dim**-0.5 if scale is None else scale)
-            if mask is not None:
-                logits = logits + mask.float()
-            probs = torch.softmax(logits, dim=-1)
-
-        def f(vv):
-            return (probs @ split(vv, s).float()).transpose(1, 2).reshape(b, t, d).to(vv.dtype)
-
-        return _lrp_wrap(f, v, "epsilon", _LRP.epsilon)
-
+            probs = float32_probs()
+        return _lrp_wrap(lambda vv: merge(probs @ split_kv(vv).float(), vv.dtype), v, "epsilon", _LRP.epsilon)
+    if logit_cap is not None:
+        return merge(float32_probs() @ split_kv(v).float(), v.dtype)
     attn_mask = None if mask is None else mask.to(q.dtype)
-    out = F.scaled_dot_product_attention(
-        split(q, t), split(k, s), split(v, s), attn_mask=attn_mask, scale=scale
-    )
-    return out.transpose(1, 2).reshape(b, t, d)
+    out = F.scaled_dot_product_attention(split(q, t), split_kv(k), split_kv(v), attn_mask=attn_mask, scale=scale)
+    return merge(out, q.dtype)
+
+
+def edge_pad_mask(ids, pad_id: int):
+    """(B, T) bool: True on the leading and trailing runs of ``pad_id``.
+
+    Fixed-length batching pads at an edge (left or right), so only edge runs
+    count as padding; a real mid-text token equal to ``pad_id`` is never
+    masked.
+    """
+    pad = ids == pad_id
+    lead = torch.cumprod(pad.to(torch.int32), dim=1).bool()
+    trail = torch.cumprod(pad.flip(1).to(torch.int32), dim=1).flip(1).bool()
+    return lead | trail
 
 
 def attn_out_projection(tap, heads_name, proj_name, a, weight, bias, n_heads):

@@ -20,19 +20,14 @@ SUBPACKAGES = ["", ".causal", ".collect", ".data", ".featviz", ".foundation_mode
 # JAX names the port does not have yet, by the ROADMAP queue-1 item that ports them.
 QUEUED = {
     "": {"core": "item 13", "parallel": "item 13"},
-    ".collect": {"TextActivationComponentVisualizer": "item 10", "TextSAEComponentVisualizer": "item 10",
-                 "TokenTextDataset": "item 10"},
     ".data": {"GrainDataset": "item 13", "host_shard_range": "item 13"},
     ".models": {
         **{name: "item 8" for name in (
             "AlexNet", "ConvNeXt", "DenseNet", "EfficientNet", "EfficientNetV2", "GoogLeNet", "InceptionV3",
             "MNASNet", "MaxViT", "MobileNetV2", "MobileNetV3", "RegNet", "ShuffleNetV2", "SqueezeNet",
             "SwinTransformer", "SwinTransformerV2", "VGG")},
-        **{name: "item 10" for name in ("GPT2", "Gemma", "Gemma2", "Llama", "Phi3", "Qwen2")},
         "FlaxSubjectModel": "item 14",  # wraps flax.linen, which the card does not have
     },
-    ".relevance": {"highlight_evidence": "item 10", "make_token_relevance_fn": "item 10",
-                   "token_relevance": "item 10"},
 }
 # JAX names the port has under another name: the JAX initializers take a jax.random key, the
 # port's draw numpy weights in the JAX layout from an integer seed.
