@@ -159,8 +159,26 @@ Phases (any failing check raises; the exit code is then non-zero):
    audited. Prints the weight draws' seconds (numpy in the JAX layout on
    GPT-2, on the card for both), tokens/s, strings/s and every stage's
    seconds.
+18. zoo — the vision zoo, part one (``ZOO``, ``ZOO_GATE``): the float32 gates
+   first (ResNet-50d, ResNeXt-50 32x4d, Wide-ResNet-50-2, VGG-16 and -BN,
+   DenseNet-121, ConvNeXt-Tiny in timm and torchvision naming,
+   EfficientNet-B0, EfficientNetV2-S, MobileNetV2, MobileNetV3-Large,
+   MNASNet1_0 and RegNetY-400MF at published width, seed 0, 2 images at
+   224²: logits and every default ``full_audit`` tap card against CPU), the
+   ε-plus-flat and ε heatmaps of ConvNeXt-Tiny ``stages.2`` and
+   EfficientNet-B0 ``features.6`` / ``features.3`` card against CPU (float32,
+   and float64 for the function), Σ relevance through one block of each,
+   while ``python -m semanticlens_tpu_torch.full_audit --arch densenet`` and
+   ``python -m semanticlens_tpu_torch.causal_audit --arch mobilenetv2`` run
+   in their own processes; then the main path, ``full_audit.main --arch
+   convnext`` (ConvNeXt-Tiny bf16 → stages.0–3, 1,440 components, 25
+   samples, CLIP ViT-B/32 bf16, 2048 images at 224², 1000 words, two image
+   queries; cold cosine labels, warm soft-WPMI), and each other family of
+   the slice through ``full_audit.main`` at the JAX tool's defaults over
+   512 images. Prints each family's gate readings, images/s and component
+   count, the ConvNeXt audit's stage seconds and peak memory.
 
-Each of phases 14–17 prints its wall seconds beside its bound
+Each of phases 14–18 prints its wall seconds beside its bound
 (``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
@@ -303,6 +321,51 @@ LM_GATE = {"rows": 8, "seq_len": 64, "depth": 2, "rel": 1e-5, "conservation_rel"
                         ("qwen2.5-0.5b", "Qwen2", "model.layers.1.mlp.act_fn", "model.layers.1.self_attn.heads"),
                         ("phi-3-mini-4k", "Phi3", "model.layers.1.mlp.activation_fn",
                          "model.layers.1.self_attn.heads")]}
+# The vision zoo, part one (ROADMAP item 8): the main path is full_audit --arch convnext (ConvNeXt-Tiny bf16,
+# the JAX tool's default for the family) at AUDIT5's sizes, then every other family of the slice through
+# full_audit at the JAX tool's defaults for its --arch / --variant over ``family_images``; the float32 gates
+# hold each family at published width card against CPU on ``gate_images`` images (seed-0 weights).
+ZOO = {"images": 2048, "family_images": 512, "gate_images": 2, "size": 224, "bound_s": 150,
+       "db_shapes": {"stages.0": [96, 25, 512], "stages.1": [192, 25, 512], "stages.2": [384, 25, 512],
+                     "stages.3": [768, 25, 512]},
+       "gates": [("resnet50d", "ResNet", {"depth": 50, "variant": "d"}, ["--variant", "d"]),
+                 ("resnext50_32x4d", "ResNet", {"depth": 50, "groups": 32, "width_per_group": 4}, ["--variant", "x"]),
+                 ("wide_resnet50_2", "ResNet", {"depth": 50, "width_per_group": 128}, ["--variant", "wide"]),
+                 ("vgg16", "VGG", {"depth": 16}, ["--arch", "vgg"]),
+                 ("vgg16_bn", "VGG", {"depth": 16, "batch_norm": True}, ["--arch", "vgg"]),
+                 ("densenet121", "DenseNet", {"depth": 121}, ["--arch", "densenet"]),
+                 ("convnext_tiny", "ConvNeXt", {"variant": "tiny"}, ["--arch", "convnext"]),
+                 ("convnext_tiny_torchvision", "ConvNeXt", {"variant": "tiny", "naming": "torchvision"},
+                  ["--arch", "convnext"]),
+                 ("efficientnet_b0", "EfficientNet", {"variant": "b0"}, ["--arch", "efficientnet"]),
+                 ("efficientnet_v2_s", "EfficientNetV2", {"variant": "v2_s"},
+                  ["--arch", "efficientnet", "--variant", "v2_s"]),
+                 ("mobilenet_v2", "MobileNetV2", {}, ["--arch", "mobilenet"]),
+                 ("mobilenet_v3_large", "MobileNetV3", {"variant": "large"}, ["--arch", "mobilenet", "--variant", "large"]),
+                 ("mnasnet1_0", "MNASNet", {"variant": "1_0"}, ["--arch", "mnasnet"]),
+                 ("regnet_y_400mf", "RegNet", {"variant": "y_400mf"}, ["--arch", "regnet"])],
+       "families": [["--variant", "d"], ["--variant", "x"], ["--variant", "wide"], ["--arch", "vgg"],
+                    ["--arch", "densenet"], ["--arch", "efficientnet"], ["--arch", "efficientnet", "--variant", "v2_s"],
+                    ["--arch", "mobilenet"], ["--arch", "mobilenet", "--variant", "large"],
+                    ["--arch", "mobilenet", "--variant", "small"], ["--arch", "mnasnet"], ["--arch", "regnet"]],
+       # (family, kwargs, layer): ε-plus-flat heatmaps of components 0 and 1 on gate_images. (EfficientNet-B0's
+       # features.6 is not among them: its seed-0 activations are ~1e-10, so its maps are exactly 0 on both.)
+       "heatmaps": [("ConvNeXt", {"variant": "tiny"}, "stages.2"), ("EfficientNet", {"variant": "b0"}, "features.3")],
+       "causal_layer": "features.14"}
+# Zoo gates, card against CPU in float32 (TF32 off): logits and every default full_audit tap within ``rel`` of
+# each one's scale. Heatmaps: z⁺ on these families' signed inputs (residual streams, SiLU outputs) makes
+# ε-plus-flat ill-conditioned at isolated pixels in both packages: on the CPU the port's float32 abs-max
+# normalised heatmaps are 0.028–0.045 (max) from its float64 ones on ConvNeXt-Tiny stages.2 and up to 0.155 on
+# EfficientNet-B0 features.3, the JAX package's 0.038–0.071 / 0.011–0.030, while their mean |Δ| is 2e-6–1.1e-4;
+# the port's float32 islands (LayerNorm statistics, BN scale) keep a float64 run 0.011–0.018 apart card against
+# CPU. So ε-plus-flat heatmaps are held card against CPU by their mean |Δ| over their mean |h| (``heat_mean_rel``:
+# a map's mean |h| is far below its abs-max 1, 8.5e-4 on EfficientNet-B0 features.3) and the z⁺ rule
+# itself where it is well-conditioned (blocks fed non-negative inputs: a grouped ResNeXt bottleneck and a
+# depthwise MobileNetV2 block) within LRP_HEAT_ATOL["epsilon_plus_flat"] of the relevance scale; ε heatmaps
+# (well-conditioned) by their max at LRP_HEAT_ATOL["epsilon"]. Two controls go through the same gate and must
+# break ``heat_mean_rel``, else it could not tell a fault from float32 rounding: the card's ε maps against the
+# CPU's ε-plus-flat ones (a wrong composite), and the card's ε-plus-flat maps with TF32 on (a precision fault).
+ZOO_GATE = {"rel": 1e-5, "heat_mean_rel": 0.1}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
 
@@ -567,12 +630,17 @@ def phase_kernels(dev):
         "redundancy 3072x3072x512": (randn(3072, 512),) * 2,
         "topics 5x8192x512": (randn(5, 512), randn(8192, 512)),
         "topics 5x3072x512": (randn(5, 512), randn(3072, 512)),
+        # the vision zoo: ConvNeXt-Tiny's stages.3 bank (the zoo main path's largest), and the 1,280-channel
+        # heads of EfficientNet-B0 and MobileNetV2
+        "redundancy 768x768x512": (randn(768, 512),) * 2,
+        "redundancy 1280x1280x512": (randn(1280, 512),) * 2,
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 256x256x512", "redundancy 512x512x512",
              "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
              "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768", "probe 8x8192x512",
-             "redundancy 8192x8192x512", "redundancy 3072x3072x512")
+             "redundancy 8192x8192x512", "redundancy 3072x3072x512", "redundancy 768x768x512",
+             "redundancy 1280x1280x512")
     rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
@@ -1509,7 +1577,7 @@ def imagenet_preprocess_as_input(x):
 
 def batch_norm_any_dtype(x, weight, bias, running_mean, running_var, *, eps=1e-5):
     """The port's inference batch norm, with float64 statistics for a float64 ``x`` (the port's casts
-    them to float32, so a float64 ResNet runs only with this in place of ``resnet.batch_norm``)."""
+    them to float32, so a float64 zoo model runs only with this in place of ``zoo.batch_norm``)."""
     from semanticlens_tpu_torch.models import layers
 
     if x.dtype != torch.float64:
@@ -2585,17 +2653,54 @@ def audit_float32_gate(dev) -> tuple[dict, list]:
     return out, failed
 
 
+def check_audit_reports(tag: str, reports: dict, record: list, db_shapes: dict, words: list, dev):
+    """Gates on ``full_audit.main`` reports (not counted): the JAX tool's keys, the DB shapes, finite scores,
+    image probing of every layer; each run's top-5 and the cold run's cosine labels equal to dense K1 + a
+    stable sort over its own banks (``record``: the ``(lens, cv, db)`` of each run)."""
+    from semanticlens_tpu_torch import full_audit
+    from semanticlens_tpu_torch.lens import _embed_vocabulary
+
+    queries, templates = ["dog", "car wheel", "striped pattern"], ["a photo of a {}"]
+    for name, report in reports.items():
+        if tuple(report) != full_audit.REPORT_KEYS or report["db_shapes"] != db_shapes:
+            raise AssertionError(f"[{tag}] {name}: keys {list(report)}, db shapes {report['db_shapes']}")
+        values = [v for s in report["scores"].values() for v in s.values()]
+        if len(values) != 4 * len(db_shapes) or not np.isfinite(values).all():
+            raise AssertionError(f"[{tag}] {name}: scores {report['scores']}")
+        if set(report["image_probe_top_neuron"]) != set(db_shapes):
+            raise AssertionError(f"[{tag}] {name}: image probing {report['image_probe_top_neuron']}")
+    for (name, report), (lens, _, db) in zip(reports.items(), record):
+        fm = lens.fm
+        with torch.inference_mode():
+            q = fm.encode_text(fm.tokenize(queries)).float()
+        vocab_embeds = _embed_vocabulary(fm, words, templates, 1024) if name == "cold" else None
+        for layer, shape in db_shapes.items():
+            bank = torch.as_tensor(db[layer].mean(1), device=dev)
+            _, idx = dense_topk(q, bank, 5)
+            if report["top5_per_query"][layer] != {w: idx[i].tolist() for i, w in enumerate(queries)}:
+                raise AssertionError(f"[{tag}] {name}: top-5 of {layer} differ from dense K1 + stable sort")
+            got = report["component_labels"][layer]
+            if vocab_embeds is not None:
+                vals, idx = dense_topk(bank, vocab_embeds, 1)
+                if [got[str(i)]["word"] for i in range(16)] != [words[j] for j in idx[:16, 0].tolist()] or not (
+                        np.allclose([got[str(i)]["score"] for i in range(16)], vals[:16, 0].cpu().numpy(),
+                                    rtol=0, atol=1e-6)):
+                    raise AssertionError(f"[{tag}] cosine labels of {layer} differ from dense K1 + stable sort")
+            elif len(got) != min(16, shape[0]) or any(v["word"] not in words or not np.isfinite(v["score"])
+                                                      for v in got.values()):
+                raise AssertionError(f"[{tag}] soft-WPMI labels of {layer}: {got}")
+
+
 def phase_audit(dev, root: Path):
     """BASELINE config 5 at full width through ``full_audit.main`` (K1 counted from 0 around the two
     in-process runs); the CLI over a JPEG folder in its own process while the float32 gate runs."""
     from semanticlens_tpu_torch import full_audit
-    from semanticlens_tpu_torch.lens import _embed_vocabulary
     from semanticlens_tpu_torch.ops import cosine as k1
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    words, queries, templates = vocabulary(1000), ["dog", "car wheel", "striped pattern"], ["a photo of a {}"]
+    words = vocabulary(1000)
     argv = ["--n-synthetic", str(AUDIT5["images"]), "--vocabulary", *words,
             "--image-query-indices", *map(str, AUDIT5["image_queries"])]
     reports, walls, record, shapes = {}, {}, [], set()
@@ -2608,39 +2713,10 @@ def phase_audit(dev, root: Path):
     launches = k1.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    # Gates on the two reports (not counted).
-    for name, report in reports.items():
-        if tuple(report) != full_audit.REPORT_KEYS or report["db_shapes"] != AUDIT5["db_shapes"]:
-            raise AssertionError(f"[audit] {name}: keys {list(report)}, db shapes {report['db_shapes']}")
-        values = [v for s in report["scores"].values() for v in s.values()]
-        if len(values) != 16 or not np.isfinite(values).all():
-            raise AssertionError(f"[audit] {name}: scores {report['scores']}")
-        if set(report["image_probe_top_neuron"]) != set(AUDIT5["db_shapes"]):
-            raise AssertionError(f"[audit] {name}: image probing {report['image_probe_top_neuron']}")
     if launches["streaming"] < 1 or launches["tiled"] < 1:
         raise AssertionError(f"[audit] K1 launches on the path: {launches}")
-    # Each run's top-5 and the cold run's cosine labels against dense K1 + stable sort over its own banks.
-    for (name, report), (lens, _, db) in zip(reports.items(), record):
-        fm = lens.fm
-        with torch.inference_mode():
-            q = fm.encode_text(fm.tokenize(queries)).float()
-        vocab_embeds = _embed_vocabulary(fm, words, templates, 1024) if name == "cold" else None
-        for layer, shape in AUDIT5["db_shapes"].items():
-            bank = torch.as_tensor(db[layer].mean(1), device=dev)
-            _, idx = dense_topk(q, bank, 5)
-            if report["top5_per_query"][layer] != {w: idx[i].tolist() for i, w in enumerate(queries)}:
-                raise AssertionError(f"[audit] {name}: top-5 of {layer} differ from dense K1 + stable sort")
-            got = report["component_labels"][layer]
-            if vocab_embeds is not None:
-                vals, idx = dense_topk(bank, vocab_embeds, 1)
-                if [got[str(i)]["word"] for i in range(16)] != [words[j] for j in idx[:16, 0].tolist()] or not (
-                        np.allclose([got[str(i)]["score"] for i in range(16)], vals[:16, 0].cpu().numpy(),
-                                    rtol=0, atol=1e-6)):
-                    raise AssertionError(f"[audit] cosine labels of {layer} differ from dense K1 + stable sort")
-            elif len(got) != min(16, shape[0]) or any(v["word"] not in words or not np.isfinite(v["score"])
-                                                      for v in got.values()):
-                raise AssertionError(f"[audit] soft-WPMI labels of {layer}: {got}")
-    del record, db, lens, fm, vocab_embeds
+    check_audit_reports("audit", reports, record, AUDIT5["db_shapes"], words, dev)
+    del record
     torch.cuda.empty_cache()
 
     # The CLI in its own process over a 4-class JPEG folder, while the float32 gate runs.
@@ -2898,7 +2974,7 @@ def phase_featviz(dev, root: Path):
     from semanticlens_tpu_torch.collect import synthesis_based
     from semanticlens_tpu_torch.foundation_models import OpenClip
     from semanticlens_tpu_torch.models import ResNet
-    from semanticlens_tpu_torch.models import resnet as resnet_module
+    from semanticlens_tpu_torch.models import zoo as zoo_module
     from semanticlens_tpu_torch.ops import cosine as k1
     from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
 
@@ -2990,7 +3066,7 @@ def phase_featviz(dev, root: Path):
     # (each within float32's reach of its float64 gradient), then 4 whole float32 steps.
     gate_cfg, n_gate = featviz.SynthesisConfig(steps=FEATVIZ["gate_steps"]), FEATVIZ["gate_canvases"]
     step1, after = {}, {}
-    with patched(resnet_module, batch_norm=batch_norm_any_dtype):
+    with patched(zoo_module, batch_norm=batch_norm_any_dtype):
         for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
             for dtype in (torch.float32, torch.float64):
                 m = ResNet(depth=50, dtype=dtype, device=device)
@@ -3360,6 +3436,268 @@ def phase_lm(dev, root: Path):
     return launches
 
 
+def zoo_models(cls_name: str, kw: dict, dtype, devices) -> list:
+    """``(model, params)`` of one zoo family on each device, one numpy draw (seed 0) for all."""
+    from semanticlens_tpu_torch import models
+
+    built = [getattr(models, cls_name)(**kw, dtype=dtype, device=d) for d in devices]
+    weights = built[0].init_jax_layout(0)
+    return [(m, m.load_jax_params(weights)) for m in built]
+
+
+def zoo_default_layers(label: str, argv: list) -> list:
+    """The JAX tool's default ``full_audit`` layers of the family (torchvision names for ConvNeXt's twin)."""
+    from semanticlens_tpu_torch import full_audit
+    from semanticlens_tpu_torch.models.convnext import _to_torchvision
+
+    layers = full_audit._zoo_model(full_audit.parse_args(argv), "cpu")[1]
+    return [_to_torchvision(layer) for layer in layers] if label.endswith("torchvision") else list(layers)
+
+
+def zoo_float32_gates(dev) -> dict:
+    """Every family of the slice at published width in float32 (seed 0), card against CPU on 2 images at
+    224²: logits and every default full_audit tap relative to each one's scale."""
+    x = torch.rand(ZOO["gate_images"], ZOO["size"], ZOO["size"], 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    out = {}
+    for label, cls_name, kw, argv in ZOO["gates"]:
+        layers = zoo_default_layers(label, argv)
+        t = time.perf_counter()
+        (card, card_p), (cpu, cpu_p) = zoo_models(cls_name, kw, torch.float32, (dev, torch.device("cpu")))
+        with torch.inference_mode():
+            got, got_taps = card.apply(card_p, x.to(dev), layers)
+            want, want_taps = cpu.apply(cpu_p, x, layers)
+        taps = {layer: _max_rel(got_taps[layer], want_taps[layer], _scale(want_taps[layer])) for layer in layers}
+        out[label] = {"weights": sum(v.numel() for v in cpu_p.values()), "layers": layers,
+                      "logits": _max_rel(got, want, _scale(want)), "taps": taps, "worst_tap": max(taps.values()),
+                      "finite": bool(torch.isfinite(got).all()), "s": time.perf_counter() - t}
+        del card, card_p, cpu, cpu_p
+    return out
+
+
+def zoo_heatmaps(dev) -> dict:
+    """ε-plus-flat and ε heatmaps (components 0 and 1, abs-max normalised) of ConvNeXt-Tiny stages.2 and
+    EfficientNet-B0 features.3, card against CPU in float32, with float64 runs beside them and the two
+    ``heat_mean_rel`` controls (a wrong composite; TF32 on); ε-plus-flat relevance through a grouped and a
+    depthwise block fed non-negative inputs, card against CPU; Σ relevance through one ConvNeXt and one EfficientNet block at ε 1e-9 on the card."""
+    from semanticlens_tpu_torch.models import layers as L
+    from semanticlens_tpu_torch.relevance import make_attribution_fn
+
+    x = torch.rand(ZOO["gate_images"], ZOO["size"], ZOO["size"], 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    cpu = torch.device("cpu")
+    out = {}
+    for cls_name, kw, layer in ZOO["heatmaps"]:
+        h = {}
+        for dtype in (torch.float32, torch.float64):
+            for where, (model, params) in zip(("card", "cpu"), zoo_models(cls_name, kw, dtype, (dev, cpu))):
+                for composite in ("epsilon_plus_flat", "epsilon") if dtype == torch.float32 else ("epsilon_plus_flat",):
+                    fn = make_attribution_fn(model, layer, composite=composite)
+                    h[(where, dtype, composite)] = torch.stack(
+                        [fn(params, x.to(model.device), c).cpu().double() for c in (0, 1)])
+                    if where == "card" and dtype == torch.float32 and composite == "epsilon_plus_flat":
+                        with patched(torch.backends.cuda.matmul, allow_tf32=True), \
+                                patched(torch.backends.cudnn, allow_tf32=True):
+                            tf32 = torch.stack([fn(params, x.to(dev), c).cpu().double() for c in (0, 1)])
+
+        def gap(a, b):
+            return (h[a] - h[b]).abs()
+
+        card32, cpu32 = ("card", torch.float32, "epsilon_plus_flat"), ("cpu", torch.float32, "epsilon_plus_flat")
+        card64, cpu64 = ("card", torch.float64, "epsilon_plus_flat"), ("cpu", torch.float64, "epsilon_plus_flat")
+        mean_h = float(h[cpu32].abs().mean())
+        out[f"{cls_name}:{layer}"] = {
+            "abs_max_float32": float(h[card32].abs().max()),
+            "mean_abs_h_float32": mean_h,
+            "epsilon_plus_flat_float32_max": float(gap(card32, cpu32).max()),
+            "epsilon_plus_flat_float32_mean": float(gap(card32, cpu32).mean()),
+            "epsilon_plus_flat_float32_mean_rel": float(gap(card32, cpu32).mean()) / mean_h,
+            "epsilon_float32_max": float(gap(("card", torch.float32, "epsilon"), ("cpu", torch.float32, "epsilon")).max()),
+            "finite": all(bool(torch.isfinite(v).all()) for v in h.values()),
+            "control_wrong_composite_mean_rel": float(gap(("card", torch.float32, "epsilon"), cpu32).mean()) / mean_h,
+            "control_tf32_mean_rel": float((tf32 - h[cpu32]).abs().mean()) / mean_h,
+            "control_tf32_finite": bool(torch.isfinite(tf32).all()),
+            "epsilon_plus_flat_float64_max": float(gap(card64, cpu64).max()),
+            "float32_vs_float64_card_max": float(gap(card32, card64).max()),
+            "float32_vs_float64_cpu_max": float(gap(cpu32, cpu64).max()),
+            "float32_vs_float64_cpu_mean": float(gap(cpu32, cpu64).mean())}
+
+    def relevance(fn, xx, composite, epsilon, skip=0):
+        xx = xx.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        with L.lrp_composite(composite, epsilon=epsilon):
+            for _ in range(skip):
+                L._next_rule("conv")
+            o = fn(xx)
+        (r_in,) = torch.autograd.grad(o, xx, o.detach())
+        return r_in, o.detach()
+
+    def no_tap(_, a):
+        return a
+
+    gen = torch.Generator().manual_seed(6)
+    blocks = {}  # z⁺ (one rule consumed first, as mid-network) through blocks fed non-negative inputs
+    for label, cls_name, kw, make, shape in (
+            ("resnext50_32x4d layer3.0", "ResNet", {"depth": 50, "groups": 32, "width_per_group": 4},
+             lambda m, p: lambda v: m._bottleneck_block(p, "layer3.0", v, 2, no_tap), (2, 512, 28, 28)),
+            ("mobilenet_v2 features.3", "MobileNetV2", {},
+             lambda m, p: lambda v: m._inverted_residual(p, v, "features.3", m.blocks[2], no_tap), (2, 24, 56, 56))):
+        xb = torch.randn(*shape, generator=gen).abs()
+        (cm, cp), (pm, pp) = zoo_models(cls_name, kw, torch.float32, (dev, cpu))
+        card_r, _ = relevance(make(cm, cp), xb.to(dev), "epsilon_plus_flat", 1e-6, skip=1)
+        cpu_r, _ = relevance(make(pm, pp), xb, "epsilon_plus_flat", 1e-6, skip=1)
+        blocks[label] = _max_rel(card_r, cpu_r, _scale(cpu_r))
+    out["z_plus_blocks_rel"] = blocks
+
+    (cn, cp), = zoo_models("ConvNeXt", {"variant": "tiny"}, torch.float32, (dev,))
+    (ef, ep), = zoo_models("EfficientNet", {"variant": "b0"}, torch.float32, (dev,))
+    blk = ef.stages[5][1]
+    conservation = {}
+    for label, fn, shape in (
+            ("convnext stages.2.blocks.1", lambda v: cn._block(lambda k: cp[k], "stages.2.blocks.1", v, no_tap),
+             (2, 384, 14, 14)),
+            ("efficientnet features.6.1", lambda v: ef._mbconv(ep, v, "features.6.1", blk, no_tap), (2, blk.c_in, 7, 7))):
+        r_in, o = relevance(fn, torch.randn(*shape, generator=gen).to(dev), "epsilon", 1e-9)
+        r_in, r_out = float(r_in.double().sum()), float(o.double().sum())
+        conservation[label] = {"sum_r_in": r_in, "sum_r_out": r_out, "rel": abs(r_in - r_out) / abs(r_out)}
+    out["conservation"] = conservation
+    return out
+
+
+def zoo_heatmap_misses(heat: dict) -> list:
+    """The heatmap gates' misses, a control that the ``heat_mean_rel`` gate lets through among them."""
+    maps = {name: row for name, row in heat.items() if ":" in name}
+
+    def heat_ok(row, mean_rel):
+        return (row["finite"] and row["mean_abs_h_float32"] > 0 and row["epsilon_float32_max"] <= LRP_HEAT_ATOL["epsilon"]
+                and mean_rel <= ZOO_GATE["heat_mean_rel"])
+
+    missed = [name for name, row in maps.items() if not heat_ok(row, row["epsilon_plus_flat_float32_mean_rel"])]
+    missed += [f"{name} passes {control}" for name, row in maps.items()
+               for control in ("control_wrong_composite_mean_rel", "control_tf32_mean_rel") if heat_ok(row, row[control])]
+    missed += [f"z+ {name}" for name, rel in heat["z_plus_blocks_rel"].items()
+               if not rel <= LRP_HEAT_ATOL["epsilon_plus_flat"]]
+    missed += [f"conservation {name}" for name, c in heat["conservation"].items() if not c["rel"] <= LRP_CONSERVATION_RTOL]
+    return missed
+
+
+def phase_zoo(dev, root: Path):
+    """The vision zoo, part one: the float32 gates of every family and the heatmap gates (the densenet
+    full_audit CLI and the mobilenetv2 causal_audit CLI in their own processes meanwhile), then the main
+    path, K1 counted from 0: ``full_audit.main --arch convnext`` at AUDIT5's sizes, cold and warm, and every
+    other family through ``full_audit.main`` at the JAX tool's defaults over 512 images."""
+    from semanticlens_tpu_torch import causal_audit, full_audit
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    summary = {}
+
+    # 1. The two CLIs in their own processes while the float32 and heatmap gates run.
+    cmds = {"full_audit": ["semanticlens_tpu_torch.full_audit", "--arch", "densenet", "--n-synthetic",
+                           str(ZOO["family_images"])],
+            "causal_audit": ["semanticlens_tpu_torch.causal_audit", "--arch", "mobilenetv2", "--image-size",
+                             str(ZOO["size"]), "--layer", ZOO["causal_layer"]]}
+    procs, t_cli = {}, time.perf_counter()
+    with contextlib.ExitStack() as files:
+        try:
+            for name, cmd in cmds.items():
+                out, err = (files.enter_context(open(root / f"{name}.{ext}", "w")) for ext in ("out", "err"))
+                procs[name] = subprocess.Popen([sys.executable, "-m", *cmd], cwd=Path(__file__).resolve().parent,
+                                               stdout=out, stderr=err)
+            gates = zoo_float32_gates(dev)
+            heat = zoo_heatmaps(dev)
+            rcs = {name: proc.wait(timeout=600) for name, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+    cli = {"process_s": time.perf_counter() - t_cli, "rc": rcs}
+    lines = {name: [json.loads(line) for line in (root / f"{name}.out").read_text().splitlines()
+                    if line.startswith("{")] for name in cmds}
+    if lines["full_audit"]:
+        fa = lines["full_audit"][-1]
+        cli["full_audit"] = {"keys_ok": tuple(fa) == full_audit.REPORT_KEYS, "db_shapes": fa.get("db_shapes"),
+                             "images_per_s_fused": fa["stages"]["collect+embed"]["items_per_sec"]}
+    if lines["causal_audit"]:
+        cli["causal_audit"] = lines["causal_audit"][-1] | {
+            "keys_ok": tuple(lines["causal_audit"][-1]) == causal_audit.REPORT_KEYS}
+    summary.update({"float32_gates": gates, "heatmaps": heat, "cli": cli,
+                    "gates_and_cli_s": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+
+    # 2. The main path, K1 counted from 0: ConvNeXt-Tiny through full_audit at AUDIT5's sizes, then the rest.
+    words = vocabulary(1000)
+    argv = ["--arch", "convnext", "--n-synthetic", str(ZOO["images"]), "--vocabulary", *words,
+            "--image-query-indices", *map(str, AUDIT5["image_queries"])]
+    reports, walls, record, families = {}, {}, [], {}
+    fm_memo = {}
+
+    def build_fm(args, device):  # one seed-0 CLIP ViT-B/32 for the families' runs
+        if "fm" not in fm_memo:
+            fm_memo["fm"] = build_fm_real(args, device)
+        return fm_memo["fm"]
+
+    build_fm_real = full_audit.build_fm
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        with recording_concept_dbs(record):
+            for name, extra in (("cold", []), ("warm", ["--label-scoring", "wpmi"])):
+                t = time.perf_counter()
+                reports[name] = full_audit.main(argv + extra)
+                walls[name] = time.perf_counter() - t
+        convnext_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        with patched(full_audit, build_fm=build_fm):
+            for fam in ZOO["families"]:
+                t = time.perf_counter()
+                report = full_audit.main(fam + ["--n-synthetic", str(ZOO["family_images"])])
+                families[" ".join(fam)] = {
+                    "layers": report["layers"], "components": sum(v[0] for v in report["db_shapes"].values()),
+                    "db_shapes": report["db_shapes"],
+                    "images_per_s_collect_embed": report["stages"]["collect+embed"]["items_per_sec"],
+                    "main_s": time.perf_counter() - t,
+                    "finite": bool(np.isfinite([v for sc in report["scores"].values() for v in sc.values()]).all()),
+                    "keys_ok": tuple(report) == full_audit.REPORT_KEYS}
+    launches = k1.launch_counts()
+    del fm_memo
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    try:
+        check_audit_reports("zoo", reports, record, ZOO["db_shapes"], words, dev)
+        report_missed = []
+    except AssertionError as e:
+        report_missed = [str(e)]
+    del record
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    summary.update({
+        "convnext": {"images": ZOO["images"], "components": sum(s[0] for s in ZOO["db_shapes"].values()),
+                     "db_shapes": reports["cold"]["db_shapes"],
+                     "images_per_s_fused_cold": reports["cold"]["stages"]["collect+embed"]["items_per_sec"],
+                     "images_per_s_fused_warm": reports["warm"]["stages"]["collect+embed"]["items_per_sec"],
+                     "main_wall_s": walls,
+                     "stages_s": {name: {stage: round(v["seconds"], 4) for stage, v in r["stages"].items()}
+                                  for name, r in reports.items()},
+                     "scores_cold": reports["cold"]["scores"], "peak_mem_gb": convnext_peak_gb},
+        "families": families, "k1_launches": launches, "peak_mem_gb": peak_gb,
+        "phase_s": phase_s, "bound_s": ZOO["bound_s"], "within_bound": phase_s <= ZOO["bound_s"]})
+    log(f"[zoo] {json.dumps(summary)}")
+
+    # Gates after the line, so that a miss still prints every measurement.
+    missed = [f"{label}:logits" for label, g in gates.items() if not (g["logits"] <= ZOO_GATE["rel"] and g["finite"])]
+    missed += [f"{label}:taps" for label, g in gates.items() if not g["worst_tap"] <= ZOO_GATE["rel"]]
+    missed += zoo_heatmap_misses(heat) + report_missed
+    missed += [f"family {fam}" for fam, f in families.items() if not (f["finite"] and f["keys_ok"])]
+    if rcs != {"full_audit": 0, "causal_audit": 0} or not cli.get("full_audit", {}).get("keys_ok") or not cli.get(
+            "causal_audit", {}).get("keys_ok"):
+        missed.append("cli")
+    if not (launches["streaming"] > 0 and launches["tiled"] > 0):
+        missed.append("k1_launches")
+    if missed:
+        tails = "".join(f"\n{name}: {(root / f'{name}.err').read_text()[-3000:]}" for name, rc in rcs.items() if rc)
+        raise AssertionError(f"[zoo] gates missed: {missed}{tails}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3410,7 +3748,7 @@ def main():
             by_path["sae"] = phase_sae(dev, Path(tmp))
         done("sae")
         for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz),
-                            ("lm", phase_lm)):
+                            ("lm", phase_lm), ("zoo", phase_zoo)):
             with tempfile.TemporaryDirectory() as tmp:
                 by_path[name] = phase(dev, Path(tmp))
             done(name)
@@ -3451,7 +3789,9 @@ def main():
                                                       "at_d1024": at_shape("redundancy 2048x2048x1024"),
                                                       "at_d768": at_shape("redundancy 3072x3072x768"),
                                                       "at_sae": at_shape("redundancy 8192x8192x512"),
-                                                      "at_gpt2": at_shape("redundancy 3072x3072x512")},
+                                                      "at_gpt2": at_shape("redundancy 3072x3072x512"),
+                                                      "at_convnext": at_shape("redundancy 768x768x512"),
+                                                      "at_zoo_heads": at_shape("redundancy 1280x1280x512")},
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
                                                   "at_d768": at_shape("probe 8x3072x768"),
                                                   "at_sae": at_shape("probe 8x8192x512")}]}

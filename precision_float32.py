@@ -31,7 +31,7 @@ import torch
 import chip_smoke as cs
 from semanticlens_tpu_torch import causal, featviz
 from semanticlens_tpu_torch.models import ResNet
-from semanticlens_tpu_torch.models import resnet as resnet_module
+from semanticlens_tpu_torch.models import zoo as zoo_module
 from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
 
 
@@ -97,7 +97,7 @@ def featviz_precision(models) -> dict:
 
 def main():
     torch.set_num_threads(8)
-    resnet_module.batch_norm = cs.batch_norm_any_dtype
+    zoo_module.batch_norm = cs.batch_norm_any_dtype
     models = {dt: _model(dt) for dt in (torch.float32, torch.float64)}
     print(json.dumps({"causal": causal_precision(models), "featviz": featviz_precision(models)}))
 

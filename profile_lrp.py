@@ -43,7 +43,7 @@ def install_labels():
     """Wrap the rule backwards and BN in ``record_function`` regions (this process only)."""
     from torch.profiler import record_function
 
-    from semanticlens_tpu_torch.models import layers, resnet
+    from semanticlens_tpu_torch.models import layers, zoo
 
     rule_backward = layers._LrpRule.backward
     residual_backward = layers._ResidualSplit.backward
@@ -74,7 +74,7 @@ def install_labels():
 
     layers._LrpRule.backward = staticmethod(labelled_rule_backward)
     layers._ResidualSplit.backward = staticmethod(labelled_residual_backward)
-    resnet.batch_norm = labelled_batch_norm
+    zoo.batch_norm = labelled_batch_norm
 
 
 def category(op_name: str, label: str | None) -> str:

@@ -33,6 +33,7 @@ _CATEGORIES = (  # first match wins; matched against lower-cased kernel names
     ("layer norm", ("layer_norm",)),
     ("sort/top-k", ("sort", "radix", "gather", "scatter")),
     ("resize", ("upsample", "bicubic", "interp")),
+    ("conv depthwise/grouped", ("c1_k1", "depthwise", "dwconv", "grouped")),  # cuDNN's depthwise: conv2d_c1_k1_*
     ("conv", ("conv", "implicit", "cudnn", "nhwc", "wgrad", "dgrad")),
     ("gemm", ("gemm", "cutlass", "nvjet", "sm90_xmma", "matmul", "cublas")),
     ("copy/cast", ("direct_copy", "copy_kernel")),

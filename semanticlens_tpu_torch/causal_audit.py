@@ -10,9 +10,13 @@ the component is causally load-bearing exactly where SemanticLens says it
 fires; ratios ≈ 1 flag passenger correlations.
 
 The subject's weights come from seed 0, in ``--dtype`` (float32 by
-default); ``--arch resnet|vit`` run, the rest of the JAX tool's zoo waits
-for ROADMAP queue 1 item 8. One JSON line per component, then a summary
-with the card's name as ``"device"``.
+default); ``--arch`` takes the JAX ``tools/bench_subject.py`` names of
+ResNet and its ResNeXt / Wide variants, ViT, ConvNeXt, VGG, DenseNet,
+EfficientNet / V2, MobileNetV2 / V3, RegNet and MNASNet; the rest of the
+zoo (``QUEUED_ARCHES``) waits for ROADMAP queue 1 item 8. ``--layer`` keeps
+the JAX tool's default, ``layer3``, which only the ResNets have: name a
+layer of the family for the others (``--layer features.14``). One JSON line
+per component, then a summary with the card's name as ``"device"``.
 
 Usage:
   python -m semanticlens_tpu_torch.causal_audit --arch resnet --depth 18 --layer layer3 \\
@@ -34,17 +38,38 @@ import torch
 REPORT_KEYS = ("layer", "mode", "components", "median_ratio", "min_ratio", "wall_s", "device")
 
 
-def build_model(args, device):
-    """The subject from ``--arch`` in the ``--dtype`` activation dtype (the JAX ``tools/bench_subject.py``)."""
-    from semanticlens_tpu_torch.models import ResNet, VisionTransformer
+# bench_subject names of the JAX package's part-two families, which wait for ROADMAP queue 1 item 8.
+QUEUED_ARCHES = ("swin", "swin_v2", "googlenet", "inception_v3", "shufflenet", "alexnet", "squeezenet", "maxvit")
 
-    dtype = getattr(torch, args.dtype)
-    if args.arch == "resnet":
-        return ResNet(depth=args.depth, dtype=dtype, device=device)
-    if args.arch == "vit":
-        return VisionTransformer(image_size=args.image_size, dtype=dtype, device=device)
-    raise SystemExit(f"--arch {args.arch}: the port has resnet and vit; the rest of the zoo "
-                     "waits for ROADMAP queue 1 item 8")
+
+def build_model(args, device):
+    """The subject from ``--arch`` in the ``--dtype`` activation dtype, named as the JAX
+    ``tools/bench_subject.py`` names it (``--depth 50`` stands for VGG-16 and DenseNet-121)."""
+    from semanticlens_tpu_torch import models
+
+    kw = {"dtype": getattr(torch, args.dtype), "device": device}
+    constructors = {
+        "resnet": lambda: models.ResNet(depth=args.depth, **kw),
+        "vit": lambda: models.VisionTransformer(image_size=args.image_size, **kw),
+        "convnext": lambda: models.ConvNeXt(variant=args.variant or "tiny", **kw),
+        "vgg": lambda: models.VGG(depth=args.depth if args.depth != 50 else 16, **kw),
+        "densenet": lambda: models.DenseNet(depth=args.depth if args.depth != 50 else 121, **kw),
+        "efficientnet": lambda: models.EfficientNet(variant=args.variant or "b0", **kw),
+        "efficientnet_v2": lambda: models.EfficientNetV2(variant=args.variant or "v2_s", **kw),
+        "mobilenetv2": lambda: models.MobileNetV2(**kw),
+        "mobilenetv3": lambda: models.MobileNetV3(variant=args.variant or "large", **kw),
+        "resnext": lambda: models.ResNet(depth=args.depth, groups=32, width_per_group=8 if args.depth == 101 else 4,
+                                         **kw),
+        "wide_resnet": lambda: models.ResNet(depth=args.depth, width_per_group=128, **kw),
+        "regnet": lambda: models.RegNet(variant=args.variant or "y_400mf", **kw),
+        "mnasnet": lambda: models.MNASNet(variant=args.variant or "1_0", **kw),
+    }
+    if args.arch in QUEUED_ARCHES:
+        raise SystemExit(f"--arch {args.arch}: this part of the model zoo waits for ROADMAP queue 1 item 8 "
+                         "(part two)")
+    if args.arch not in constructors:
+        raise SystemExit(f"unknown arch {args.arch}")
+    return constructors[args.arch]()
 
 
 def parse_args(argv=None):

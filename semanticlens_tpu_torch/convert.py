@@ -7,7 +7,8 @@ inverses of ``semanticlens_tpu.models.resnet.ResNet.load_torch_state_dict``,
 ``semanticlens_tpu.models.vit.VisionTransformer.load_torch_state_dict``,
 ``semanticlens_tpu.foundation_models.clip.load_openclip_state_dict``,
 ``semanticlens_tpu.foundation_models.siglip.load_siglip_state_dict``,
-``semanticlens_tpu.foundation_models.mobileclip.load_mobileclip_state_dict``
+``semanticlens_tpu.foundation_models.mobileclip.load_mobileclip_state_dict``,
+the vision zoo's ``load_torch_state_dict`` (``semanticlens_tpu.models.layers.load_torch_params``)
 and the LM subjects' loaders (``semanticlens_tpu.models.gpt``, ``.llama``,
 ``.gemma``, ``.phi``).
 SAE and transcoder dictionaries keep the JAX layout in both packages
@@ -34,16 +35,48 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
 
-def resnet_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """ResNet: convs HWIO → OIHW, ``fc.weight`` (in, out) → (out, in)."""
+def torch_layout_shape(name: str, shape, kind: str) -> tuple[int, ...]:
+    """The torch layout of a vision-zoo tensor whose JAX-layout spec is ``(name, shape, kind)``.
+
+    Convs HWIO → OIHW (depthwise (k, k, 1, C) → (C, 1, k, k)); the
+    squeeze-excite 1×1 convs (kind ``"se_fc"``, (in, out) linears in the JAX
+    layout) → (out, in, 1, 1); other matrices (in, out) → (out, in);
+    torchvision ConvNeXt's ``layer_scale`` (C,) → (C, 1, 1). Everything else
+    keeps its shape.
+    """
+    shape = tuple(shape)
+    if len(shape) == 4:
+        return (shape[3], shape[2], shape[0], shape[1])
+    if kind == "se_fc":
+        return (shape[1], shape[0], 1, 1)
+    if len(shape) == 2:
+        return shape[::-1]
+    if name.endswith("layer_scale"):
+        return (*shape, 1, 1)
+    return shape
+
+
+def zoo_params_from_jax(params: Mapping, specs) -> dict[str, torch.Tensor]:
+    """The vision zoo (ResNet, VGG, DenseNet, ConvNeXt, EfficientNet/V2, MobileNetV2/V3, MNASNet, RegNet): weights
+    in the JAX layout → torch state-dict tensors, by each tensor's spec (:func:`torch_layout_shape`).
+
+    The inverse of the JAX families' ``load_torch_state_dict`` (``load_torch_params``): convs HWIO → OIHW,
+    linears (in, out) → (out, in), the squeeze-excite ``.fc1.`` / ``.fc2.`` linears (in, out) →
+    (out, in, 1, 1) convs, torchvision's ``layer_scale`` (C,) → (C, 1, 1). ``specs`` are the family's
+    ``_param_specs()``.
+    """
     out = {}
-    for name, value in params.items():
-        arr = np.asarray(value, dtype=np.float32)
+    for name, shape, kind in specs:
+        arr = np.asarray(params[name], dtype=np.float32)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape} != expected {tuple(shape)}")
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
-        elif name == "fc.weight":
+        elif kind == "se_fc":
+            arr = arr.T[:, :, None, None]
+        elif arr.ndim == 2:
             arr = arr.T
-        out[name] = _tensor(arr)
+        out[name] = _tensor(arr.reshape(torch_layout_shape(name, shape, kind)))
     return out
 
 

@@ -19,15 +19,21 @@ from seed 0 unless ``--model-checkpoint`` (a torchvision/timm ``.pt`` state
 dict) or ``--checkpoint`` (the foundation model's) is given — the systems
 path is the same either way.
 
-``--arch resnet`` (variant ``''``) and ``--arch vit`` run; the JAX tool's
-other families and ResNet variants wait for ROADMAP queue 1 item 8, and a
-mesh over several cards for item 13 (pass ``--no-mesh`` to run on one).
+``--arch resnet`` (variants ``''``, ``d``, ``x``, ``wide``), ``vit``,
+``convnext``, ``vgg``, ``densenet``, ``efficientnet`` (``b0``…``b7``,
+``v2_s``/``v2_m``/``v2_l``), ``mobilenet`` (``v2``, ``large``, ``small``),
+``mnasnet`` and ``regnet`` run, each with the JAX tool's default layers and
+model name; ``inception``, ``swin``, ``swin_v2``, ``maxvit``,
+``shufflenet``, ``alexnet`` and ``squeezenet`` wait for ROADMAP queue 1
+item 8 (part two), and a mesh over several cards for item 13 (pass
+``--no-mesh`` to run on one).
 ``--cpu`` (the one flag the JAX tool lacks: it takes its backend from
 ``JAX_PLATFORMS``) runs on the CPU.
 
 Usage:
   python -m semanticlens_tpu_torch.full_audit [--images /path.npy | --image-dir DIR]
-      [--arch resnet|vit] [--depth 50] [--layers layer1 ... | blocks.N.mlp ...]
+      [--arch resnet|vit|convnext|vgg|densenet|efficientnet|mobilenet|mnasnet|regnet] [--variant V]
+      [--depth 50] [--layers layer1 ... | blocks.N.mlp ...]
       [--n-samples 25] [--batch 256] [--queries dog "striped pattern"]
       [--vocabulary dog cat ...] [--label-scoring cosine|wpmi]
       [--fm ViT-B-32|siglip2|mobileclip-s1] [--checkpoint ckpt.safetensors]
@@ -46,8 +52,10 @@ import torch
 logger = logging.getLogger("semanticlens_tpu_torch.full_audit")
 
 RESNET_LAYERS = ["layer1", "layer2", "layer3", "layer4"]
-ZOO_ARCHES = ("convnext", "vgg", "densenet", "efficientnet", "mobilenet", "inception", "swin", "regnet",
-              "shufflenet", "alexnet", "squeezenet", "mnasnet", "swin_v2", "maxvit")
+# The JAX tool's --arch choices, in its order; QUEUED_ARCHES wait for ROADMAP queue 1 item 8 (part two).
+ARCHES = ("resnet", "vit", "convnext", "vgg", "densenet", "efficientnet", "mobilenet", "inception", "swin", "regnet",
+          "shufflenet", "alexnet", "squeezenet", "mnasnet", "swin_v2", "maxvit")
+QUEUED_ARCHES = ("inception", "swin", "swin_v2", "maxvit", "shufflenet", "alexnet", "squeezenet")
 # The keys of the JSON report, in the JAX tool's order.
 REPORT_KEYS = ("dataset", "n_images", "layers", "mesh", "db_shapes", "scores", "top_neuron_per_query",
                "top5_per_query", "component_labels", "image_probe_top_neuron", "class_selective_components",
@@ -60,10 +68,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--image-dir", default=None)
     ap.add_argument("--n-synthetic", type=int, default=1024)
     ap.add_argument("--image-size", type=int, default=224)
-    ap.add_argument("--arch", default="resnet", choices=["resnet", "vit", *ZOO_ARCHES])
+    ap.add_argument("--arch", default="resnet", choices=list(ARCHES))
     ap.add_argument("--depth", type=int, default=50)
     ap.add_argument("--variant", default="",
-                    help="resnet: '' (torchvision); 'd', 'x' and 'wide' wait for ROADMAP queue 1 item 8")
+                    help="resnet: '' (torchvision), 'd' (timm resnet*d), 'x' (resnext 32x4d/32x8d), or 'wide' "
+                         "(wide_resnet*_2); convnext: tiny/small/base/large; efficientnet: b0..b7 or v2_s/v2_m/v2_l; "
+                         "mobilenet: v2/large/small; mnasnet: 0_5/0_75/1_0/1_3; regnet: y_400mf, x_3_2gf, ...")
     ap.add_argument("--layers", nargs="*", default=list(RESNET_LAYERS))
     ap.add_argument("--n-samples", type=int, default=25)
     ap.add_argument("--batch", type=int, default=256)
@@ -78,7 +88,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fm", default="ViT-B-32")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--model-checkpoint", default=None,
-                    help="subject-model state dict (.pt): torchvision ResNet or timm ViT-B per --arch")
+                    help="subject-model state dict (.pt) per --arch: torchvision (timm for ResNet-D, ViT-B and "
+                         "ConvNeXt)")
     ap.add_argument("--bpe", default=None)
     ap.add_argument("--cache-dir", default=None)
     ap.add_argument("--no-mesh", action="store_true")
@@ -97,33 +108,89 @@ def parse_args(argv=None):
             "--variant configures --arch resnet (timm *d), convnext (tiny/small/base), "
             "efficientnet (b0..b7), or mobilenet (v2/large/small)"
         )
-    if args.arch in ZOO_ARCHES:
-        ap.error(f"--arch {args.arch}: the port has resnet and vit; the rest of the model zoo waits "
-                 "for ROADMAP queue 1 item 8")
+    if args.arch in QUEUED_ARCHES:
+        ap.error(f"--arch {args.arch}: the rest of the model zoo waits for ROADMAP queue 1 item 8 (part two)")
     if args.arch == "resnet" and args.variant not in ("", "d", "x", "wide"):
         ap.error("--arch resnet supports --variant ''/d/x/wide")
-    if args.arch == "resnet" and args.variant:
-        ap.error(f"--variant {args.variant}: the ResNet-D, ResNeXt and Wide ResNet variants wait for ROADMAP "
-                 "queue 1 item 8")
+    if args.arch == "vgg" and args.depth not in (11, 13, 16, 19, 50):
+        ap.error(f"--arch vgg supports --depth 11/13/16/19, got {args.depth}")
+    if args.arch == "densenet" and args.depth not in (121, 161, 169, 201, 50):
+        ap.error(f"--arch densenet supports --depth 121/161/169/201, got {args.depth}")
+    if args.arch == "mobilenet" and args.variant not in ("", "v2", "large", "small"):
+        ap.error("--arch mobilenet supports --variant v2/large/small")
     return args
+
+
+def _zoo_model(args, device):
+    """``(model, default layers, model name)`` of ``--arch``/``--variant``/``--depth`` as the JAX tool builds them
+    (``tools/full_audit.py``); depth 50, the resnet default, stands for each family's own default."""
+    from semanticlens_tpu_torch import models
+
+    kw = {"dtype": torch.bfloat16, "device": device}
+    if args.arch == "convnext":
+        model = models.ConvNeXt(variant=args.variant or "tiny", **kw)
+        return model, [f"stages.{i}" for i in range(4)], f"convnext-{model.variant}-audit"
+    if args.arch == "vgg":
+        depth = args.depth if args.depth != 50 else 16
+        stage_last = {11: [0, 3, 8, 13, 18], 13: [2, 7, 12, 17, 22], 16: [2, 7, 14, 21, 28],
+                      19: [2, 7, 16, 25, 34]}[depth]  # the last conv of each stage
+        return models.VGG(depth=depth, **kw), [f"features.{i}" for i in stage_last[1:]], f"vgg{depth}-audit"
+    if args.arch == "efficientnet":
+        variant = args.variant or "b0"
+        if variant.startswith("v2"):
+            model = models.EfficientNetV2(variant=variant, **kw)
+            n_stages = len(model.stages)
+            layers = [f"features.{i}" for i in (2, 3, n_stages - 1, n_stages)]
+        else:
+            model = models.EfficientNet(variant=variant, **kw)
+            layers = [f"features.{i}" for i in (2, 4, 6, 8)]
+        return model, layers, f"efficientnet-{model.variant}-audit"
+    if args.arch == "mobilenet":
+        variant = args.variant or "v2"
+        if variant == "v2":
+            model, stage_taps = models.MobileNetV2(**kw), (4, 7, 14, 18)  # the last block of each stride stage
+        else:
+            model = models.MobileNetV3(variant=variant, **kw)
+            stage_taps = (4, 7, 13, 16) if variant == "large" else (2, 4, 9, 12)
+        return model, [f"features.{i}" for i in stage_taps], f"mobilenet-{variant}-audit"
+    if args.arch == "regnet":
+        model = models.RegNet(variant=args.variant or "y_400mf", **kw)
+        return model, [f"trunk_output.block{i}" for i in range(1, 5)], f"regnet_{model.variant}-audit"
+    if args.arch == "mnasnet":
+        model = models.MNASNet(variant=args.variant or "1_0", **kw)
+        return model, ["layers.9", "layers.10", "layers.12", "layers.13"], f"mnasnet{model.variant}-audit"
+    if args.arch == "densenet":
+        depth = args.depth if args.depth != 50 else 121
+        return (models.DenseNet(depth=depth, **kw), [f"features.denseblock{i}" for i in range(1, 5)],
+                f"densenet{depth}-audit")
+    if args.variant in ("", "d"):
+        model = models.ResNet(depth=args.depth, variant=args.variant, **kw)
+        return model, RESNET_LAYERS, f"resnet{args.depth}{args.variant}-audit"
+    if args.variant == "x":  # torchvision resnext{50_32x4d,101_32x8d}
+        width = 8 if args.depth == 101 else 4
+        model = models.ResNet(depth=args.depth, groups=32, width_per_group=width, **kw)
+        return model, RESNET_LAYERS, f"resnext{args.depth}_32x{width}d-audit"
+    model = models.ResNet(depth=args.depth, width_per_group=128, **kw)  # torchvision wide_resnet{50,101}_2
+    return model, RESNET_LAYERS, f"wide_resnet{args.depth}_2-audit"
 
 
 def build_model(args, device):
     """``(model, aggregate_fn)``: the bf16 subject named as the JAX tool names it, weights from seed 0
-    or ``--model-checkpoint``; the ViT's default layers are ``blocks.{0,3,6,9}.mlp``."""
-    from semanticlens_tpu_torch.models import ResNet, VisionTransformer
+    or ``--model-checkpoint``. Left at the ResNet default, ``--layers`` becomes the family's default
+    (the ViT's ``blocks.{0,3,6,9}.mlp``)."""
+    from semanticlens_tpu_torch.models import VisionTransformer
     from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean, aggregate_transformer_mean
 
     if args.arch == "vit":
         model = VisionTransformer(image_size=args.image_size, dtype=torch.bfloat16, device=device)
-        if args.layers == RESNET_LAYERS:
-            args.layers = [f"blocks.{i}.mlp" for i in range(0, model.depth, 3)]
+        layers = [f"blocks.{i}.mlp" for i in range(0, model.depth, 3)]
         aggregate_fn = aggregate_transformer_mean
         model.name = f"vitb{args.image_size // model.grid}-audit"
     else:
-        model = ResNet(depth=args.depth, num_classes=1000, dtype=torch.bfloat16, device=device)
+        model, layers, model.name = _zoo_model(args, device)
         aggregate_fn = aggregate_conv_mean
-        model.name = f"resnet{args.depth}{args.variant}-audit"
+    if args.layers == RESNET_LAYERS:
+        args.layers = list(layers)
     if args.model_checkpoint:
         model.params = model.load_torch_state_dict(torch.load(args.model_checkpoint, map_location="cpu"))
     else:

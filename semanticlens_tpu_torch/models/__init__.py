@@ -9,13 +9,22 @@ from semanticlens_tpu_torch.models.base import (
     interventions_fingerprint,
     validate_layers,
 )
+from semanticlens_tpu_torch.models.convnext import ConvNeXt
+from semanticlens_tpu_torch.models.densenet import DenseNet
+from semanticlens_tpu_torch.models.efficientnet import EfficientNet, EfficientNetV2
 from semanticlens_tpu_torch.models.gemma import Gemma, Gemma2
 from semanticlens_tpu_torch.models.gpt import GPT2
 from semanticlens_tpu_torch.models.llama import Llama, Qwen2
+from semanticlens_tpu_torch.models.mnasnet import MNASNet
+from semanticlens_tpu_torch.models.mobilenet import MobileNetV2, MobileNetV3
 from semanticlens_tpu_torch.models.phi import Phi3
+from semanticlens_tpu_torch.models.regnet import RegNet
 from semanticlens_tpu_torch.models.resnet import ResNet
 from semanticlens_tpu_torch.models.torch_adapter import TorchSubjectModel
+from semanticlens_tpu_torch.models.vgg import VGG
 from semanticlens_tpu_torch.models.vit import VisionTransformer
 
-__all__ = ["GPT2", "Gemma", "Gemma2", "Llama", "Phi3", "Qwen2", "ResNet", "SubjectModel", "TapCollector", "TorchSubjectModel", "VisionTransformer", "apply_interventions",
-           "has_intervention", "interventions", "interventions_fingerprint", "validate_layers"]
+__all__ = ["ConvNeXt", "DenseNet", "EfficientNet", "EfficientNetV2", "GPT2", "Gemma", "Gemma2", "Llama", "MNASNet",
+           "MobileNetV2", "MobileNetV3", "Phi3", "Qwen2", "RegNet", "ResNet", "SubjectModel", "TapCollector",
+           "TorchSubjectModel", "VGG", "VisionTransformer", "apply_interventions", "has_intervention",
+           "interventions", "interventions_fingerprint", "validate_layers"]

@@ -347,6 +347,25 @@ def silu(x):
     return F.silu(x)
 
 
+def relu6(x):
+    """min(max(x, 0), 6) (the MobileNet family). LRP: pass-through.
+
+    Unlike ReLU, the clip at 6 leaves a nonzero output with a zero
+    derivative, so the raw gradient mask would erase the relevance of every
+    unit saturated at 6.
+    """
+    if _lrp_active():
+        return _lrp_passthrough(F.relu6, x)
+    return F.relu6(x)
+
+
+def hardswish(x):
+    """x·relu6(x + 3)/6 (torch ``nn.Hardswish``). LRP: pass-through (its derivative is not {0, 1})."""
+    if _lrp_active():
+        return _lrp_passthrough(F.hardswish, x)
+    return F.hardswish(x)
+
+
 def gate_scale(x, gate):
     """``x * gate`` for a data-dependent gate (a gated MLP's activation).
 
@@ -496,3 +515,47 @@ def attn_out_projection(tap, heads_name, proj_name, a, weight, bias, n_heads):
                 out = out + bias.to(out.dtype)
             return tap(proj_name, out)
     return tap(proj_name, linear(a, weight, bias))
+
+
+def bn_param_specs(prefix: str, ch: int, *, ones_kind: str = "bn_w", zeros_kind: str = "zeros") -> list:
+    """(name, shape, init kind) rows of one torch BatchNorm layer (weight, bias, running mean and var).
+
+    The ``*_kind`` tokens name each family's init vocabulary for scale-like
+    and offset-like tensors, as the JAX package's ``bn_param_specs`` does.
+    """
+    return [
+        (f"{prefix}.weight", (ch,), ones_kind),
+        (f"{prefix}.bias", (ch,), zeros_kind),
+        (f"{prefix}.running_mean", (ch,), zeros_kind),
+        (f"{prefix}.running_var", (ch,), ones_kind),
+    ]
+
+
+def load_torch_params(param_specs, state_dict, *, device, dtype) -> dict[str, torch.Tensor]:
+    """A torch-layout state dict checked against a family's specs and placed for the forward.
+
+    ``param_specs`` are (name, shape, kind) rows in the JAX package's layout
+    (the shapes its ``load_torch_params`` checks); each tensor of
+    ``state_dict`` must have that shape's torch layout
+    (:func:`convert.torch_layout_shape`), so this is a check and a cast, no
+    relayout. Entries the specs do not name (derived buffers,
+    ``num_batches_tracked``) are skipped. Convs and 2-D weights move to the
+    compute ``dtype`` (convs in channels_last); BN statistics, norm scales,
+    biases and layer scales stay float32: the ops cast them at use.
+    """
+    from semanticlens_tpu_torch.convert import torch_layout_shape
+
+    out = {}
+    for name, shape, kind in param_specs:
+        t = torch.as_tensor(state_dict[name])
+        expected = torch_layout_shape(name, shape, kind)
+        if tuple(t.shape) != expected:
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != expected {expected}")
+        if t.ndim == 4 and not name.endswith("layer_scale"):
+            t = t.to(device, dtype).contiguous(memory_format=torch.channels_last)
+        elif t.ndim == 2:
+            t = t.to(device, dtype)
+        else:
+            t = t.to(device, torch.float32)
+        out[name] = t
+    return out

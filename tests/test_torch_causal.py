@@ -271,7 +271,7 @@ def test_causal_audit_flags_and_defaults_are_the_jax_tools():
     for flag, default in flags.items():
         assert args[flag[2:].replace("-", "_")] == default, flag
     with pytest.raises(SystemExit, match="item 8"):
-        causal_audit.main(["--cpu", "--arch", "convnext"])
+        causal_audit.main(["--cpu", "--arch", "swin"])
 
 
 def test_causal_audit_cli_reports_the_jax_keys():

@@ -93,14 +93,14 @@ def test_flags_defaults_and_report_keys_are_the_jax_tools():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "convnext"], "item 8"),
-    (["--arch", "densenet", "--depth", "121"], "item 8"),
-    (["--variant", "d"], "item 8"),
-    (["--variant", "wide"], "item 8"),
+    (["--arch", "swin"], "item 8"),
+    (["--arch", "inception"], "item 8"),
+    (["--arch", "maxvit"], "item 8"),
+    (["--arch", "shufflenet"], "item 8"),
     (["--variant", "q"], "supports --variant"),
     (["--arch", "vit", "--variant", "x"], "--variant configures"),
     (["--arch", "vit", "--depth", "18"], "--depth configures"),
-], ids=["convnext", "densenet", "resnet-d", "wide", "unknown-variant", "vit-variant", "vit-depth"])
+], ids=["swin", "inception", "maxvit", "shufflenet", "unknown-variant", "vit-variant", "vit-depth"])
 def test_unsupported_arguments_exit_naming_their_item(capsys, argv, match):
     with pytest.raises(SystemExit):
         full_audit.parse_args(argv)

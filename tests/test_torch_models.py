@@ -76,7 +76,7 @@ def test_resnet_repr_matches_jax_for_cache_names():
 
 def test_resnet_rejects_wrong_shapes():
     tmodel = TResNet(depth=18, device="cpu")
-    bad = convert.resnet_params_from_jax(tmodel.init_jax_layout(0))
+    bad = convert.zoo_params_from_jax(tmodel.init_jax_layout(0), tmodel._param_specs())
     bad["fc.weight"] = bad["fc.weight"].T
     with pytest.raises(ValueError):
         tmodel.load_torch_state_dict(bad)

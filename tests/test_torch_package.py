@@ -49,11 +49,13 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "sae.py", "collect/sae_based.py", "train_sae.py", "causal.py", "causal_audit.py", "featviz.py",
                    "collect/synthesis_based.py", "full_audit.py", "utils/profiling.py", "utils/log_setup.py",
                    "models/gpt.py", "models/llama.py", "models/gemma.py", "models/phi.py", "collect/text_based.py",
-                   "relevance/text.py", "lm_audit.py"):
+                   "relevance/text.py", "lm_audit.py", "models/zoo.py", "models/vgg.py", "models/densenet.py",
+                   "models/convnext.py", "models/efficientnet.py", "models/mobilenet.py", "models/mnasnet.py",
+                   "models/regnet.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
                                                   "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",
-                                                  "precision_float32.py")]
+                                                  "precision_float32.py", "profile_zoo.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
@@ -66,7 +68,23 @@ def _no_cuda(monkeypatch):
 def test_default_device_raises_without_gpu(monkeypatch):
     from semanticlens_tpu_torch.data import ImageFolder
     from semanticlens_tpu_torch.foundation_models import ClipMobile, OpenClip, SigLipV2, create
-    from semanticlens_tpu_torch.models import GPT2, Llama, Phi3, ResNet, TorchSubjectModel, VisionTransformer
+    from semanticlens_tpu_torch.models import (
+        GPT2,
+        VGG,
+        ConvNeXt,
+        DenseNet,
+        EfficientNet,
+        EfficientNetV2,
+        Llama,
+        MNASNet,
+        MobileNetV2,
+        MobileNetV3,
+        Phi3,
+        RegNet,
+        ResNet,
+        TorchSubjectModel,
+        VisionTransformer,
+    )
     from semanticlens_tpu_torch.ops.topk import init_topk
     from semanticlens_tpu_torch.utils import resolve_device
 
@@ -84,7 +102,9 @@ def test_default_device_raises_without_gpu(monkeypatch):
                  lambda: create("siglip2"), lambda: create("mobileclip-s1"),
                  lambda: TorchSubjectModel(torch.nn.Linear(2, 2)), lambda: ImageFolder(FIXTURES),
                  lambda: init_topk(3, 2), lambda: resolve_device("cuda"), lambda: GPT2(depth=1),
-                 lambda: Llama.from_name("llama-3.2-1b"), lambda: Phi3.from_name("phi-3-mini-4k")):
+                 lambda: Llama.from_name("llama-3.2-1b"), lambda: Phi3.from_name("phi-3-mini-4k"),
+                 lambda: ResNet(depth=50, variant="d"), VGG, DenseNet, ConvNeXt, lambda: ConvNeXt.from_name("convnext_tiny"),
+                 EfficientNet, EfficientNetV2, MobileNetV2, MobileNetV3, MNASNet, RegNet):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
