@@ -159,7 +159,7 @@ Phases (any failing check raises; the exit code is then non-zero):
    audited. Prints the weight draws' seconds (numpy in the JAX layout on
    GPT-2, on the card for both), tokens/s, strings/s and every stage's
    seconds.
-18. zoo — the vision zoo, part one (``ZOO``, ``ZOO_GATE``): the float32 gates
+18. zoo — the vision zoo, part one (``ZOO``, ``ZOO_GATE``; ``phase_zoo``): the float32 gates
    first (ResNet-50d, ResNeXt-50 32x4d, Wide-ResNet-50-2, VGG-16 and -BN,
    DenseNet-121, ConvNeXt-Tiny in timm and torchvision naming,
    EfficientNet-B0, EfficientNetV2-S, MobileNetV2, MobileNetV3-Large,
@@ -175,10 +175,20 @@ Phases (any failing check raises; the exit code is then non-zero):
    samples, CLIP ViT-B/32 bf16, 2048 images at 224², 1000 words, two image
    queries; cold cosine labels, warm soft-WPMI), and each other family of
    the slice through ``full_audit.main`` at the JAX tool's defaults over
-   512 images. Prints each family's gate readings, images/s and component
-   count, the ConvNeXt audit's stage seconds and peak memory.
+   512 images. Prints each family's gate readings, images/s, first forward
+   and component count, the ConvNeXt audit's (``main_path``) stage seconds and peak memory,
+   and K1's launches on the main path and on the other families apart.
+19. zoo2 — the vision zoo, part two (``ZOO2``; ``phase_zoo`` as for zoo): the
+   float32 gates of Swin-T, Swin-V2-T, MaxViT-T, GoogLeNet, Inception-v3,
+   ShuffleNetV2 x1_0, AlexNet and SqueezeNet 1_0 / 1_1, the heatmaps of
+   Swin-T ``features.5`` and GoogLeNet ``inception4c``, z⁺ through an
+   Inception block, Σ relevance through a Swin and an Inception block, the
+   ``full_audit --arch inception --variant v3`` and ``causal_audit --arch
+   swin`` CLIs; then the main path, ``full_audit.main --arch swin`` (Swin-T
+   bf16 → features.1/3/5/7, 1,440 components) at zoo's sizes, and the other
+   seven families over 512 images.
 
-Each of phases 14–18 prints its wall seconds beside its bound
+Each of phases 14–19 prints its wall seconds beside its bound
 (``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
@@ -321,13 +331,30 @@ LM_GATE = {"rows": 8, "seq_len": 64, "depth": 2, "rel": 1e-5, "conservation_rel"
                         ("qwen2.5-0.5b", "Qwen2", "model.layers.1.mlp.act_fn", "model.layers.1.self_attn.heads"),
                         ("phi-3-mini-4k", "Phi3", "model.layers.1.mlp.activation_fn",
                          "model.layers.1.self_attn.heads")]}
-# The vision zoo, part one (ROADMAP item 8): the main path is full_audit --arch convnext (ConvNeXt-Tiny bf16,
-# the JAX tool's default for the family) at AUDIT5's sizes, then every other family of the slice through
-# full_audit at the JAX tool's defaults for its --arch / --variant over ``family_images``; the float32 gates
-# hold each family at published width card against CPU on ``gate_images`` images (seed-0 weights).
-ZOO = {"images": 2048, "family_images": 512, "gate_images": 2, "size": 224, "bound_s": 150,
+# The vision zoo (ROADMAP item 8), one phase per half, both run by ``phase_zoo``: the main path is full_audit at
+# ``main`` (the JAX tool's default subject of the family, bf16) at AUDIT5's sizes, cold then warm, K1 counted from 0 for
+# it alone; then every other family of the half through full_audit at the JAX tool's defaults for its --arch /
+# --variant over ``family_images`` (K1 counted apart), each family's first forward timed. The float32 gates hold each
+# family at published width card against CPU on ``gate_images`` images (seed-0 weights); ``cli`` runs in processes of
+# its own meanwhile. Blocks are ``(label, family, kwargs, make, input shape)``, ``make(model, params)`` giving the
+# block's function of its input: ``z_plus_blocks`` take ε-plus-flat relevance (one rule consumed first, as
+# mid-network) from non-negative inputs card against CPU, ``conservation_blocks`` Σ relevance at ε 1e-9 on the card.
+def _no_taps():
+    from semanticlens_tpu_torch.models.base import TapCollector
+
+    return TapCollector(())
+
+
+def _cl(v):
+    return v.contiguous(memory_format=torch.channels_last)
+
+
+ZOO = {"label": "zoo", "main": ["--arch", "convnext"],
+       "images": 2048, "family_images": 512, "gate_images": 2, "size": 224, "bound_s": 150,
        "db_shapes": {"stages.0": [96, 25, 512], "stages.1": [192, 25, 512], "stages.2": [384, 25, 512],
                      "stages.3": [768, 25, 512]},
+       "cli": {"full_audit": ["--arch", "densenet"],
+               "causal_audit": ["--arch", "mobilenetv2", "--layer", "features.14"]},
        "gates": [("resnet50d", "ResNet", {"depth": 50, "variant": "d"}, ["--variant", "d"]),
                  ("resnext50_32x4d", "ResNet", {"depth": 50, "groups": 32, "width_per_group": 4}, ["--variant", "x"]),
                  ("wide_resnet50_2", "ResNet", {"depth": 50, "width_per_group": 128}, ["--variant", "wide"]),
@@ -348,24 +375,72 @@ ZOO = {"images": 2048, "family_images": 512, "gate_images": 2, "size": 224, "bou
                     ["--arch", "densenet"], ["--arch", "efficientnet"], ["--arch", "efficientnet", "--variant", "v2_s"],
                     ["--arch", "mobilenet"], ["--arch", "mobilenet", "--variant", "large"],
                     ["--arch", "mobilenet", "--variant", "small"], ["--arch", "mnasnet"], ["--arch", "regnet"]],
-       # (family, kwargs, layer): ε-plus-flat heatmaps of components 0 and 1 on gate_images. (EfficientNet-B0's
+       # (family, kwargs, layer): ε-plus-flat and ε heatmaps of components 0 and 1 on gate_images. (EfficientNet-B0's
        # features.6 is not among them: its seed-0 activations are ~1e-10, so its maps are exactly 0 on both.)
        "heatmaps": [("ConvNeXt", {"variant": "tiny"}, "stages.2"), ("EfficientNet", {"variant": "b0"}, "features.3")],
-       "causal_layer": "features.14"}
+       "z_plus_blocks": [
+           ("resnext50_32x4d layer3.0", "ResNet", {"depth": 50, "groups": 32, "width_per_group": 4},
+            lambda m, p: lambda v: m._bottleneck_block(p, "layer3.0", _cl(v), 2, _no_taps()), (2, 512, 28, 28)),
+           ("mobilenet_v2 features.3", "MobileNetV2", {},
+            lambda m, p: lambda v: m._inverted_residual(p, _cl(v), "features.3", m.blocks[2], _no_taps()),
+            (2, 24, 56, 56))],
+       "conservation_blocks": [
+           ("convnext stages.2.blocks.1", "ConvNeXt", {"variant": "tiny"},
+            lambda m, p: lambda v: m._block(lambda k: p[k], "stages.2.blocks.1", _cl(v), _no_taps()), (2, 384, 14, 14)),
+           ("efficientnet features.6.1", "EfficientNet", {"variant": "b0"},
+            lambda m, p: lambda v: m._mbconv(p, _cl(v), "features.6.1", m.stages[5][1], _no_taps()), (2, 192, 7, 7))],
+       # heatmaps card against CPU by composite: mean |Δ| over the map's mean |h| (see ZOO_GATE)
+       "heat_mean_rel": {"epsilon_plus_flat": 0.1, "epsilon": 1e-3}}
 # Zoo gates, card against CPU in float32 (TF32 off): logits and every default full_audit tap within ``rel`` of
 # each one's scale. Heatmaps: z⁺ on these families' signed inputs (residual streams, SiLU outputs) makes
 # ε-plus-flat ill-conditioned at isolated pixels in both packages: on the CPU the port's float32 abs-max
 # normalised heatmaps are 0.028–0.045 (max) from its float64 ones on ConvNeXt-Tiny stages.2 and up to 0.155 on
 # EfficientNet-B0 features.3, the JAX package's 0.038–0.071 / 0.011–0.030, while their mean |Δ| is 2e-6–1.1e-4;
 # the port's float32 islands (LayerNorm statistics, BN scale) keep a float64 run 0.011–0.018 apart card against
-# CPU. So ε-plus-flat heatmaps are held card against CPU by their mean |Δ| over their mean |h| (``heat_mean_rel``:
-# a map's mean |h| is far below its abs-max 1, 8.5e-4 on EfficientNet-B0 features.3) and the z⁺ rule
-# itself where it is well-conditioned (blocks fed non-negative inputs: a grouped ResNeXt bottleneck and a
-# depthwise MobileNetV2 block) within LRP_HEAT_ATOL["epsilon_plus_flat"] of the relevance scale; ε heatmaps
-# (well-conditioned) by their max at LRP_HEAT_ATOL["epsilon"]. Two controls go through the same gate and must
-# break ``heat_mean_rel``, else it could not tell a fault from float32 rounding: the card's ε maps against the
-# CPU's ε-plus-flat ones (a wrong composite), and the card's ε-plus-flat maps with TF32 on (a precision fault).
-ZOO_GATE = {"rel": 1e-5, "heat_mean_rel": 0.1}
+# CPU. So ε-plus-flat heatmaps are held card against CPU by their mean |Δ| over their mean |h| (each half's
+# ``heat_mean_rel``: a map's mean |h| is far below its abs-max 1, 8.5e-4 on EfficientNet-B0 features.3) and the z⁺
+# rule itself where it is well-conditioned (``z_plus_blocks``) within LRP_HEAT_ATOL["epsilon_plus_flat"] of the
+# relevance scale. ε heatmaps are held by their max at LRP_HEAT_ATOL["epsilon"] and by their mean at 1e-3: a
+# float32 near-tie in a max-pool window can go the other way on the card, handing that window's relevance to a
+# neighbour, so a few pixels of a map move far while the rest agree (GoogLeNet inception4c: the same max with
+# cuDNN held deterministic, and float64 runs agree card against CPU; ``precision_heatmaps.py``), and at [zoo]'s
+# ε-plus-flat 0.1 TF32 would pass (ConvNeXt-Tiny 0.031, EfficientNet-B0 0.0081 of the mean |h|; sound 5.9e-5 /
+# 4.9e-6). For each composite two controls go through the same gate and must break ``heat_mean_rel``, else it
+# could not tell a fault from float32 rounding: the card's maps of the other composite against the CPU's (a wrong
+# composite), and the card's maps with TF32 on (a precision fault).
+ZOO_GATE = {"rel": 1e-5}
+ZOO2 = {"label": "zoo2", "main": ["--arch", "swin"],
+        "images": 2048, "family_images": 512, "gate_images": 2, "size": 224, "bound_s": 150,
+        "db_shapes": {"features.1": [96, 25, 512], "features.3": [192, 25, 512], "features.5": [384, 25, 512],
+                      "features.7": [768, 25, 512]},
+        "cli": {"full_audit": ["--arch", "inception", "--variant", "v3"],
+                "causal_audit": ["--arch", "swin", "--layer", "features.5"]},
+        "gates": [("swin_t", "SwinTransformer", {}, ["--arch", "swin"]),
+                  ("swin_v2_t", "SwinTransformerV2", {}, ["--arch", "swin_v2"]),
+                  ("maxvit_t", "MaxViT", {}, ["--arch", "maxvit"]),
+                  ("googlenet", "GoogLeNet", {}, ["--arch", "inception"]),
+                  ("inception_v3", "InceptionV3", {}, ["--arch", "inception", "--variant", "v3"]),
+                  ("shufflenet_v2_x1_0", "ShuffleNetV2", {}, ["--arch", "shufflenet"]),
+                  ("alexnet", "AlexNet", {}, ["--arch", "alexnet"]),
+                  ("squeezenet1_0", "SqueezeNet", {}, ["--arch", "squeezenet"]),
+                  ("squeezenet1_1", "SqueezeNet", {"version": "1_1"}, ["--arch", "squeezenet", "--variant", "1_1"])],
+        "families": [["--arch", "swin_v2"], ["--arch", "maxvit"], ["--arch", "inception"],
+                     ["--arch", "inception", "--variant", "v3"], ["--arch", "shufflenet"], ["--arch", "alexnet"],
+                     ["--arch", "squeezenet"]],
+        "heatmaps": [("SwinTransformer", {}, "features.5"), ("GoogLeNet", {}, "inception4c")],
+        "z_plus_blocks": [
+            ("googlenet inception4c", "GoogLeNet", {},
+             lambda m, p: lambda v: m._inception(p, _cl(v), "inception4c", _no_taps()), (2, 512, 14, 14))],
+        "conservation_blocks": [
+            ("swin features.5.1", "SwinTransformer", {},
+             lambda m, p: lambda v: m._block(p, v, "features.5.1", 12, 3, _no_taps()), (2, 14, 14, 384)),
+            ("googlenet inception4c", "GoogLeNet", {},
+             lambda m, p: lambda v: m._inception(p, _cl(v), "inception4c", _no_taps()), (2, 512, 14, 14))],
+        # ε-plus-flat tighter than [zoo]'s: on these maps TF32 moves the ε-plus-flat heatmaps by 0.098 (Swin-T
+        # features.5) and 0.0048 (GoogLeNet inception4c) of their mean |h|, under [zoo]'s 0.1, so that bound could
+        # not tell a precision fault from float32 rounding here. The sound card-vs-CPU readings are 1.6e-4 and
+        # 1.3e-5, the wrong composite ≈ 1 (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+        "heat_mean_rel": {"epsilon_plus_flat": 1e-3, "epsilon": 1e-3}}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
 
@@ -634,13 +709,16 @@ def phase_kernels(dev):
         # heads of EfficientNet-B0 and MobileNetV2
         "redundancy 768x768x512": (randn(768, 512),) * 2,
         "redundancy 1280x1280x512": (randn(1280, 512),) * 2,
+        # the vision zoo, part two: GoogLeNet's inception4e bank (832 channels); its inception5b and ShuffleNet's
+        # conv5 are the 1024² case above
+        "redundancy 832x832x512": (randn(832, 512),) * 2,
     }
     timed = ("probe 8x1024x512", "probe 8x2048x512", "redundancy 256x256x512", "redundancy 512x512x512",
              "redundancy 1024x1024x512",
              "redundancy 2048x2048x512", "audit 4096x8192x512", "probe 8x2048x1024",
              "redundancy 2048x2048x1024", "probe 8x3072x768", "redundancy 3072x3072x768", "probe 8x8192x512",
              "redundancy 8192x8192x512", "redundancy 3072x3072x512", "redundancy 768x768x512",
-             "redundancy 1280x1280x512")
+             "redundancy 1280x1280x512", "redundancy 832x832x512")
     rows, max_err, checked = [], {"streaming": 0.0, "tiled": 0.0}, set()
     for label, (x, y) in cases.items():
         batch = x.shape[0] if x.ndim == 3 else 1
@@ -3454,12 +3532,12 @@ def zoo_default_layers(label: str, argv: list) -> list:
     return [_to_torchvision(layer) for layer in layers] if label.endswith("torchvision") else list(layers)
 
 
-def zoo_float32_gates(dev) -> dict:
-    """Every family of the slice at published width in float32 (seed 0), card against CPU on 2 images at
+def zoo_float32_gates(dev, cfg) -> dict:
+    """Every family of ``cfg["gates"]`` at published width in float32 (seed 0), card against CPU on 2 images at
     224²: logits and every default full_audit tap relative to each one's scale."""
-    x = torch.rand(ZOO["gate_images"], ZOO["size"], ZOO["size"], 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    x = torch.rand(cfg["gate_images"], cfg["size"], cfg["size"], 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
     out = {}
-    for label, cls_name, kw, argv in ZOO["gates"]:
+    for label, cls_name, kw, argv in cfg["gates"]:
         layers = zoo_default_layers(label, argv)
         t = time.perf_counter()
         (card, card_p), (cpu, cpu_p) = zoo_models(cls_name, kw, torch.float32, (dev, torch.device("cpu")))
@@ -3474,54 +3552,72 @@ def zoo_float32_gates(dev) -> dict:
     return out
 
 
-def zoo_heatmaps(dev) -> dict:
-    """ε-plus-flat and ε heatmaps (components 0 and 1, abs-max normalised) of ConvNeXt-Tiny stages.2 and
-    EfficientNet-B0 features.3, card against CPU in float32, with float64 runs beside them and the two
-    ``heat_mean_rel`` controls (a wrong composite; TF32 on); ε-plus-flat relevance through a grouped and a
-    depthwise block fed non-negative inputs, card against CPU; Σ relevance through one ConvNeXt and one EfficientNet block at ε 1e-9 on the card."""
-    from semanticlens_tpu_torch.models import layers as L
+def heatmap_rows(dev, cfg) -> dict:
+    """ε-plus-flat and ε heatmaps (components 0 and 1, abs-max normalised) of each ``cfg["heatmaps"]`` family and
+    layer, card against CPU in float32 and in float64, the card's float32 ε maps again with cuDNN held to
+    deterministic algorithms, and the ``heat_mean_rel`` controls (a wrong composite; TF32 on) of both composites."""
     from semanticlens_tpu_torch.relevance import make_attribution_fn
 
-    x = torch.rand(ZOO["gate_images"], ZOO["size"], ZOO["size"], 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    x = torch.rand(cfg["gate_images"], cfg["size"], cfg["size"], 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
     cpu = torch.device("cpu")
+    composites = ("epsilon_plus_flat", "epsilon")
     out = {}
-    for cls_name, kw, layer in ZOO["heatmaps"]:
+    for cls_name, kw, layer in cfg["heatmaps"]:
         h = {}
         for dtype in (torch.float32, torch.float64):
             for where, (model, params) in zip(("card", "cpu"), zoo_models(cls_name, kw, dtype, (dev, cpu))):
-                for composite in ("epsilon_plus_flat", "epsilon") if dtype == torch.float32 else ("epsilon_plus_flat",):
+                for composite in composites:
                     fn = make_attribution_fn(model, layer, composite=composite)
-                    h[(where, dtype, composite)] = torch.stack(
-                        [fn(params, x.to(model.device), c).cpu().double() for c in (0, 1)])
-                    if where == "card" and dtype == torch.float32 and composite == "epsilon_plus_flat":
+
+                    def maps():
+                        return torch.stack([fn(params, x.to(model.device), c).cpu().double() for c in (0, 1)])
+
+                    h[(where, dtype, composite)] = maps()
+                    if where == "card" and dtype == torch.float32:
                         with patched(torch.backends.cuda.matmul, allow_tf32=True), \
                                 patched(torch.backends.cudnn, allow_tf32=True):
-                            tf32 = torch.stack([fn(params, x.to(dev), c).cpu().double() for c in (0, 1)])
+                            h[("tf32", dtype, composite)] = maps()
+                        if composite == "epsilon":
+                            with patched(torch.backends.cudnn, deterministic=True, benchmark=False):
+                                h[("deterministic", dtype, composite)] = maps()
 
-        def gap(a, b):
-            return (h[a] - h[b]).abs()
+        def gap(a, b, dtype=torch.float32):
+            return (h[(a[0], dtype, a[1])] - h[(b[0], dtype, b[1])]).abs()
 
-        card32, cpu32 = ("card", torch.float32, "epsilon_plus_flat"), ("cpu", torch.float32, "epsilon_plus_flat")
-        card64, cpu64 = ("card", torch.float64, "epsilon_plus_flat"), ("cpu", torch.float64, "epsilon_plus_flat")
-        mean_h = float(h[cpu32].abs().mean())
-        out[f"{cls_name}:{layer}"] = {
-            "abs_max_float32": float(h[card32].abs().max()),
-            "mean_abs_h_float32": mean_h,
-            "epsilon_plus_flat_float32_max": float(gap(card32, cpu32).max()),
-            "epsilon_plus_flat_float32_mean": float(gap(card32, cpu32).mean()),
-            "epsilon_plus_flat_float32_mean_rel": float(gap(card32, cpu32).mean()) / mean_h,
-            "epsilon_float32_max": float(gap(("card", torch.float32, "epsilon"), ("cpu", torch.float32, "epsilon")).max()),
-            "finite": all(bool(torch.isfinite(v).all()) for v in h.values()),
-            "control_wrong_composite_mean_rel": float(gap(("card", torch.float32, "epsilon"), cpu32).mean()) / mean_h,
-            "control_tf32_mean_rel": float((tf32 - h[cpu32]).abs().mean()) / mean_h,
-            "control_tf32_finite": bool(torch.isfinite(tf32).all()),
-            "epsilon_plus_flat_float64_max": float(gap(card64, cpu64).max()),
-            "float32_vs_float64_card_max": float(gap(card32, card64).max()),
-            "float32_vs_float64_cpu_max": float(gap(cpu32, cpu64).max()),
-            "float32_vs_float64_cpu_mean": float(gap(cpu32, cpu64).mean())}
+        row = {"finite": all(bool(torch.isfinite(v).all()) for k, v in h.items() if k[0] != "tf32"),
+               "control_tf32_finite": all(bool(torch.isfinite(v).all()) for k, v in h.items() if k[0] == "tf32")}
+        for composite, other in zip(composites, reversed(composites)):
+            card, cpu_ = ("card", composite), ("cpu", composite)
+            mean_h = float(h[("cpu", torch.float32, composite)].abs().mean())
+            row[composite] = {
+                "abs_max_float32": float(h[("card", torch.float32, composite)].abs().max()),
+                "mean_abs_h_float32": mean_h,
+                "float32_max": float(gap(card, cpu_).max()), "float32_mean": float(gap(card, cpu_).mean()),
+                "float32_mean_rel": float(gap(card, cpu_).mean()) / mean_h,
+                "control_wrong_composite_mean_rel": float(gap(("card", other), cpu_).mean()) / mean_h,
+                "control_tf32_mean_rel": float(gap(("tf32", composite), cpu_).mean()) / mean_h,
+                "float64_max": float(gap(card, cpu_, torch.float64).max()),
+                "float32_vs_float64_card_max": float((h[("card", torch.float32, composite)]
+                                                      - h[("card", torch.float64, composite)]).abs().max()),
+                "float32_vs_float64_cpu_max": float((h[("cpu", torch.float32, composite)]
+                                                     - h[("cpu", torch.float64, composite)]).abs().max())}
+        row["epsilon"]["float32_max_cudnn_deterministic"] = float(gap(("deterministic", "epsilon"),
+                                                                      ("cpu", "epsilon")).max())
+        out[f"{cls_name}:{layer}"] = row
+    return out
+
+
+def zoo_heatmaps(dev, cfg) -> dict:
+    """:func:`heatmap_rows` of ``cfg["heatmaps"]``; ε-plus-flat relevance through each ``cfg["z_plus_blocks"]`` block
+    fed non-negative inputs, card against CPU; Σ relevance through each ``cfg["conservation_blocks"]`` block at ε
+    1e-9 on the card."""
+    from semanticlens_tpu_torch.models import layers as L
+
+    cpu = torch.device("cpu")
+    out = heatmap_rows(dev, cfg)
 
     def relevance(fn, xx, composite, epsilon, skip=0):
-        xx = xx.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        xx = xx.requires_grad_(True)
         with L.lrp_composite(composite, epsilon=epsilon):
             for _ in range(skip):
                 L._next_rule("conv")
@@ -3529,73 +3625,63 @@ def zoo_heatmaps(dev) -> dict:
         (r_in,) = torch.autograd.grad(o, xx, o.detach())
         return r_in, o.detach()
 
-    def no_tap(_, a):
-        return a
-
     gen = torch.Generator().manual_seed(6)
-    blocks = {}  # z⁺ (one rule consumed first, as mid-network) through blocks fed non-negative inputs
-    for label, cls_name, kw, make, shape in (
-            ("resnext50_32x4d layer3.0", "ResNet", {"depth": 50, "groups": 32, "width_per_group": 4},
-             lambda m, p: lambda v: m._bottleneck_block(p, "layer3.0", v, 2, no_tap), (2, 512, 28, 28)),
-            ("mobilenet_v2 features.3", "MobileNetV2", {},
-             lambda m, p: lambda v: m._inverted_residual(p, v, "features.3", m.blocks[2], no_tap), (2, 24, 56, 56))):
+    z_plus = {}
+    for label, cls_name, kw, make, shape in cfg["z_plus_blocks"]:
         xb = torch.randn(*shape, generator=gen).abs()
         (cm, cp), (pm, pp) = zoo_models(cls_name, kw, torch.float32, (dev, cpu))
         card_r, _ = relevance(make(cm, cp), xb.to(dev), "epsilon_plus_flat", 1e-6, skip=1)
         cpu_r, _ = relevance(make(pm, pp), xb, "epsilon_plus_flat", 1e-6, skip=1)
-        blocks[label] = _max_rel(card_r, cpu_r, _scale(cpu_r))
-    out["z_plus_blocks_rel"] = blocks
-
-    (cn, cp), = zoo_models("ConvNeXt", {"variant": "tiny"}, torch.float32, (dev,))
-    (ef, ep), = zoo_models("EfficientNet", {"variant": "b0"}, torch.float32, (dev,))
-    blk = ef.stages[5][1]
+        z_plus[label] = _max_rel(card_r, cpu_r, _scale(cpu_r))
     conservation = {}
-    for label, fn, shape in (
-            ("convnext stages.2.blocks.1", lambda v: cn._block(lambda k: cp[k], "stages.2.blocks.1", v, no_tap),
-             (2, 384, 14, 14)),
-            ("efficientnet features.6.1", lambda v: ef._mbconv(ep, v, "features.6.1", blk, no_tap), (2, blk.c_in, 7, 7))):
-        r_in, o = relevance(fn, torch.randn(*shape, generator=gen).to(dev), "epsilon", 1e-9)
+    for label, cls_name, kw, make, shape in cfg["conservation_blocks"]:
+        (m, p), = zoo_models(cls_name, kw, torch.float32, (dev,))
+        r_in, o = relevance(make(m, p), torch.randn(*shape, generator=gen).to(dev), "epsilon", 1e-9)
         r_in, r_out = float(r_in.double().sum()), float(o.double().sum())
         conservation[label] = {"sum_r_in": r_in, "sum_r_out": r_out, "rel": abs(r_in - r_out) / abs(r_out)}
-    out["conservation"] = conservation
-    return out
+    return out | {"z_plus_blocks_rel": z_plus, "conservation": conservation}
 
 
-def zoo_heatmap_misses(heat: dict) -> list:
-    """The heatmap gates' misses, a control that the ``heat_mean_rel`` gate lets through among them."""
+def zoo_heatmap_misses(heat: dict, heat_mean_rel: dict) -> list:
+    """The heatmap gates' misses, a control that a composite's ``heat_mean_rel`` gate lets through among them."""
     maps = {name: row for name, row in heat.items() if ":" in name}
 
-    def heat_ok(row, mean_rel):
-        return (row["finite"] and row["mean_abs_h_float32"] > 0 and row["epsilon_float32_max"] <= LRP_HEAT_ATOL["epsilon"]
-                and mean_rel <= ZOO_GATE["heat_mean_rel"])
+    def heat_ok(row, composite, mean_rel):
+        return (row["finite"] and row[composite]["mean_abs_h_float32"] > 0
+                and row["epsilon"]["float32_max"] <= LRP_HEAT_ATOL["epsilon"] and mean_rel <= heat_mean_rel[composite])
 
-    missed = [name for name, row in maps.items() if not heat_ok(row, row["epsilon_plus_flat_float32_mean_rel"])]
-    missed += [f"{name} passes {control}" for name, row in maps.items()
-               for control in ("control_wrong_composite_mean_rel", "control_tf32_mean_rel") if heat_ok(row, row[control])]
+    missed = [f"{name} {composite}" for name, row in maps.items() for composite in ("epsilon_plus_flat", "epsilon")
+              if not heat_ok(row, composite, row[composite]["float32_mean_rel"])]
+    missed += [f"{name} {composite} passes {control}" for name, row in maps.items()
+               for composite in ("epsilon_plus_flat", "epsilon")
+               for control in ("control_wrong_composite_mean_rel", "control_tf32_mean_rel")
+               if heat_ok(row, composite, row[composite][control])]
     missed += [f"z+ {name}" for name, rel in heat["z_plus_blocks_rel"].items()
                if not rel <= LRP_HEAT_ATOL["epsilon_plus_flat"]]
     missed += [f"conservation {name}" for name, c in heat["conservation"].items() if not c["rel"] <= LRP_CONSERVATION_RTOL]
     return missed
 
 
-def phase_zoo(dev, root: Path):
-    """The vision zoo, part one: the float32 gates of every family and the heatmap gates (the densenet
-    full_audit CLI and the mobilenetv2 causal_audit CLI in their own processes meanwhile), then the main
-    path, K1 counted from 0: ``full_audit.main --arch convnext`` at AUDIT5's sizes, cold and warm, and every
-    other family through ``full_audit.main`` at the JAX tool's defaults over 512 images."""
+def phase_zoo(dev, root: Path, cfg) -> dict:
+    """One half of the vision zoo (``ZOO`` or ``ZOO2``): the float32 gates of every family and the heatmap gates (the
+    ``cfg["cli"]`` commands in their own processes meanwhile), then the main path, K1 counted from 0:
+    ``full_audit.main`` at ``cfg["main"]`` and AUDIT5's sizes, cold and warm; then every other family through
+    ``full_audit.main`` at the JAX tool's defaults over ``family_images``, K1 counted apart. Each run's first forward
+    is timed. Returns the main path's K1 launches."""
     from semanticlens_tpu_torch import causal_audit, full_audit
     from semanticlens_tpu_torch.ops import cosine as k1
 
+    tag = cfg["label"]
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     summary = {}
 
     # 1. The two CLIs in their own processes while the float32 and heatmap gates run.
-    cmds = {"full_audit": ["semanticlens_tpu_torch.full_audit", "--arch", "densenet", "--n-synthetic",
-                           str(ZOO["family_images"])],
-            "causal_audit": ["semanticlens_tpu_torch.causal_audit", "--arch", "mobilenetv2", "--image-size",
-                             str(ZOO["size"]), "--layer", ZOO["causal_layer"]]}
+    cmds = {"full_audit": ["semanticlens_tpu_torch.full_audit", *cfg["cli"]["full_audit"], "--n-synthetic",
+                           str(cfg["family_images"])],
+            "causal_audit": ["semanticlens_tpu_torch.causal_audit", *cfg["cli"]["causal_audit"], "--image-size",
+                             str(cfg["size"])]}
     procs, t_cli = {}, time.perf_counter()
     with contextlib.ExitStack() as files:
         try:
@@ -3603,8 +3689,8 @@ def phase_zoo(dev, root: Path):
                 out, err = (files.enter_context(open(root / f"{name}.{ext}", "w")) for ext in ("out", "err"))
                 procs[name] = subprocess.Popen([sys.executable, "-m", *cmd], cwd=Path(__file__).resolve().parent,
                                                stdout=out, stderr=err)
-            gates = zoo_float32_gates(dev)
-            heat = zoo_heatmaps(dev)
+            gates = zoo_float32_gates(dev, cfg)
+            heat = zoo_heatmaps(dev, cfg)
             rcs = {name: proc.wait(timeout=600) for name, proc in procs.items()}
         finally:
             for proc in procs.values():
@@ -3625,44 +3711,65 @@ def phase_zoo(dev, root: Path):
                     "gates_and_cli_s": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
 
-    # 2. The main path, K1 counted from 0: ConvNeXt-Tiny through full_audit at AUDIT5's sizes, then the rest.
+    # 2. The main path, K1 counted from 0 for it alone; then the other families, K1 counted apart.
     words = vocabulary(1000)
-    argv = ["--arch", "convnext", "--n-synthetic", str(ZOO["images"]), "--vocabulary", *words,
+    argv = [*cfg["main"], "--n-synthetic", str(cfg["images"]), "--vocabulary", *words,
             "--image-query-indices", *map(str, AUDIT5["image_queries"])]
-    reports, walls, record, families = {}, {}, [], {}
+    reports, walls, record, families, forwards = {}, {}, [], {}, []
     fm_memo = {}
+    build_fm_real, build_model_real = full_audit.build_fm, full_audit.build_model
 
     def build_fm(args, device):  # one seed-0 CLIP ViT-B/32 for the families' runs
         if "fm" not in fm_memo:
             fm_memo["fm"] = build_fm_real(args, device)
         return fm_memo["fm"]
 
-    build_fm_real = full_audit.build_fm
+    def build_model(args, device):  # the subject, the first forward of each one built timed
+        model, aggregate_fn = build_model_real(args, device)
+        apply, first = model.apply, {"model": model.name}
+        forwards.append(first)
+
+        def timed_apply(params, x, tap_names=()):
+            if "s" in first:
+                return apply(params, x, tap_names)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = apply(params, x, tap_names)
+            torch.cuda.synchronize()
+            first["s"] = time.perf_counter() - t
+            return result
+
+        model.apply = timed_apply
+        return model, aggregate_fn
+
     torch.cuda.reset_peak_memory_stats()
-    k1.reset_launch_counts()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), patched(full_audit, build_model=build_model):
+        k1.reset_launch_counts()
         with recording_concept_dbs(record):
             for name, extra in (("cold", []), ("warm", ["--label-scoring", "wpmi"])):
                 t = time.perf_counter()
                 reports[name] = full_audit.main(argv + extra)
                 walls[name] = time.perf_counter() - t
-        convnext_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+                walls[f"{name}_first_forward"] = forwards[-1]["s"]
+        launches = k1.launch_counts()
+        main_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        k1.reset_launch_counts()
         with patched(full_audit, build_fm=build_fm):
-            for fam in ZOO["families"]:
+            for fam in cfg["families"]:
                 t = time.perf_counter()
-                report = full_audit.main(fam + ["--n-synthetic", str(ZOO["family_images"])])
+                report = full_audit.main(fam + ["--n-synthetic", str(cfg["family_images"])])
                 families[" ".join(fam)] = {
-                    "layers": report["layers"], "components": sum(v[0] for v in report["db_shapes"].values()),
-                    "db_shapes": report["db_shapes"],
+                    "model": forwards[-1]["model"], "layers": report["layers"],
+                    "components": sum(v[0] for v in report["db_shapes"].values()), "db_shapes": report["db_shapes"],
                     "images_per_s_collect_embed": report["stages"]["collect+embed"]["items_per_sec"],
-                    "main_s": time.perf_counter() - t,
+                    "first_forward_s": forwards[-1]["s"], "main_s": time.perf_counter() - t,
                     "finite": bool(np.isfinite([v for sc in report["scores"].values() for v in sc.values()]).all()),
                     "keys_ok": tuple(report) == full_audit.REPORT_KEYS}
-    launches = k1.launch_counts()
+        family_launches = k1.launch_counts()
     del fm_memo
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     try:
-        check_audit_reports("zoo", reports, record, ZOO["db_shapes"], words, dev)
+        check_audit_reports(tag, reports, record, cfg["db_shapes"], words, dev)
         report_missed = []
     except AssertionError as e:
         report_missed = [str(e)]
@@ -3670,31 +3777,37 @@ def phase_zoo(dev, root: Path):
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     summary.update({
-        "convnext": {"images": ZOO["images"], "components": sum(s[0] for s in ZOO["db_shapes"].values()),
-                     "db_shapes": reports["cold"]["db_shapes"],
-                     "images_per_s_fused_cold": reports["cold"]["stages"]["collect+embed"]["items_per_sec"],
-                     "images_per_s_fused_warm": reports["warm"]["stages"]["collect+embed"]["items_per_sec"],
-                     "main_wall_s": walls,
-                     "stages_s": {name: {stage: round(v["seconds"], 4) for stage, v in r["stages"].items()}
-                                  for name, r in reports.items()},
-                     "scores_cold": reports["cold"]["scores"], "peak_mem_gb": convnext_peak_gb},
-        "families": families, "k1_launches": launches, "peak_mem_gb": peak_gb,
-        "phase_s": phase_s, "bound_s": ZOO["bound_s"], "within_bound": phase_s <= ZOO["bound_s"]})
-    log(f"[zoo] {json.dumps(summary)}")
+        "main_path": {
+            "images": cfg["images"], "components": sum(s[0] for s in cfg["db_shapes"].values()),
+            "db_shapes": reports["cold"]["db_shapes"],
+            "images_per_s_fused_cold": reports["cold"]["stages"]["collect+embed"]["items_per_sec"],
+            "images_per_s_fused_warm": reports["warm"]["stages"]["collect+embed"]["items_per_sec"],
+            "main_wall_s": walls,
+            "stages_s": {name: {stage: round(v["seconds"], 4) for stage, v in r["stages"].items()}
+                         for name, r in reports.items()},
+            "scores_cold": reports["cold"]["scores"], "peak_mem_gb": main_peak_gb},
+        "families": families, "k1_launches_main": launches, "k1_launches_families": family_launches,
+        "peak_mem_gb": peak_gb, "phase_s": phase_s, "bound_s": cfg["bound_s"],
+        "within_bound": phase_s <= cfg["bound_s"]})
+    log(f"[{tag}] {json.dumps(summary)}")
+    log(f"[{tag}] K1 launches by variant: main path {json.dumps(launches)}, "
+        f"other families {json.dumps(family_launches)}")
 
     # Gates after the line, so that a miss still prints every measurement.
     missed = [f"{label}:logits" for label, g in gates.items() if not (g["logits"] <= ZOO_GATE["rel"] and g["finite"])]
     missed += [f"{label}:taps" for label, g in gates.items() if not g["worst_tap"] <= ZOO_GATE["rel"]]
-    missed += zoo_heatmap_misses(heat) + report_missed
+    missed += zoo_heatmap_misses(heat, cfg["heat_mean_rel"]) + report_missed
     missed += [f"family {fam}" for fam, f in families.items() if not (f["finite"] and f["keys_ok"])]
     if rcs != {"full_audit": 0, "causal_audit": 0} or not cli.get("full_audit", {}).get("keys_ok") or not cli.get(
             "causal_audit", {}).get("keys_ok"):
         missed.append("cli")
-    if not (launches["streaming"] > 0 and launches["tiled"] > 0):
-        missed.append("k1_launches")
+    missed += [f"k1_launches {path} {variant}" for path, counts in (("main", launches), ("families", family_launches))
+               for variant in ("tiled", "streaming") if not counts[variant] > 0]
+    if not phase_s <= cfg["bound_s"]:
+        missed.append(f"phase {phase_s:.1f} s > {cfg['bound_s']} s")
     if missed:
         tails = "".join(f"\n{name}: {(root / f'{name}.err').read_text()[-3000:]}" for name, rc in rcs.items() if rc)
-        raise AssertionError(f"[zoo] gates missed: {missed}{tails}")
+        raise AssertionError(f"[{tag}] gates missed: {missed}{tails}")
     return launches
 
 
@@ -3748,7 +3861,8 @@ def main():
             by_path["sae"] = phase_sae(dev, Path(tmp))
         done("sae")
         for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz),
-                            ("lm", phase_lm), ("zoo", phase_zoo)):
+                            ("lm", phase_lm), ("zoo", functools.partial(phase_zoo, cfg=ZOO)),
+                            ("zoo2", functools.partial(phase_zoo, cfg=ZOO2))):
             with tempfile.TemporaryDirectory() as tmp:
                 by_path[name] = phase(dev, Path(tmp))
             done(name)
@@ -3778,7 +3892,7 @@ def main():
 
     def at_shape(shape):
         row = next(r for r in rows if r["shape"] == shape)
-        return {key: row[key] for key in ("ms", "plain_ms", "library_ms", "device_ms", "device_ms_cold_l2",
+        return {key: row[key] for key in ("ms", "plain_ms", "plain_device_ms", "library_ms", "device_ms", "device_ms_cold_l2",
                                           "library_device_ms", "library_device_ms_cold_l2", "bound_ms",
                                           "bound_by", "share_of_bound_cold_l2")} | {"shape": shape} | (
             {"tile": row["tile"]} if "tile" in row else {})
@@ -3791,7 +3905,9 @@ def main():
                                                       "at_sae": at_shape("redundancy 8192x8192x512"),
                                                       "at_gpt2": at_shape("redundancy 3072x3072x512"),
                                                       "at_convnext": at_shape("redundancy 768x768x512"),
-                                                      "at_zoo_heads": at_shape("redundancy 1280x1280x512")},
+                                                      "at_zoo_heads": at_shape("redundancy 1280x1280x512"),
+                                                      "at_zoo2_1024": at_shape("redundancy 1024x1024x512"),
+                                                      "at_zoo2_832": at_shape("redundancy 832x832x512")},
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
                                                   "at_d768": at_shape("probe 8x3072x768"),
                                                   "at_sae": at_shape("probe 8x8192x512")}]}

@@ -8,8 +8,9 @@ For each family of ``FAMILIES`` (bf16, seed-0 weights, the default
 ``full_audit`` taps requested), on one batch of 256 images at 224²: the
 first forward in the process (cold: cuDNN's engine choice and the kernels'
 first load for each new convolution shape included), then the mean of 10
-warm forwards (CUDA events), images/s warm. Then one warm ConvNeXt-Tiny and
-one EfficientNet-B0 forward under ``torch.profiler``: device time by kernel
+warm forwards (CUDA events), images/s warm. Then one warm forward of each
+family of ``PROFILED`` (ConvNeXt-Tiny, EfficientNet-B0, Swin-T, MaxViT-T)
+under ``torch.profiler``: device time by kernel
 category (``profile_port``'s categories, which split depthwise / grouped
 convolutions from dense ones) and the launch count. Prints one JSON line with
 the card's name and power limit.
@@ -35,7 +36,16 @@ FAMILIES = [  # (label, full_audit argv)
     ("vgg16", ["--arch", "vgg"]),
     ("resnet50d", ["--variant", "d"]),
     ("regnet_y_400mf", ["--arch", "regnet"]),
+    ("swin_t", ["--arch", "swin"]),
+    ("swin_v2_t", ["--arch", "swin_v2"]),
+    ("maxvit_t", ["--arch", "maxvit"]),
+    ("googlenet", ["--arch", "inception"]),
+    ("inception_v3", ["--arch", "inception", "--variant", "v3"]),
+    ("shufflenet_v2_x1_0", ["--arch", "shufflenet"]),
+    ("alexnet", ["--arch", "alexnet"]),
+    ("squeezenet1_0", ["--arch", "squeezenet"]),
 ]
+PROFILED = ("convnext_tiny", "efficientnet_b0", "swin_t", "maxvit_t")
 BATCH, SIZE, WARM = 256, 224, 10
 
 
@@ -71,7 +81,7 @@ def main() -> int:
         out["families"][label] = {"cold_first_forward_ms": cold_ms, "warm_ms": warm_ms,
                                   "images_per_s_warm": BATCH / warm_ms * 1e3,
                                   "weights": sum(v.numel() for v in params.values())}
-    for label in ("convnext_tiny", "efficientnet_b0"):
+    for label in PROFILED:
         model, params, layers = models[label]
         with torch.inference_mode(), torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:

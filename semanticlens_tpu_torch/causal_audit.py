@@ -10,10 +10,11 @@ the component is causally load-bearing exactly where SemanticLens says it
 fires; ratios ≈ 1 flag passenger correlations.
 
 The subject's weights come from seed 0, in ``--dtype`` (float32 by
-default); ``--arch`` takes the JAX ``tools/bench_subject.py`` names of
-ResNet and its ResNeXt / Wide variants, ViT, ConvNeXt, VGG, DenseNet,
-EfficientNet / V2, MobileNetV2 / V3, RegNet and MNASNet; the rest of the
-zoo (``QUEUED_ARCHES``) waits for ROADMAP queue 1 item 8. ``--layer`` keeps
+default); ``--arch`` takes every vision name of the JAX
+``tools/bench_subject.py``: ResNet and its ResNeXt / Wide variants, ViT,
+ConvNeXt, VGG, DenseNet, EfficientNet / V2, MobileNetV2 / V3, RegNet,
+MNASNet, Swin / Swin-V2, GoogLeNet, Inception-v3, ShuffleNetV2, AlexNet,
+SqueezeNet and MaxViT (224-multiple ``--image-size`` only). ``--layer`` keeps
 the JAX tool's default, ``layer3``, which only the ResNets have: name a
 layer of the family for the others (``--layer features.14``). One JSON line
 per component, then a summary with the card's name as ``"device"``.
@@ -38,9 +39,6 @@ import torch
 REPORT_KEYS = ("layer", "mode", "components", "median_ratio", "min_ratio", "wall_s", "device")
 
 
-# bench_subject names of the JAX package's part-two families, which wait for ROADMAP queue 1 item 8.
-QUEUED_ARCHES = ("swin", "swin_v2", "googlenet", "inception_v3", "shufflenet", "alexnet", "squeezenet", "maxvit")
-
 
 def build_model(args, device):
     """The subject from ``--arch`` in the ``--dtype`` activation dtype, named as the JAX
@@ -63,10 +61,15 @@ def build_model(args, device):
         "wide_resnet": lambda: models.ResNet(depth=args.depth, width_per_group=128, **kw),
         "regnet": lambda: models.RegNet(variant=args.variant or "y_400mf", **kw),
         "mnasnet": lambda: models.MNASNet(variant=args.variant or "1_0", **kw),
+        "swin": lambda: models.SwinTransformer(variant=args.variant or "tiny", **kw),
+        "swin_v2": lambda: models.SwinTransformerV2(variant=args.variant or "tiny", **kw),
+        "googlenet": lambda: models.GoogLeNet(**kw),
+        "inception_v3": lambda: models.InceptionV3(**kw),
+        "shufflenet": lambda: models.ShuffleNetV2(variant=args.variant or "x1_0", **kw),
+        "alexnet": lambda: models.AlexNet(**kw),
+        "squeezenet": lambda: models.SqueezeNet(version=args.variant or "1_0", **kw),
+        "maxvit": lambda: models.MaxViT(variant=args.variant or "tiny", **kw),
     }
-    if args.arch in QUEUED_ARCHES:
-        raise SystemExit(f"--arch {args.arch}: this part of the model zoo waits for ROADMAP queue 1 item 8 "
-                         "(part two)")
     if args.arch not in constructors:
         raise SystemExit(f"unknown arch {args.arch}")
     return constructors[args.arch]()

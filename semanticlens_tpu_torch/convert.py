@@ -35,21 +35,29 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
 
+def _is_matrix(name: str, shape, kind: str) -> bool:
+    """A 2-D weight that the JAX layout keeps (in, out): the JAX loader's ``load_torch_params`` rule."""
+    return len(shape) == 2 and (kind == "linear" or name.endswith("weight"))
+
+
 def torch_layout_shape(name: str, shape, kind: str) -> tuple[int, ...]:
     """The torch layout of a vision-zoo tensor whose JAX-layout spec is ``(name, shape, kind)``.
 
-    Convs HWIO → OIHW (depthwise (k, k, 1, C) → (C, 1, k, k)); the
-    squeeze-excite 1×1 convs (kind ``"se_fc"``, (in, out) linears in the JAX
-    layout) → (out, in, 1, 1); other matrices (in, out) → (out, in);
+    Convs HWIO → OIHW (depthwise (k, k, 1, C) → (C, 1, k, k), Swin's
+    patch embedding (4, 4, 3, C) → (C, 3, 4, 4)); the squeeze-excite 1×1
+    convs (kind ``"se_fc"``, (in, out) linears in the JAX layout) → (out,
+    in, 1, 1); weight matrices (kind ``"linear"`` or a ``…weight`` name, so
+    Swin-V2's ``cpb_mlp`` linears too) (in, out) → (out, in);
     torchvision ConvNeXt's ``layer_scale`` (C,) → (C, 1, 1). Everything else
-    keeps its shape.
+    keeps its shape: the relative-position bias tables ((2w−1)², heads) and
+    Swin-V2's ``logit_scale`` (heads, 1, 1) are stored alike in both.
     """
     shape = tuple(shape)
     if len(shape) == 4:
         return (shape[3], shape[2], shape[0], shape[1])
     if kind == "se_fc":
         return (shape[1], shape[0], 1, 1)
-    if len(shape) == 2:
+    if _is_matrix(name, shape, kind):
         return shape[::-1]
     if name.endswith("layer_scale"):
         return (*shape, 1, 1)
@@ -57,13 +65,14 @@ def torch_layout_shape(name: str, shape, kind: str) -> tuple[int, ...]:
 
 
 def zoo_params_from_jax(params: Mapping, specs) -> dict[str, torch.Tensor]:
-    """The vision zoo (ResNet, VGG, DenseNet, ConvNeXt, EfficientNet/V2, MobileNetV2/V3, MNASNet, RegNet): weights
-    in the JAX layout → torch state-dict tensors, by each tensor's spec (:func:`torch_layout_shape`).
+    """The vision zoo (ResNet, VGG, DenseNet, ConvNeXt, EfficientNet/V2, MobileNetV2/V3, MNASNet, RegNet, Swin/V2,
+    MaxViT, GoogLeNet, Inception-v3, ShuffleNetV2, AlexNet, SqueezeNet): weights in the JAX layout → torch
+    state-dict tensors, by each tensor's spec (:func:`torch_layout_shape`).
 
     The inverse of the JAX families' ``load_torch_state_dict`` (``load_torch_params``): convs HWIO → OIHW,
     linears (in, out) → (out, in), the squeeze-excite ``.fc1.`` / ``.fc2.`` linears (in, out) →
-    (out, in, 1, 1) convs, torchvision's ``layer_scale`` (C,) → (C, 1, 1). ``specs`` are the family's
-    ``_param_specs()``.
+    (out, in, 1, 1) convs, torchvision's ``layer_scale`` (C,) → (C, 1, 1); bias tables and
+    ``logit_scale`` as they are. ``specs`` are the family's ``_param_specs()``.
     """
     out = {}
     for name, shape, kind in specs:
@@ -74,7 +83,7 @@ def zoo_params_from_jax(params: Mapping, specs) -> dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         elif kind == "se_fc":
             arr = arr.T[:, :, None, None]
-        elif arr.ndim == 2:
+        elif _is_matrix(name, shape, kind):
             arr = arr.T
         out[name] = _tensor(arr.reshape(torch_layout_shape(name, shape, kind)))
     return out

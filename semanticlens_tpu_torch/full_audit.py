@@ -19,20 +19,22 @@ from seed 0 unless ``--model-checkpoint`` (a torchvision/timm ``.pt`` state
 dict) or ``--checkpoint`` (the foundation model's) is given — the systems
 path is the same either way.
 
-``--arch resnet`` (variants ``''``, ``d``, ``x``, ``wide``), ``vit``,
+Every ``--arch`` of the JAX tool runs, each with its default layers and
+model name: ``resnet`` (variants ``''``, ``d``, ``x``, ``wide``), ``vit``,
 ``convnext``, ``vgg``, ``densenet``, ``efficientnet`` (``b0``…``b7``,
 ``v2_s``/``v2_m``/``v2_l``), ``mobilenet`` (``v2``, ``large``, ``small``),
-``mnasnet`` and ``regnet`` run, each with the JAX tool's default layers and
-model name; ``inception``, ``swin``, ``swin_v2``, ``maxvit``,
-``shufflenet``, ``alexnet`` and ``squeezenet`` wait for ROADMAP queue 1
-item 8 (part two), and a mesh over several cards for item 13 (pass
-``--no-mesh`` to run on one).
+``mnasnet``, ``regnet``, ``swin`` / ``swin_v2`` (``tiny``, ``small``,
+``base``), ``maxvit``, ``inception`` (``v1`` GoogLeNet, ``v3``),
+``shufflenet`` (``x0_5``…``x2_0``), ``alexnet`` and ``squeezenet``
+(``1_0``, ``1_1``). A mesh over several cards waits for ROADMAP queue 1
+item 13 (pass ``--no-mesh`` to run on one).
 ``--cpu`` (the one flag the JAX tool lacks: it takes its backend from
 ``JAX_PLATFORMS``) runs on the CPU.
 
 Usage:
   python -m semanticlens_tpu_torch.full_audit [--images /path.npy | --image-dir DIR]
-      [--arch resnet|vit|convnext|vgg|densenet|efficientnet|mobilenet|mnasnet|regnet] [--variant V]
+      [--arch resnet|vit|convnext|vgg|densenet|efficientnet|mobilenet|inception|swin|regnet|shufflenet|alexnet|
+              squeezenet|mnasnet|swin_v2|maxvit] [--variant V]
       [--depth 50] [--layers layer1 ... | blocks.N.mlp ...]
       [--n-samples 25] [--batch 256] [--queries dog "striped pattern"]
       [--vocabulary dog cat ...] [--label-scoring cosine|wpmi]
@@ -52,10 +54,9 @@ import torch
 logger = logging.getLogger("semanticlens_tpu_torch.full_audit")
 
 RESNET_LAYERS = ["layer1", "layer2", "layer3", "layer4"]
-# The JAX tool's --arch choices, in its order; QUEUED_ARCHES wait for ROADMAP queue 1 item 8 (part two).
+# The JAX tool's --arch choices, in its order.
 ARCHES = ("resnet", "vit", "convnext", "vgg", "densenet", "efficientnet", "mobilenet", "inception", "swin", "regnet",
           "shufflenet", "alexnet", "squeezenet", "mnasnet", "swin_v2", "maxvit")
-QUEUED_ARCHES = ("inception", "swin", "swin_v2", "maxvit", "shufflenet", "alexnet", "squeezenet")
 # The keys of the JSON report, in the JAX tool's order.
 REPORT_KEYS = ("dataset", "n_images", "layers", "mesh", "db_shapes", "scores", "top_neuron_per_query",
                "top5_per_query", "component_labels", "image_probe_top_neuron", "class_selective_components",
@@ -73,7 +74,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--variant", default="",
                     help="resnet: '' (torchvision), 'd' (timm resnet*d), 'x' (resnext 32x4d/32x8d), or 'wide' "
                          "(wide_resnet*_2); convnext: tiny/small/base/large; efficientnet: b0..b7 or v2_s/v2_m/v2_l; "
-                         "mobilenet: v2/large/small; mnasnet: 0_5/0_75/1_0/1_3; regnet: y_400mf, x_3_2gf, ...")
+                         "mobilenet: v2/large/small; mnasnet: 0_5/0_75/1_0/1_3; regnet: y_400mf, x_3_2gf, ...; "
+                         "swin/swin_v2: tiny/small/base; inception: v1/v3; shufflenet: x0_5/x1_0/x1_5/x2_0; "
+                         "squeezenet: 1_0/1_1")
     ap.add_argument("--layers", nargs="*", default=list(RESNET_LAYERS))
     ap.add_argument("--n-samples", type=int, default=25)
     ap.add_argument("--batch", type=int, default=256)
@@ -98,7 +101,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None):
-    """The JAX tool's arguments and checks; families the port lacks exit naming their ROADMAP item."""
+    """The JAX tool's arguments and checks."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.arch not in ("resnet", "vgg", "densenet") and args.depth != 50:
@@ -108,8 +111,6 @@ def parse_args(argv=None):
             "--variant configures --arch resnet (timm *d), convnext (tiny/small/base), "
             "efficientnet (b0..b7), or mobilenet (v2/large/small)"
         )
-    if args.arch in QUEUED_ARCHES:
-        ap.error(f"--arch {args.arch}: the rest of the model zoo waits for ROADMAP queue 1 item 8 (part two)")
     if args.arch == "resnet" and args.variant not in ("", "d", "x", "wide"):
         ap.error("--arch resnet supports --variant ''/d/x/wide")
     if args.arch == "vgg" and args.depth not in (11, 13, 16, 19, 50):
@@ -118,6 +119,8 @@ def parse_args(argv=None):
         ap.error(f"--arch densenet supports --depth 121/161/169/201, got {args.depth}")
     if args.arch == "mobilenet" and args.variant not in ("", "v2", "large", "small"):
         ap.error("--arch mobilenet supports --variant v2/large/small")
+    if args.arch == "inception" and args.variant not in ("", "v1", "v3"):
+        ap.error("--arch inception supports --variant v1/v3")
     return args
 
 
@@ -159,6 +162,26 @@ def _zoo_model(args, device):
     if args.arch == "mnasnet":
         model = models.MNASNet(variant=args.variant or "1_0", **kw)
         return model, ["layers.9", "layers.10", "layers.12", "layers.13"], f"mnasnet{model.variant}-audit"
+    if args.arch in ("swin", "swin_v2"):
+        cls = models.SwinTransformerV2 if args.arch == "swin_v2" else models.SwinTransformer
+        model = cls(variant=args.variant or "tiny", **kw)
+        return model, [f"features.{i}" for i in (1, 3, 5, 7)], f"{args.arch}-{model.variant}-audit"
+    if args.arch == "inception":
+        if (args.variant or "v1") == "v1":
+            return (models.GoogLeNet(**kw), ["inception3b", "inception4c", "inception4e", "inception5b"],
+                    "googlenet-audit")
+        return models.InceptionV3(**kw), ["Mixed_5d", "Mixed_6b", "Mixed_6e", "Mixed_7c"], "inception_v3-audit"
+    if args.arch == "shufflenet":
+        model = models.ShuffleNetV2(variant=args.variant or "x1_0", **kw)
+        return model, ["stage2", "stage3", "stage4", "conv5"], f"shufflenet_v2_{model.variant}-audit"
+    if args.arch == "maxvit":
+        model = models.MaxViT(variant=args.variant or "tiny", **kw)
+        return model, [f"blocks.{i}" for i in range(4)], f"maxvit_{model.variant}-audit"
+    if args.arch == "alexnet":
+        return models.AlexNet(**kw), ["features.4", "features.7", "features.9", "features.12"], "alexnet-audit"
+    if args.arch == "squeezenet":  # fire-module outputs present in both versions' plans
+        model = models.SqueezeNet(version=args.variant or "1_0", **kw)
+        return model, ["features.4", "features.7", "features.10", "features.12"], f"squeezenet{model.version}-audit"
     if args.arch == "densenet":
         depth = args.depth if args.depth != 50 else 121
         return (models.DenseNet(depth=depth, **kw), [f"features.denseblock{i}" for i in range(1, 5)],
@@ -177,7 +200,7 @@ def _zoo_model(args, device):
 def build_model(args, device):
     """``(model, aggregate_fn)``: the bf16 subject named as the JAX tool names it, weights from seed 0
     or ``--model-checkpoint``. Left at the ResNet default, ``--layers`` becomes the family's default
-    (the ViT's ``blocks.{0,3,6,9}.mlp``)."""
+    (the ViT's ``blocks.{0,3,6,9}.mlp``). Every family's taps are (B, H, W, C), Swin's and MaxViT's too."""
     from semanticlens_tpu_torch.models import VisionTransformer
     from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean, aggregate_transformer_mean
 

@@ -163,7 +163,7 @@ class ConvNeXt(ZooModel):
             specs += [("head.fc.weight", (dl, self.num_classes), "fc"), ("head.fc.bias", (self.num_classes,), "zeros")]
         return [(self._n(n), shape, kind) for n, shape, kind in specs]
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Normal(0, 0.02) convs and linears (timm's trunc_normal(0.02), untruncated), 1e-6 layer scale."""
         if kind in ("conv", "fc"):
             return "normal", 0.02

@@ -95,7 +95,7 @@ class DenseNet(ZooModel):
                       ("classifier.bias", (self.num_classes,), "zeros")]
         return specs
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal convs (fan_in), uniform ±1/√in classifier, unit BN: torchvision's scheme."""
         if kind == "conv":
             return "normal", math.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))

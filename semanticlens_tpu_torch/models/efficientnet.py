@@ -176,7 +176,7 @@ class EfficientNet(ZooModel):
                       ("classifier.1.bias", (self.num_classes,), "zeros")]
         return specs
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal fan-out for every conv (the SE 1×1s' fan-out is their out-channels), unit BN, and
         uniform ±1/√out for the classifier: torchvision's scheme."""
         if kind in ("conv", "dwconv"):

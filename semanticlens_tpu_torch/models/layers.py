@@ -411,11 +411,23 @@ def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
     return linear(out, params[f"{prefix}.out_proj.weight"], params[f"{prefix}.out_proj.bias"])
 
 
-def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None, scale=None, logit_cap=None):
+def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None, scale=None, logit_cap=None,
+                                 float32_mask=False):
     """Batched MHA core: (B, T, H·hd) q / (B, S, KV·hd) k, v → (B, T, H·hd).
 
-    ``mask`` is additive (−inf blocks): (T, S), or (B, 1, T, S) for
-    per-row masks (pad-aware LMs); lower ranks broadcast from the left.
+    ``mask`` is additive (−inf blocks): (T, S), (H, T, S) per-head
+    biases, or (B, 1, T, S) / (B, H, T, S) per row (pad-aware LMs, Swin's
+    windows); lower ranks broadcast from the left. A (G, H, T, S) mask
+    whose G divides B but is neither 1 nor B repeats with period G over the
+    rows (row i takes ``mask[i % G]``: Swin's windows are batch-major), so
+    a shifted-window bias is never materialised per image; it needs one of
+    the float32 paths (``float32_mask``, ``logit_cap`` or a composite).
+    ``float32_mask`` marks a learned float bias (Swin's and MaxViT's
+    relative-position tables, Swin-V2's ``16·sigmoid`` bias): it is added
+    to float32 logits as the JAX package adds every mask, on an explicit
+    float32 path (SDPA takes a float mask only in q's dtype, and bf16
+    would round a bias of 0–16 by up to 2⁻⁵, and swallow a small one
+    beside −100); the probabilities then meet the values in their dtype.
     ``scale`` overrides ``head_dim**-0.5`` (Gemma 2's
     ``query_pre_attn_scalar**-0.5``). ``n_kv_heads`` < ``n_heads`` is
     grouped-query attention: kv head g serves the g-th group of
@@ -444,13 +456,19 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
         z = split(z, s, kv_heads)
         return z if kv_heads == n_heads else z.repeat_interleave(n_heads // kv_heads, dim=1)
 
+    def add_mask(logits):
+        m, g = mask.float(), mask.shape[0]
+        if mask.ndim == 4 and g not in (1, b):  # period G over the rows
+            return (logits.view(b // g, g, *logits.shape[1:]) + m).view(logits.shape)
+        return logits + m
+
     def float32_probs():
         logits = (split(q, t).float() @ split_kv(k).float().transpose(-1, -2)) * (
             head_dim**-0.5 if scale is None else scale)
         if logit_cap is not None:
             logits = torch.tanh(logits / logit_cap) * logit_cap
         if mask is not None:
-            logits = logits + mask.float()
+            logits = add_mask(logits)
         return torch.softmax(logits, dim=-1)
 
     def merge(out, dtype):
@@ -462,6 +480,8 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
         return _lrp_wrap(lambda vv: merge(probs @ split_kv(vv).float(), vv.dtype), v, "epsilon", _LRP.epsilon)
     if logit_cap is not None:
         return merge(float32_probs() @ split_kv(v).float(), v.dtype)
+    if float32_mask:
+        return merge(float32_probs().to(v.dtype) @ split_kv(v), v.dtype)
     attn_mask = None if mask is None else mask.to(q.dtype)
     out = F.scaled_dot_product_attention(split(q, t), split_kv(k), split_kv(v), attn_mask=attn_mask, scale=scale)
     return merge(out, q.dtype)
@@ -531,6 +551,11 @@ def bn_param_specs(prefix: str, ch: int, *, ones_kind: str = "bn_w", zeros_kind:
     ]
 
 
+# Parameters that feed a learned attention bias, kept float32 whatever the compute dtype (Swin's and MaxViT's
+# relative-position tables, Swin-V2's continuous-position-bias MLP).
+FLOAT32_TABLES = ("relative_position_bias_table", ".cpb_mlp.")
+
+
 def load_torch_params(param_specs, state_dict, *, device, dtype) -> dict[str, torch.Tensor]:
     """A torch-layout state dict checked against a family's specs and placed for the forward.
 
@@ -541,7 +566,10 @@ def load_torch_params(param_specs, state_dict, *, device, dtype) -> dict[str, to
     relayout. Entries the specs do not name (derived buffers,
     ``num_batches_tracked``) are skipped. Convs and 2-D weights move to the
     compute ``dtype`` (convs in channels_last); BN statistics, norm scales,
-    biases and layer scales stay float32: the ops cast them at use.
+    biases, layer scales and the attention-bias tables and MLPs of
+    :data:`FLOAT32_TABLES` stay float32: the ops cast them at use (the bias
+    tables never: they are added to float32 logits, as in the JAX package,
+    whose parameters are all float32).
     """
     from semanticlens_tpu_torch.convert import torch_layout_shape
 
@@ -553,7 +581,7 @@ def load_torch_params(param_specs, state_dict, *, device, dtype) -> dict[str, to
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != expected {expected}")
         if t.ndim == 4 and not name.endswith("layer_scale"):
             t = t.to(device, dtype).contiguous(memory_format=torch.channels_last)
-        elif t.ndim == 2:
+        elif t.ndim == 2 and not any(part in name for part in FLOAT32_TABLES):
             t = t.to(device, dtype)
         else:
             t = t.to(device, torch.float32)

@@ -98,7 +98,7 @@ class MNASNet(ZooModel):
                       ("classifier.1.bias", (self.num_classes,), "zeros")]
         return specs
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal fan-out convs, unit BN, normal(0.01) classifier (the JAX package's stand-in for
         torchvision's kaiming-uniform)."""
         if kind in ("conv", "dwconv"):

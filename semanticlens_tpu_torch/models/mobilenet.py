@@ -86,7 +86,7 @@ _V3_VARIANTS = {"large": (_V3_LARGE, 1280), "small": (_V3_SMALL, 1024)}
 class _MobileNetBase(ZooModel):
     """The init kinds the two generations share."""
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal fan-out for every conv (SE 1×1s included), unit BN, normal(0, 0.01) linears:
         torchvision's scheme."""
         if kind in ("conv", "dwconv"):

@@ -157,7 +157,7 @@ class RegNet(ZooModel):
                       ("fc.bias", (self.num_classes,), "zeros")]
         return specs
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal fan-out for every conv (SE 1×1s included), unit BN, normal(0, 0.01) fc:
         torchvision's scheme."""
         if kind == "conv":

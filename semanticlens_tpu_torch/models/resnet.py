@@ -162,7 +162,7 @@ class ResNet(ZooModel):
         ]
         return specs
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal convs (fan_out, torchvision's default), uniform fc, unit BN: the JAX package's scheme."""
         if kind == "conv":
             return "normal", math.sqrt(2.0 / (shape[0] * shape[1] * shape[3]))

@@ -99,7 +99,7 @@ class VGG(ZooModel):
                       ("classifier.6.bias", (self.num_classes,), "zeros")]
         return specs
 
-    def _draw(self, shape, kind):
+    def _draw(self, name, shape, kind):
         """Kaiming-normal convs (fan_in) and normal(0.01) linears: the JAX package's (torchvision's) scheme."""
         if kind == "conv":
             return "normal", math.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))

@@ -1,7 +1,8 @@
 """What the vision zoo's families share: weights drawn by spec kind, loaders, and the NCHW forward frame.
 
 Each family (``resnet``, ``vgg``, ``densenet``, ``convnext``,
-``efficientnet``, ``mobilenet``, ``mnasnet``, ``regnet``) mirrors its JAX
+``efficientnet``, ``mobilenet``, ``mnasnet``, ``regnet``, ``shufflenet``,
+``classic``, ``inception``, ``swin``, ``maxvit``) mirrors its JAX
 counterpart: the class, constructor arguments, ``module_names``, tap names
 and ``_param_specs`` rows (name, shape in the JAX layout, init kind). The
 port keeps torch's layouts (conv OIHW, linear (out, in), squeeze-excite
@@ -11,7 +12,9 @@ weights come through ``convert.zoo_params_from_jax``.
 
 The forward runs NCHW in channels_last memory. ``apply`` takes the JAX
 layout, (B, H, W, 3), and returns conv taps as (B, H, W, C); interventions
-see that layout too (``TapCollector(channels_first=True)``).
+see that layout too (``TapCollector(channels_first=True)``). Swin and
+MaxViT, whose token stages run (B, H, W, C) as in the JAX package, give
+their own ``apply``.
 """
 
 from __future__ import annotations
@@ -76,8 +79,8 @@ class ZooModel(SubjectModel):
     def _param_specs(self) -> list[tuple[str, tuple[int, ...], str]]:
         raise NotImplementedError
 
-    def _draw(self, shape, kind) -> tuple[str, float]:
-        """How to draw one tensor of ``kind``: ``("normal", std)``, ``("uniform", bound)`` or ``("const", v)``."""
+    def _draw(self, name, shape, kind) -> tuple[str, float]:
+        """How to draw the tensor ``name`` of ``kind``: ``("normal", std)``, ``("uniform", bound)`` or ``("const", v)``."""
         raise NotImplementedError
 
     def _forward(self, params: Mapping, x: torch.Tensor, tap: TapCollector) -> torch.Tensor:
@@ -94,7 +97,7 @@ class ZooModel(SubjectModel):
         rng = np.random.default_rng(seed)
         params = {}
         for name, shape, kind in self._param_specs():
-            how, value = self._draw(shape, kind)
+            how, value = self._draw(name, shape, kind)
             if how == "normal":
                 params[name] = rng.standard_normal(shape, np.float32) * np.float32(value)
             elif how == "uniform":

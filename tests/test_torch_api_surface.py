@@ -21,12 +21,7 @@ SUBPACKAGES = ["", ".causal", ".collect", ".data", ".featviz", ".foundation_mode
 QUEUED = {
     "": {"core": "item 13", "parallel": "item 13"},
     ".data": {"GrainDataset": "item 13", "host_shard_range": "item 13"},
-    ".models": {
-        **{name: "item 8" for name in (
-            "AlexNet", "GoogLeNet", "InceptionV3", "MaxViT", "ShuffleNetV2", "SqueezeNet", "SwinTransformer",
-            "SwinTransformerV2")},
-        "FlaxSubjectModel": "item 14",  # wraps flax.linen, which the card does not have
-    },
+    ".models": {"FlaxSubjectModel": "item 14"},  # wraps flax.linen, which the card does not have
 }
 # JAX names the port has under another name: the JAX initializers take a jax.random key, the
 # port's draw numpy weights in the JAX layout from an integer seed.

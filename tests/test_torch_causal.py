@@ -270,8 +270,8 @@ def test_causal_audit_flags_and_defaults_are_the_jax_tools():
     assert {f"--{k.replace('_', '-')}" for k in args} == set(flags)
     for flag, default in flags.items():
         assert args[flag[2:].replace("-", "_")] == default, flag
-    with pytest.raises(SystemExit, match="item 8"):
-        causal_audit.main(["--cpu", "--arch", "swin"])
+    with pytest.raises(SystemExit, match="unknown arch"):
+        causal_audit.main(["--cpu", "--arch", "swin_v3"])
 
 
 def test_causal_audit_cli_reports_the_jax_keys():

@@ -93,10 +93,10 @@ def test_flags_defaults_and_report_keys_are_the_jax_tools():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "swin"], "item 8"),
-    (["--arch", "inception"], "item 8"),
-    (["--arch", "maxvit"], "item 8"),
-    (["--arch", "shufflenet"], "item 8"),
+    (["--arch", "swin", "--depth", "18"], "--depth configures"),
+    (["--arch", "inception", "--variant", "v2"], "supports --variant v1/v3"),
+    (["--arch", "maxvit", "--depth", "18"], "--depth configures"),
+    (["--arch", "shufflenet", "--depth", "18"], "--depth configures"),
     (["--variant", "q"], "supports --variant"),
     (["--arch", "vit", "--variant", "x"], "--variant configures"),
     (["--arch", "vit", "--depth", "18"], "--depth configures"),

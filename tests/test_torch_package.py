@@ -55,7 +55,8 @@ def test_port_imports_no_jax_or_missing_libraries():
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
                                                   "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",
-                                                  "precision_float32.py", "profile_zoo.py")]
+                                                  "precision_float32.py", "profile_zoo.py",
+                                                  "precision_heatmaps.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)

@@ -7,7 +7,8 @@
   ``CAUSAL_GATE`` in chip_smoke.py).
 - ``causal_audit.build_model`` builds, for every ``tools/bench_subject.py``
   name of this slice, the class and configuration the JAX ``build_model``
-  builds (same ``repr``); part two's names exit naming ROADMAP item 8.
+  builds (same ``repr``); part two's names are held in
+  ``test_torch_zoo2_causal.py``.
 """
 
 import argparse
@@ -104,9 +105,3 @@ def test_causal_audit_builds_the_jax_subject(arch, extra):
     assert repr(got) == repr(want) and got.module_names == want.module_names
     assert got.dtype == torch.float32
 
-
-@pytest.mark.parametrize("arch", ["swin", "swin_v2", "googlenet", "inception_v3", "shufflenet", "alexnet",
-                                  "squeezenet", "maxvit"])
-def test_causal_audit_part_two_names_exit_naming_item_8(arch):
-    with pytest.raises(SystemExit, match="item 8"):
-        causal_audit.main(["--cpu", "--arch", arch])
