@@ -187,8 +187,27 @@ Phases (any failing check raises; the exit code is then non-zero):
    swin`` CLIs; then the main path, ``full_audit.main --arch swin`` (Swin-T
    bf16 → features.1/3/5/7, 1,440 components) at zoo's sizes, and the other
    seven families over 512 images.
+20. mesh — the multi-GPU layer on the machine's one card (``MESH``,
+   ``MESH_GATE``; ``phase_mesh``): (a) world 1 over NCCL in this process,
+   config 5 at ``[audit]``'s sizes (ResNet-50 bf16 → layer1–4, CLIP ViT-B/32,
+   2048 images at 224², batch 256) through
+   ``ActivationComponentVisualizer(mesh=data_mesh())`` and a
+   ``shard_concept_db`` Analyze, equal to the plain run (ids, bf16 values,
+   concept DB, scores; K1 counted here as the ``mesh`` path), the
+   data-parallel SAE trainer at ``[sae]``'s widths (20 steps) equal to the
+   plain trainer, and Llama-3.2-1B with ``shard_params`` at tp = 1
+   collecting ``model.layers.15.mlp.act_fn`` over 2048 × 64 tokens equal to
+   the plain run; (b) two gloo ranks sharing ``cuda:0``
+   (``parallel.launch.spawn``, ``mesh_rank``): the meshed engine,
+   ``collect_multihost`` and ``fused_multihost`` at global batch 256 equal
+   to one process at batch 128 (each rank's rows meet the same kernels at
+   the same shapes), the bytes and milliseconds of the state merge and of
+   the selected-rows exchange, and the SAE trainer at world 2 against one
+   process (step-1 parameters, the fvu trajectory) with two controls that
+   must break those bounds: a skipped gradient all-reduce and the rank-mean
+   of fvu ratios. Prints the mesh path's images/s beside the plain path's.
 
-Each of phases 14–19 prints its wall seconds beside its bound
+Each of phases 14–20 prints its wall seconds beside its bound
 (``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
@@ -441,6 +460,29 @@ ZOO2 = {"label": "zoo2", "main": ["--arch", "swin"],
         # not tell a precision fault from float32 rounding here. The sound card-vs-CPU readings are 1.6e-4 and
         # 1.3e-5, the wrong composite ≈ 1 (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
         "heat_mean_rel": {"epsilon_plus_flat": 1e-3, "epsilon": 1e-3}}
+# [mesh] (ROADMAP item 13, the multi-GPU layer) on the one card this machine has: (a) world 1 over NCCL in this
+# process — config 5 at [audit]'s sizes through the meshed visualizer and a component-sharded Analyze, the
+# data-parallel SAE trainer at [sae]'s widths, Llama-3.2-1B's ``shard_params`` at tp = 1 over 2048 × 64 tokens,
+# each equal to its plain run; (b) two gloo ranks sharing the card (NCCL refuses two ranks on one GPU), started
+# by ``parallel.launch.spawn``: the meshed engine, ``collect_multihost`` and ``fused_multihost`` at global batch
+# 256 against one process at batch 128 (ids and bf16 values equal), the SAE trainer at world 2 against one
+# process on the same global minibatches, with two controls that must break the bounds. Two ranks on one card
+# measure overhead, not scaling. Tensor parallelism at tp = 2 is not run on the card: DTensor over gloo runs
+# no CUDA forward (torch 2.11 on the card: on a "cuda" DeviceMesh a segmentation fault in
+# ``_functional_collectives.wait_tensor``, on a "cpu" one the replicated operands land on the CPU;
+# ``tp_gloo_probe`` below, PERF.md), and NCCL refuses two ranks on one GPU; tp = 1 over NCCL runs in (a),
+# tp = 2 on the CPU tests.
+MESH = {"images": 2048, "size": 224, "batch": 256, "rank_batch": 128, "num_samples": 25,
+        "layers": ["layer1", "layer2", "layer3", "layer4"],
+        "sae_rows": 16384, "sae_d_in": 1024, "sae_latents": 8192, "sae_k": 32, "sae_batch_rows": 4096,
+        "sae_steps": 20, "lm_texts": 2048, "lm_seq": 64, "lm_batch": 128, "lm_layer": "model.layers.15.mlp.act_fn",
+        "world": 2, "rank_timeout_s": 400, "bound_s": 120}
+# The SAE trainer at world 2 against one process (float32, TF32 off), set from the card's readings (PERF.md):
+# the step-1 parameters' max |Δ| over their scale (sound 1.2e-4: Adam's first step is ±lr wherever |g| ≫ eps,
+# so a gradient near 0 moves by rounding; a skipped gradient all-reduce reads 2.0), step 1's fvu (the same
+# parameters: sums in another order only; the rank-mean of fvu ratios moves it by 2.5e-4), and the fvu
+# trajectory's max relative gap over the 20 steps (sound 2.1e-4, the rank-mean control 1.1e-3).
+MESH_GATE = {"sae_step1_rel": 1e-3, "sae_fvu_step1_rel": 1e-5, "sae_fvu_rel": 5e-4}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
 
@@ -2344,8 +2386,8 @@ def recording_sae_steps(record: list):
 
     run_steps = sae._run_steps
 
-    def recording(cfg, optimizer, paired=False):
-        run = run_steps(cfg, optimizer, paired)
+    def recording(cfg, optimizer, paired=False, **kwargs):
+        run = run_steps(cfg, optimizer, paired, **kwargs)
 
         def recorded(*args):
             out = run(*args)
@@ -3811,6 +3853,406 @@ def phase_zoo(dev, root: Path, cfg) -> dict:
     return launches
 
 
+def _synthetic_images(n: int, size: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, size=(n, size, size, 3), dtype=np.uint8)
+
+
+def _config5_models(dev):
+    """ResNet-50 bf16 and CLIP ViT-B/32 bf16, both from seed 0, with the audit's preprocess."""
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    model = ResNet(depth=50, dtype=torch.bfloat16, device=dev)
+    model.params, model.name = model.init(seed=0), "resnet50-mesh"
+    fm = OpenClip("ViT-B-32", dtype=torch.bfloat16, device=dev, seed=0)
+    return model, fm, make_preprocess_fn(size=MESH["size"], crop=MESH["size"])
+
+
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(a[k].ids.cpu(), b[k].ids.cpu()) and torch.equal(a[k].values.cpu(), b[k].values.cpu())
+               for k in b)
+
+
+def _sae_cfg():
+    from semanticlens_tpu_torch import sae
+
+    return sae.SAEConfig(d_in=MESH["sae_d_in"], n_latents=MESH["sae_latents"], k=MESH["sae_k"],
+                         batch_rows=MESH["sae_batch_rows"], seed=0)
+
+
+def _sae_rows() -> np.ndarray:
+    """Gaussian rows scaled row by row by a log-normal factor: heavy-tailed, as a layer's activations are,
+    so that the two halves of a minibatch differ in variance (what the rank-mean fvu control needs to show)."""
+    rng = np.random.default_rng(1)
+    rows = rng.standard_normal((MESH["sae_rows"], MESH["sae_d_in"]), np.float32)
+    return rows * rng.lognormal(0.0, 1.0, (MESH["sae_rows"], 1)).astype(np.float32)
+
+
+def mesh_world1(dev, root: Path) -> tuple[dict, dict]:
+    """[mesh] (a): world 1 over NCCL in this process; returns (K1 launches of the meshed audit, readings)."""
+    import os
+
+    from semanticlens_tpu_torch import Lens, sae
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.collect.engine import CollectEngine
+    from semanticlens_tpu_torch.core import data_mesh, data_model_mesh, init_distributed, shard_concept_db
+    from semanticlens_tpu_torch.core.mesh import barrier
+    from semanticlens_tpu_torch.data import ArrayDataset, Subset
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean, aggregate_transformer_mean
+    from semanticlens_tpu_torch.parallel import llama_param_specs_2d, shard_params
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    init_distributed("nccl", store_path=root / "store", timeout_s=300)
+    out = {}
+    try:
+        mesh = data_mesh()
+        barrier()  # the communicator's first use, outside the timed runs
+        model, fm, pre = _config5_models(dev)
+        ds = ArrayDataset(_synthetic_images(MESH["images"], MESH["size"]), name="synthetic-mesh")
+        lens = Lens(fm)
+
+        def audit(m, score=True):
+            cv = ActivationComponentVisualizer(model, ds, ds, MESH["layers"], MESH["num_samples"],
+                                               aggregate_fn=aggregate_conv_mean, model_preprocess=pre, mesh=m)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            db = lens.compute_concept_db(cv, batch_size=MESH["batch"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if not score:
+                return MESH["images"] / wall
+            scored = db if m is None else shard_concept_db(db, m)
+            agg = {k: v.mean(1) for k, v in db.items()}
+            scores = {"clarity": lens.eval_clarity(scored), "poly": lens.eval_polysemanticity(scored),
+                      "redundancy": lens.eval_redundancy(agg),
+                      "probe": lens.text_probing(["dog"], agg, templates=TEMPLATES)}
+            torch.cuda.synchronize()
+            return cv, db, scores, MESH["images"] / wall
+
+        audit(None, score=False)  # warm: cuDNN's first calls and the allocator
+        k1.reset_launch_counts()
+        meshed = audit(mesh)
+        launches = k1.launch_counts()
+        plain = audit(None)
+        rates = {"mesh": [meshed[3]], "plain": [plain[3]]}
+        for _ in range(2):  # in turns, so that neither path is favoured by the order
+            rates["mesh"].append(audit(mesh, score=False))
+            rates["plain"].append(audit(None, score=False))
+        for name in MESH["layers"]:
+            if not (np.array_equal(meshed[0].get_max_reference(name), plain[0].get_max_reference(name))
+                    and torch.equal(meshed[0].actmax_cache[name].state.values.cpu(),
+                                    plain[0].actmax_cache[name].state.values.cpu())
+                    and np.array_equal(meshed[1][name], plain[1][name])):
+                raise AssertionError(f"[mesh] (a) the meshed audit's {name} differs from the plain audit's")
+            for key, by_layer in plain[2].items():
+                if not torch.equal(torch.as_tensor(meshed[2][key][name]).cpu(), torch.as_tensor(by_layer[name]).cpu()):
+                    raise AssertionError(f"[mesh] (a) {key} of {name} differs between meshed and plain audits")
+        out["audit"] = {"images_per_s_mesh": rates["mesh"], "images_per_s_plain": rates["plain"],
+                        "mesh_over_plain": float(np.mean(rates["mesh"]) / np.mean(rates["plain"])),
+                        "components": sum(meshed[1][k].shape[0] for k in MESH["layers"])}
+        del meshed, plain
+
+        rows = torch.from_numpy(_sae_rows()).to(dev)
+        cfg = _sae_cfg()
+        dp, _, dp_m = sae.train_sae_from_rows(rows, cfg, steps=MESH["sae_steps"], mesh=mesh)
+        one, _, one_m = sae.train_sae_from_rows(rows, cfg, steps=MESH["sae_steps"])
+        if any(not torch.equal(dp[n], one[n]) for n in one if n != "k") or dp_m != one_m:
+            raise AssertionError(f"[mesh] (a) the data-parallel SAE trainer differs at world 1: {dp_m} vs {one_m}")
+        out["sae"] = {"fvu": one_m["fvu"], "l0": one_m["l0"]}
+        del rows, dp, one
+
+        llama = lm_subject(LM["llama"], "Llama", dev, torch.bfloat16)
+        llama.params, llama.name = llama.init(0, device_draw=True), "llama-3.2-1b-seed0"
+        toks = lm_corpus(128256, MESH["lm_texts"], MESH["lm_seq"])
+        tp_mesh = data_model_mesh(1)
+        sharded = shard_params(llama.params, tp_mesh, llama_param_specs_2d(llama))
+        runs = {}
+        for label, params, m in (("plain", llama.params, None), ("tp1", sharded, tp_mesh)):
+            eng = CollectEngine(llama, [MESH["lm_layer"]], aggregate_transformer_mean, 5, mesh=m,
+                                input_preprocess=lambda x: x.to(torch.int32))
+            eng.run(params, Subset(toks, 0, 2 * MESH["lm_batch"]), MESH["lm_batch"])  # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[label] = eng.run(params, toks, MESH["lm_batch"])[0]
+            torch.cuda.synchronize()
+            out[f"lm_tokens_per_s_{label}"] = MESH["lm_texts"] * MESH["lm_seq"] / (time.perf_counter() - t)
+        if not _states_equal(runs["tp1"], runs["plain"]):
+            a, b = runs["tp1"][MESH["lm_layer"]], runs["plain"][MESH["lm_layer"]]
+            raise AssertionError(f"[mesh] (a) Llama-3.2-1B at tp = 1 differs from the plain run: ids equal "
+                                 f"{(a.ids == b.ids).float().mean().item():.4f}, max |Δ value| "
+                                 f"{(a.values.float() - b.values.float()).abs().max().item():.3g}")
+        del llama, sharded, runs
+    finally:
+        torch.distributed.destroy_process_group()
+    return launches, out
+
+
+def mesh_rank(rank: int, world: int, dev, out: str):
+    """[mesh] (b) on one of two gloo ranks sharing ``cuda:0``; rank 0 also runs the one-process references
+    and writes ``mesh_ranks.json`` to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from semanticlens_tpu_torch import sae
+    from semanticlens_tpu_torch.collect.engine import CollectEngine
+    from semanticlens_tpu_torch.core import data_mesh
+    from semanticlens_tpu_torch.core.mesh import all_reduce, barrier
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+    from semanticlens_tpu_torch.parallel import collect_multihost, fused_multihost, multihost
+
+    mesh = data_mesh()
+    res = {"rank": rank}
+    rank_log = functools.partial(print, f"[mesh] rank {rank}:", file=sys.stderr, flush=True)
+    rank_log("group and mesh up")
+    model, fm, pre = _config5_models(dev)
+    ds = ArrayDataset(_synthetic_images(MESH["images"], MESH["size"]), name="synthetic-mesh")
+    layers, k, b = MESH["layers"], MESH["num_samples"], MESH["rank_batch"]
+
+    def engine(m=None):
+        return CollectEngine(model, layers, aggregate_conv_mean, k, mesh=m, input_preprocess=pre)
+
+    def embed(x):
+        return fm.encode_image_local(fm.preprocess(x))
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        value = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t
+
+    rank_log("models and data built")
+    (dp_states, dp_embeds, _), dp_cold_s = timed(engine(mesh).run_fused, model.params, ds, b * world, embed)
+    _, dp_s = timed(engine(mesh).run_fused, model.params, ds, b * world, embed)
+    rank_log("meshed fused sweep done")
+    (dp_run, _), _ = timed(engine(mesh).run, model.params, ds, b * world)
+    (mh_states, _), mh_s = timed(collect_multihost, engine(), model.params, ds, b)
+    rank_log("collect_multihost done")
+    exchanges = {"merge": [], "rows": []}
+    merge, gather = multihost.merge_states_across_processes, multihost.gather_selected_rows
+
+    def timed_merge(states):
+        barrier()  # both sweeps done: the time is the exchange's alone
+        merged, ms = timed(merge, states)
+        exchanges["merge"].append({"ms": ms * 1e3, "bytes": world * sum(st.values.numel() * 2 + st.ids.numel() * 4
+                                                                           for st in states.values())})
+        return merged
+
+    def timed_gather(needed, local_rows, start, stop):
+        barrier()
+        rows, ms = timed(gather, needed, local_rows, start, stop)
+        exchanges["rows"].append({"ms": ms * 1e3, "bytes": world * rows.nbytes, "rows": int(rows.shape[0])})
+        return rows
+
+    multihost.merge_states_across_processes, multihost.gather_selected_rows = timed_merge, timed_gather
+    try:
+        (fmh_states, fmh_db, _), fmh_s = timed(fused_multihost, engine(), model.params, ds, b, embed)
+    finally:
+        multihost.merge_states_across_processes, multihost.gather_selected_rows = merge, gather
+    rank_log("fused_multihost done")
+    res["images_per_s"] = {"meshed_fused_cold": MESH["images"] / dp_cold_s, "meshed_fused": MESH["images"] / dp_s,
+                           "collect_multihost": MESH["images"] / mh_s,
+                           "fused_multihost": MESH["images"] / fmh_s}
+    res["exchanges"] = exchanges
+    if rank == 0:  # one process at batch 128: each rank's rows met the same kernels at the same shapes
+        (ref, ref_embeds, _), ref_s = timed(engine().run_fused, model.params, ds, b, embed)
+        res["images_per_s"]["one_process_fused"] = MESH["images"] / ref_s
+        res["equal"] = {"meshed_fused": _states_equal(dp_states, ref), "meshed_run": _states_equal(dp_run, ref),
+                        "embeds": bool(np.array_equal(dp_embeds, ref_embeds)),
+                        "collect_multihost": _states_equal(mh_states, ref),
+                        "fused_multihost": _states_equal(fmh_states, ref)}
+        db_equal = True
+        for name in layers:
+            ids = ref[name].ids.cpu().numpy()
+            want = ref_embeds[ids]
+            want[ids < 0] = 0.0
+            db_equal &= bool(np.array_equal(fmh_db[name], want))
+        res["equal"]["fused_multihost_db"] = db_equal
+    del dp_states, dp_embeds, dp_run, mh_states, fmh_states, fmh_db, model, fm, ds
+    torch.cuda.empty_cache()
+
+    rank_log("references done")
+    # the SAE trainer at world 2 against one process on the same global minibatches
+    rows = torch.from_numpy(_sae_rows()).to(dev)
+    cfg = _sae_cfg()
+    history = []
+    run_steps = sae._run_steps
+
+    def recording(*args, **kwargs):
+        run = run_steps(*args, **kwargs)
+
+        def recorded(*a):
+            out_ = run(*a)
+            history.append(out_[3]["fvu"])
+            return out_
+
+        return recorded
+
+    def train(steps, m, **patch):
+        history.clear()
+        old = {name: getattr(sae, name) for name in patch}
+        for name, value in patch.items():
+            setattr(sae, name, value)
+        sae._run_steps = recording
+        try:
+            (params, _, _), s = timed(sae.train_sae_from_rows, rows, cfg, steps=steps, mesh=m)
+        finally:
+            sae._run_steps = run_steps
+            for name, value in old.items():
+                setattr(sae, name, value)
+        return params, torch.cat(history).cpu().numpy(), s
+
+    def rank_mean_fvu(err, target, group):  # control: the mean of the ranks' own fvu ratios
+        local = torch.sum(err * err) / torch.clamp_min(torch.sum((target - torch.mean(target, dim=0)) ** 2), 1e-9)
+        return all_reduce(local, group) / world
+
+    sound1, _, _ = train(1, mesh)
+    _, sound_fvu, sound_s = train(MESH["sae_steps"], mesh)
+    skip1, _, _ = train(1, mesh, _all_reduce_grads=lambda grads, group: grads)
+    _, mean_fvu, _ = train(MESH["sae_steps"], mesh, _fvu=rank_mean_fvu)
+    res["sae_step_ms_world2"] = sound_s / MESH["sae_steps"] * 1e3
+    if rank == 0:
+        one1, _, _ = train(1, None)
+        _, one_fvu, one_s = train(MESH["sae_steps"], None)
+        res["sae_step_ms_one_process"] = one_s / MESH["sae_steps"] * 1e3
+
+        def step1_rel(params):
+            return max(float((params[n] - one1[n]).abs().max() / one1[n].abs().max().clamp_min(1e-30))
+                       for n in one1 if n != "k")
+
+        def fvu_rel(fvu):
+            gap = np.abs(fvu - one_fvu) / np.abs(one_fvu)
+            return {"fvu_step1_rel": float(gap[0]), "fvu_rel": float(gap.max())}
+
+        res["sae"] = {"sound": {"step1_rel": step1_rel(sound1), **fvu_rel(sound_fvu)},
+                      "skipped_grad_all_reduce": {"step1_rel": step1_rel(skip1)},
+                      "rank_mean_fvu_ratios": fvu_rel(mean_fvu),
+                      "fvu_first_last": [float(one_fvu[0]), float(one_fvu[-1])]}
+    del rows
+    torch.cuda.empty_cache()
+
+    rank_log("SAE done")
+    if rank == 0:
+        (Path(out) / "mesh_ranks.json").write_text(json.dumps(res))
+
+
+def phase_mesh(dev, root: Path) -> dict:
+    """[mesh]: (a) in this process, then (b) on two gloo ranks sharing the card."""
+    from semanticlens_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches, world1 = mesh_world1(dev, root)
+    if launches["streaming"] < 1 or launches["tiled"] < 1:
+        raise AssertionError(f"[mesh] K1 launches on the meshed audit: {launches}")
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    launch.spawn(mesh_rank, MESH["world"], root / "ranks", args=(str(root),), backend="gloo", device="cuda:0",
+                 timeout_s=MESH["rank_timeout_s"])
+    ranks_s = time.perf_counter() - t_ranks
+    ranks = json.loads((root / "mesh_ranks.json").read_text())
+    phase_s = time.perf_counter() - t_phase
+    summary = {"note": "one card: (a) world 1 over NCCL; (b) two gloo ranks share cuda:0, so its rates "
+                       "measure the layer's overhead, not scaling across cards; tp = 2 not run on the card",
+               "world1": world1, "k1_launches": launches, "ranks_s": ranks_s, "ranks": ranks, "gate": MESH_GATE,
+               "phase_s": phase_s, "bound_s": MESH["bound_s"], "within_bound": phase_s <= MESH["bound_s"]}
+    log(f"[mesh] {json.dumps(summary)}")
+    missed = [k for k, ok in ranks["equal"].items() if not ok]
+    sae_ = ranks["sae"]
+    gates = ("sae_step1_rel", "sae_fvu_step1_rel", "sae_fvu_rel")
+    missed += [f"sae world 2 against one process: {g}" for g in gates if sae_["sound"][g[4:]] > MESH_GATE[g]]
+    if sae_["skipped_grad_all_reduce"]["step1_rel"] <= MESH_GATE["sae_step1_rel"]:
+        missed.append("the skipped-all-reduce control stayed within the step-1 bound")
+    missed += [f"the rank-mean-fvu control stayed within {g}" for g in gates[1:]
+               if sae_["rank_mean_fvu_ratios"][g[4:]] <= MESH_GATE[g]]
+    if missed:  # after the line, so that a miss still prints every measurement
+        raise AssertionError(f"[mesh] misses: {missed}")
+    return launches
+
+
+# The reproducer behind [mesh]'s missing tp = 2 (not run by ``main``): each variant on two gloo ranks sharing
+# ``cuda:0``, in its own pair of processes so that a crash ends only that variant. ``c10d_*`` call the process
+# group's all-gather on CUDA tensors directly; ``dtensor@{cpu,cuda}`` gathers a ``Shard(0)`` DTensor whose local
+# chunk lies on the card, on a DeviceMesh of that device type; ``gpt2@{cpu,cuda}`` is GPT-2 (124 M, float32, TF32
+# off, full width and depth) with ``gpt2_param_specs_2d`` placements at tp = 2 against its plain forward.
+TP_PROBE = {"variants": ["c10d_all_gather_into_tensor", "c10d_all_gather", "dtensor@cpu", "dtensor@cuda",
+                         "gpt2@cpu", "gpt2@cuda"],
+            "tokens": (4, 64), "tap": "transformer.h.11.mlp.c_fc", "timeout_s": 300}
+
+
+def tp_probe_rank(rank: int, world: int, dev, out: str, variant: str):
+    """One variant of :func:`tp_gloo_probe` on one gloo rank; rank 0 writes ``{variant}.json`` to ``out``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind, _, mesh_type = variant.partition("@")
+    res = {"variant": variant, "backend": dist.get_backend(), "device": str(dev), "torch": torch.__version__}
+    x = torch.arange(8 * 4, dtype=torch.float32, device=dev).reshape(8, 4) * (rank + 1)
+    want = torch.cat([x / (rank + 1) * (r + 1) for r in range(world)])
+    if kind == "c10d_all_gather_into_tensor":
+        got = torch.empty(world * 8, 4, device=dev)
+        dist.all_gather_into_tensor(got, x)
+    elif kind == "c10d_all_gather":
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        got = torch.cat(parts)
+    else:
+        mesh = DeviceMesh(mesh_type, torch.arange(world).reshape(1, world), mesh_dim_names=("data", "model"))
+        res["mesh_device_type"] = mesh.device_type
+    if kind == "dtensor":
+        got = DTensor.from_local(x, mesh["model"], [Shard(0)], run_check=False).full_tensor()
+    if kind in ("c10d_all_gather_into_tensor", "c10d_all_gather", "dtensor"):
+        res["equal"] = bool(torch.equal(got.cpu(), want.cpu()))
+    if kind == "gpt2":
+        from semanticlens_tpu_torch.core.mesh import full_tensor, tensor_parallel_region
+        from semanticlens_tpu_torch.parallel import gpt2_param_specs_2d, shard_params
+
+        model = lm_subject("gpt2", "GPT2", dev, torch.float32)
+        params = model.init(0, device_draw=True)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(0, 50256, TP_PROBE["tokens"])).to(dev)
+        sharded = shard_params(params, mesh, gpt2_param_specs_2d(model))
+        with tensor_parallel_region():
+            logits, taps = model.apply(sharded, toks, (TP_PROBE["tap"],))
+            logits, tap = full_tensor(logits), full_tensor(taps[TP_PROBE["tap"]])
+        with torch.no_grad():
+            ref_logits, ref_taps = model.apply(params, toks, (TP_PROBE["tap"],))
+        res["logits_rel"] = _max_rel(logits, ref_logits, _scale(ref_logits))
+        res["tap_rel"] = _max_rel(tap, ref_taps[TP_PROBE["tap"]], _scale(ref_taps[TP_PROBE["tap"]]))
+    if rank == 0:
+        (Path(out) / f"{variant}.json").write_text(json.dumps(res))
+
+
+def tp_gloo_probe(root: str) -> dict:
+    """Whether gloo carries DTensor's collectives on CUDA tensors for two ranks sharing ``cuda:0``.
+
+    Run on a card: ``python -c "import chip_smoke as cs; cs.tp_gloo_probe('tp_probe')"``. Prints one JSON
+    line per variant (its readings, or the launcher's error with the first rank traceback) and writes them
+    all to ``{root}/tp_probe.json``; a rank killed by a signal prints its Python stack to standard error.
+    """
+    from semanticlens_tpu_torch.parallel import launch
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    results = {"smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                     capture_output=True, text=True, timeout=60).stdout.strip()}
+    for variant in TP_PROBE["variants"]:
+        t = time.perf_counter()
+        try:
+            launch.spawn(tp_probe_rank, 2, root / variant.replace("@", "_"), args=(str(root), variant),
+                         backend="gloo", device="cuda:0", timeout_s=TP_PROBE["timeout_s"])
+            results[variant] = json.loads((root / f"{variant}.json").read_text())
+        except RuntimeError as err:  # the probe records each variant's failure; it is not a phase
+            results[variant] = {"error": str(err)[-3000:]}
+        results[variant]["seconds"] = time.perf_counter() - t
+        log(f"[tp_probe] {variant}: {json.dumps(results[variant])}")
+    (root / "tp_probe.json").write_text(json.dumps(results, indent=1))
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3862,7 +4304,7 @@ def main():
         done("sae")
         for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz),
                             ("lm", phase_lm), ("zoo", functools.partial(phase_zoo, cfg=ZOO)),
-                            ("zoo2", functools.partial(phase_zoo, cfg=ZOO2))):
+                            ("zoo2", functools.partial(phase_zoo, cfg=ZOO2)), ("mesh", phase_mesh)):
             with tempfile.TemporaryDirectory() as tmp:
                 by_path[name] = phase(dev, Path(tmp))
             done(name)

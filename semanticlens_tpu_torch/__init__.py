@@ -21,17 +21,21 @@ Workflow (the JAX package's three stages):
 Beyond the three stages: ``causal`` (ablation, patching, steering through
 ``models.interventions``), ``featviz`` and ``collect.SynthesisComponentVisualizer``
 (synthesized concept examples), ``sae`` (sparse autoencoders and
-transcoders), and the entry points ``python -m semanticlens_tpu_torch.full_audit``
+transcoders), ``core`` and ``parallel`` (one process per card on
+``torch.distributed``: data-parallel Collect, multi-process shards,
+tensor-parallel subjects and towers), and the entry points ``python -m semanticlens_tpu_torch.full_audit``
 (BASELINE config 5), ``.causal_audit``, ``.train_sae`` and ``.serve``.
 """
 
 from semanticlens_tpu_torch import (
     causal,
     collect,
+    core,
     data,
     foundation_models,
     models,
     ops,
+    parallel,
     relevance,
     sae,
     scores,
@@ -43,10 +47,12 @@ from semanticlens_tpu_torch.scores import clarity_score, polysemanticity_score, 
 __all__ = [
     "causal",
     "collect",
+    "core",
     "data",
     "foundation_models",
     "models",
     "ops",
+    "parallel",
     "relevance",
     "sae",
     "scores",

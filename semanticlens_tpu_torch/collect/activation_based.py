@@ -1,7 +1,10 @@
 """Activation-based component visualizer — the Collect entry point.
 
 Counterpart of ``semanticlens_tpu.collect.activation_based``: the same public
-API, cache directory layout and on-disk format, on a single CUDA card. When
+API, cache directory layout and on-disk format, on one CUDA card or, with
+``mesh=``, data-parallel over one process per card (the engine splits
+every batch; cache files are written by global rank 0 while the other
+ranks wait at a barrier). When
 one raw-image dataset serves both the subject model and the foundation model,
 ``_compute_concept_db`` runs the fused single pass
 (:meth:`~semanticlens_tpu_torch.collect.engine.CollectEngine.run_fused`).
@@ -34,6 +37,7 @@ import torch
 from semanticlens_tpu_torch.collect.activation_caching import ActMaxCache
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
 from semanticlens_tpu_torch.collect.engine import CollectEngine, EmbedSink
+from semanticlens_tpu_torch.core.mesh import all_gather, barrier, check_mesh, is_writer
 from semanticlens_tpu_torch.data.dataset import _extract_image, device_prefetch_batches, iter_batches, prefetch_batches
 from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
 from semanticlens_tpu_torch.ops import aggregators
@@ -60,6 +64,8 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
     num_samples : top-k examples kept per component.
     aggregate_fn : activation reducer; defaults to spatial mean.
     cache_dir : root for cached artifacts; None disables caching.
+    mesh : optional ``DeviceMesh`` (``core.data_mesh()``): every rank runs
+        the visualizer on its rows of each batch (see ``CollectEngine``).
     params : optional explicit parameter dict.
     model_preprocess : optional device-side fn mapping a raw batch (uint8
         NHWC) to the subject model's input; defaults to a float32 cast.
@@ -74,9 +80,11 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         num_samples: int,
         aggregate_fn=None,
         cache_dir: str | None = None,
+        mesh=None,
         params=None,
         model_preprocess=None,
     ):
+        self.mesh = check_mesh(mesh)
         self.model = model
         self.params = params if params is not None else getattr(model, "params", None)
         if self.params is None:
@@ -103,6 +111,7 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
             layer_names=self.layer_names,
             aggregation_fn=aggregate_fn,
             n_collect=num_samples,
+            mesh=mesh,
             input_preprocess=model_preprocess,
         )
         if self.caching:
@@ -186,9 +195,15 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         states, n_seen = self.engine.run(self.params, self.dataset, batch_size, checkpoint_dir=ckpt_dir,
                                          checkpoint_every=self._every(ckpt_dir, checkpoint, batch_size))
         self._ingest(states, n_seen)
-        if ckpt_dir is not None:
-            self.engine.clear_checkpoint(ckpt_dir)
+        self._clear_checkpoint(ckpt_dir)
         return self.actmax_cache.cache
+
+    def _clear_checkpoint(self, ckpt_dir):
+        """Remove a finished sweep's checkpoint (global rank 0 under a mesh, then a barrier)."""
+        if ckpt_dir is not None and is_writer(self.mesh):
+            self.engine.clear_checkpoint(ckpt_dir)
+        if self.mesh is not None:
+            barrier()
 
     def _ingest(self, states, n_seen: int):
         for name, state in states.items():
@@ -196,8 +211,10 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
             act_max.n_latents = int(state.values.shape[0])
             act_max.state = state
             self.actmax_cache.sample_idx_counter[name] = n_seen
-        if self._cache_root is not None:
+        if self._cache_root is not None and is_writer(self.mesh):
             self.actmax_cache.store(self.storage_dir)
+        if self.mesh is not None:
+            barrier()
 
     def _compute_concept_db(self, fm, batch_size: int = 32, checkpoint: int = 512, **kwargs):
         """Collect, embed the full FM dataset, gather per-component embeddings.
@@ -233,11 +250,13 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
 
         With ``checkpoint`` and a cache root the sweep persists under
         ``storage_dir/_checkpoint-fused``, cleared only once the actmax cache
-        is stored (clearing first would reopen the crash window).
+        is stored (clearing first would reopen the crash window). The batch
+        is already this rank's rows, so the FM's unsplit encode embeds it.
         """
+        encode = _local_encoder(fm)
 
         def embed_fn(raw_device_batch):
-            return fm.encode_image(fm.preprocess(raw_device_batch))
+            return encode(fm.preprocess(raw_device_batch))
 
         ckpt_dir = self._checkpoint_dir("fused", checkpoint)
         states, embeds, n_seen = self.engine.run_fused(
@@ -247,8 +266,7 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         self._ingest(states, n_seen)
         if embeds.shape[0] != n_seen:
             raise RuntimeError("Number of embeddings does not match number of ids!")
-        if ckpt_dir is not None:
-            self.engine.clear_checkpoint(ckpt_dir)
+        self._clear_checkpoint(ckpt_dir)
         return embeds
 
     def _embed_vision_dataset(self, fm, batch_size: int, checkpoint: int = 512, **kwargs) -> np.ndarray:
@@ -259,11 +277,15 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         finished rows persist every ``checkpoint`` samples under
         ``storage_dir/_checkpoint-embed`` (the fused sweep's chunk format,
         ``progress.json`` holding ``next_start`` only) and an interrupted
-        embed resumes from there.
+        embed resumes from there. Under a mesh each rank embeds its rows of
+        every batch and the rows are all-gathered in order, as in the fused
+        pass.
         """
         n = len(self.dataset_fm)
         ckpt_dir = self._checkpoint_dir("embed", checkpoint)
         every = self._every(ckpt_dir, checkpoint, batch_size)
+        shard, n_shards, encode = self.engine.shard, self.engine.n_shards, _local_encoder(fm)
+        self.engine._check_batch(batch_size)
         resume_start, sink = 0, EmbedSink()
         if ckpt_dir is not None and (ckpt_dir / "progress.json").exists():
             resume_start = int(json.loads((ckpt_dir / "progress.json").read_text())["next_start"])
@@ -272,16 +294,23 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         batches_done = 0
         with torch.inference_mode():
             for images, start, _ in device_prefetch_batches(
-                prefetch_batches(iter_batches(self.dataset_fm, batch_size, start_index=resume_start)), fm.device
+                prefetch_batches(iter_batches(self.dataset_fm, batch_size, start_index=resume_start,
+                                              part=(shard, n_shards))), fm.device
             ):
-                sink.add(fm.encode_image(fm.preprocess(images)))
+                emb = encode(fm.preprocess(images))
+                sink.add(emb if n_shards == 1 else all_gather(emb, self.engine.group).flatten(0, 1))
                 batches_done += 1
                 if self.engine._due(ckpt_dir, every, batches_done):
-                    sink.commit(ckpt_dir, start + batch_size)
-                    (ckpt_dir / "progress.json").write_text(json.dumps({"next_start": int(start + batch_size)}))
+                    next_start = self.engine._next_start(start, batch_size)
+                    if is_writer(self.mesh):
+                        sink.commit(ckpt_dir, next_start)
+                        (ckpt_dir / "progress.json").write_text(json.dumps({"next_start": int(next_start)}))
+                    else:
+                        sink.drain()
+                    if self.mesh is not None:
+                        barrier()
         embeds = sink.table(n)
-        if ckpt_dir is not None:
-            self.engine.clear_checkpoint(ckpt_dir)
+        self._clear_checkpoint(ckpt_dir)
         if embeds.shape[0] != n:
             raise RuntimeError("Number of embeddings does not match number of ids!")
         return embeds
@@ -358,6 +387,12 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
     def _check_layer_name(self, layer_name: str):
         if layer_name not in self.layer_names:
             raise ValueError(f"Layer '{layer_name}' not found in model layers: {self.layer_names}")
+
+
+def _local_encoder(fm):
+    """The FM's encode of the rows it is given: ``encode_image_local`` where the tower splits
+    ``encode_image`` over a data mesh, else ``encode_image``."""
+    return getattr(fm, "encode_image_local", fm.encode_image)
 
 
 def _make_grid(imgs: list[np.ndarray], nrow: int = 3) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Streaming Collect engine: forward → aggregate → top-k, batch by batch on the card.
 
-Counterpart of ``semanticlens_tpu.collect.engine`` (one device, no mesh).
-Per batch: the uint8 images upload once (pinned memory, side stream), are
-normalized on the device by ``input_preprocess``, run through the tapped
+Counterpart of ``semanticlens_tpu.collect.engine``. Per batch: the uint8
+images upload once (pinned memory, side stream), are normalized on the
+device by ``input_preprocess``, run through the tapped
 subject model, each tap is aggregated to (B, C), padded rows are set to −inf
 and the batch is merged into the per-layer :class:`TopKState`. Sample ids
 derive from the batch start and the dataset length, as in the JAX package.
@@ -18,6 +18,25 @@ checkpointed by either package resumes in the other:
 ``state-{layer}.safetensors`` (``values`` bf16, ``ids`` int32),
 ``embeds-{first row:012d}.safetensors`` (``embeds`` f32) and
 ``progress.json`` (``next_start``, ``layers``).
+
+With ``mesh=`` (a ``DeviceMesh`` from :mod:`semanticlens_tpu_torch.core`,
+one process per card) the sweep is data-parallel as the JAX engine's
+``shard_map`` path is: rank ``r`` of ``W`` on the ``"data"`` axis takes
+rows ``[r·B/W, (r+1)·B/W)`` of every global batch of ``B`` (the sample ids
+the JAX engine gives shard ``r``), keeps its own (C, k) state, and the
+final states are all-gathered to (W, C, k) and merged by
+``ops.topk.topk_merge``: every rank returns the same states, whose ids are
+the JAX meshed run's. ``run_fused`` all-gathers each batch's embedding rows
+in global order, so every rank holds the (N, D) table. Checkpoints under a
+data mesh keep the JAX meshed layout: ``state-{layer}`` holds (W, C, k)
+values and ids, written by global rank 0 after a gather, followed by a
+barrier, so a sweep checkpointed by either package at ``W`` shards resumes
+in the other at world ``W``. A mesh with a ``"model"`` axis
+(``core.data_model_mesh``) selects the tensor-parallel mode: the caller's
+parameters are DTensors (``parallel.shard_params``), the forward runs
+unchanged under ``implicit_replication``, and the taps are gathered whole
+before aggregation, so the top-k state is the same on every rank of a
+model group.
 
 The JAX engine memoizes its jitted step and keys the memo on
 ``interventions_fingerprint`` (a step traced inside an ``interventions``
@@ -36,9 +55,18 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from semanticlens_tpu_torch.core.mesh import (
+    all_gather,
+    barrier,
+    full_tensor,
+    is_tensor_parallel,
+    is_writer,
+    mesh_axis,
+    tensor_parallel_region,
+)
 from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, get_image, iter_batches
 from semanticlens_tpu_torch.models.base import SubjectModel
-from semanticlens_tpu_torch.ops.topk import TopKState, init_topk, topk_update
+from semanticlens_tpu_torch.ops.topk import TopKState, init_topk, topk_merge, topk_update
 from semanticlens_tpu_torch.utils import safetensors_io
 
 logger = logging.getLogger(__name__)
@@ -98,6 +126,9 @@ class CollectEngine:
     layer_names : taps to collect.
     aggregation_fn : reduces raw taps to (B, n_components).
     n_collect : top-k per component.
+    mesh : optional ``DeviceMesh`` with a ``"data"`` axis (data parallelism;
+        the batch size must be divisible by the axis size) and optionally a
+        ``"model"`` axis (tensor parallelism over DTensor parameters).
     input_preprocess : optional device-side fn applied to each raw batch
         before the model (e.g. uint8 → normalized float). Defaults to a
         float32 cast.
@@ -109,6 +140,7 @@ class CollectEngine:
         layer_names: Sequence[str],
         aggregation_fn: Callable,
         n_collect: int,
+        mesh=None,
         input_preprocess: Callable | None = None,
     ):
         self.model = model
@@ -116,10 +148,19 @@ class CollectEngine:
         self.layer_names = tuple(layer_names)
         self.aggregation_fn = aggregation_fn
         self.n_collect = n_collect
+        self.n_shards, self.shard, self.group = mesh_axis(mesh, "data")
+        self.mesh = mesh
+        self.tensor_parallel = is_tensor_parallel(mesh)  # DTensor parameters (``shard_params``)
         self.input_preprocess = input_preprocess or (lambda x: x.to(torch.float32))
 
     def _aggregate(self, params, images):
-        _, taps = self.model.apply(params, self.input_preprocess(images), self.layer_names)
+        x = self.input_preprocess(images)
+        if self.tensor_parallel:
+            with tensor_parallel_region():
+                _, taps = self.model.apply(params, x, self.layer_names)
+                taps = {name: full_tensor(t) for name, t in taps.items()}
+        else:
+            _, taps = self.model.apply(params, x, self.layer_names)
         return {name: self.aggregation_fn(taps[name]).to(torch.float32) for name in self.layer_names}
 
     def infer_n_latents(self, params, dataset) -> dict[str, int]:
@@ -150,27 +191,58 @@ class CollectEngine:
                 "sweep into sub-2^31 shards (id_offset keeps ids global)"
             )
 
+    def _check_batch(self, batch_size: int):
+        if batch_size % self.n_shards:
+            raise ValueError(f"batch_size {batch_size} must be divisible by data-parallel degree {self.n_shards}")
+
     def _init_states(self, params, dataset):
         n_latents = self.infer_n_latents(params, dataset)
         return {name: init_topk(c, self.n_collect, self.device) for name, c in n_latents.items()}
+
+    def _gather_states(self, states):
+        """Every data rank's states stacked to (W, C, k) values and ids."""
+        return {name: TopKState(values=all_gather(st.values, self.group), ids=all_gather(st.ids, self.group))
+                for name, st in states.items()}
+
+    def _finalize(self, states):
+        """The merged (C, k) states, the same on every rank (one shard: the states themselves)."""
+        if self.n_shards == 1:
+            return states
+        return {name: topk_merge(st) for name, st in self._gather_states(states).items()}
+
+    def _batches(self, dataset, batch_size: int, start_index: int):
+        return device_prefetch_batches(
+            iter_batches(dataset, batch_size, start_index=start_index, part=(self.shard, self.n_shards)), self.device
+        )
 
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, directory, states, next_start: int):
         """Persist the running top-k states; a resumed sweep starts at ``next_start``.
 
-        ``progress.json`` is written last: it commits the state files.
+        ``progress.json`` is written last: it commits the state files. Under
+        a data mesh every rank calls this: the states are gathered to
+        (W, C, k), global rank 0 writes, and all ranks meet at a barrier.
         """
-        directory = Path(directory)
-        directory.mkdir(parents=True, exist_ok=True)
-        for name, st in states.items():
-            safetensors_io.save_file({"values": st.values.to(torch.bfloat16), "ids": st.ids.to(torch.int32)},
-                                     directory / f"state-{name}.safetensors")
-        (directory / "progress.json").write_text(
-            json.dumps({"next_start": int(next_start), "layers": list(states)})
-        )
+        if self.n_shards > 1:
+            states = self._gather_states(states)
+        if is_writer(self.mesh):
+            directory = Path(directory)
+            directory.mkdir(parents=True, exist_ok=True)
+            for name, st in states.items():
+                safetensors_io.save_file({"values": st.values.to(torch.bfloat16), "ids": st.ids.to(torch.int32)},
+                                         directory / f"state-{name}.safetensors")
+            (directory / "progress.json").write_text(
+                json.dumps({"next_start": int(next_start), "layers": list(states)})
+            )
+        if self.mesh is not None:
+            barrier()
 
     def load_checkpoint(self, directory):
-        """``(states on the engine's device, next_start)``, or None without a checkpoint."""
+        """``(states on the engine's device, next_start)``, or None without a checkpoint.
+
+        Under a data mesh of ``W`` ranks the files hold (W, C, k) states
+        (either package's meshed layout) and each rank takes its own.
+        """
         directory = Path(directory)
         progress = directory / "progress.json"
         if not progress.exists():
@@ -179,7 +251,15 @@ class CollectEngine:
         states = {}
         for name in meta["layers"]:
             t = safetensors_io.load_file(directory / f"state-{name}.safetensors")
-            states[name] = TopKState(values=t["values"].to(self.device), ids=t["ids"].to(self.device))
+            values, ids = t["values"], t["ids"]
+            want = 3 if self.n_shards > 1 else 2
+            if values.ndim != want or (want == 3 and values.shape[0] != self.n_shards):
+                raise ValueError(f"checkpoint {directory} holds {tuple(values.shape)} states for layer {name}; "
+                                 f"a sweep over {self.n_shards} data shard(s) resumes from "
+                                 f"{'(W=%d, C, k)' % self.n_shards if want == 3 else '(C, k)'} states")
+            if want == 3:
+                values, ids = values[self.shard], ids[self.shard]
+            states[name] = TopKState(values=values.to(self.device), ids=ids.to(self.device))
         return states, int(meta["next_start"])
 
     @staticmethod
@@ -253,6 +333,7 @@ class CollectEngine:
         n = len(dataset)
         if n == 0:
             return {name: init_topk(1, self.n_collect, self.device) for name in self.layer_names}, 0
+        self._check_batch(batch_size)
         self._check_id_range(n, id_offset)
         loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
         if loaded is not None:
@@ -262,14 +343,16 @@ class CollectEngine:
             states, resume_start = self._init_states(params, dataset), 0
         batches_done = 0
         with torch.inference_mode():
-            for images, start, _ in device_prefetch_batches(
-                iter_batches(dataset, batch_size, start_index=resume_start), self.device
-            ):
+            for images, start, _ in self._batches(dataset, batch_size, resume_start):
                 states = self._step(states, params, images, start + id_offset, n + id_offset)
                 batches_done += 1
                 if self._due(checkpoint_dir, checkpoint_every, batches_done):
-                    self.save_checkpoint(checkpoint_dir, states, start + batch_size)
-        return states, n
+                    self.save_checkpoint(checkpoint_dir, states, self._next_start(start, batch_size))
+            return self._finalize(states), n
+
+    def _next_start(self, start: int, batch_size: int) -> int:
+        """The global batch after the one whose rank-local first row is ``start``."""
+        return start - self.shard * (batch_size // self.n_shards) + batch_size
 
     def run_fused(
         self,
@@ -291,12 +374,17 @@ class CollectEngine:
         persist, the embedding chunk before ``progress.json`` commits it, and
         an interrupted sweep resumes from the last commit.
 
+        Under a data mesh ``embed_fn`` embeds this rank's rows only, and
+        each batch's rows are all-gathered in global order before they
+        reach the sink.
+
         Returns ``({layer: TopKState}, embeds (N, D) float32 numpy, n)``.
         """
         n = len(dataset)
         if n == 0:
             states = {name: init_topk(1, self.n_collect, self.device) for name in self.layer_names}
             return states, np.zeros((0, 1), np.float32), 0
+        self._check_batch(batch_size)
         self._check_id_range(n, id_offset)
         loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
         if loaded is not None:
@@ -307,16 +395,19 @@ class CollectEngine:
             states, resume_start, sink = self._init_states(params, dataset), 0, EmbedSink()
         batches_done = 0
         with torch.inference_mode():
-            for images, start, _ in device_prefetch_batches(
-                iter_batches(dataset, batch_size, start_index=resume_start), self.device
-            ):
+            for images, start, _ in self._batches(dataset, batch_size, resume_start):
                 states = self._step(states, params, images, start + id_offset, n + id_offset)
-                sink.add(embed_fn(images))
+                emb = embed_fn(images)
+                sink.add(emb if self.n_shards == 1 else all_gather(emb, self.group).flatten(0, 1))
                 batches_done += 1
                 if self._due(checkpoint_dir, checkpoint_every, batches_done):
-                    sink.commit(checkpoint_dir, start + batch_size)
-                    self.save_checkpoint(checkpoint_dir, states, start + batch_size)
-        return states, sink.table(n), n
+                    next_start = self._next_start(start, batch_size)
+                    if is_writer(self.mesh):
+                        sink.commit(checkpoint_dir, next_start)
+                    else:
+                        sink.drain()
+                    self.save_checkpoint(checkpoint_dir, states, next_start)
+            return self._finalize(states), sink.table(n), n
 
 
 __all__ = ["CollectEngine", "TopKState"]

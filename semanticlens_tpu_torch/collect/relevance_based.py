@@ -25,10 +25,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from semanticlens_tpu_torch.collect.activation_caching import ActMaxCache
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
 from semanticlens_tpu_torch.collect.engine import CollectEngine
+from semanticlens_tpu_torch.core.mesh import all_reduce, barrier, check_mesh, is_writer, mesh_axis
 from semanticlens_tpu_torch.data.dataset import Subset, get_image
 from semanticlens_tpu_torch.models.base import validate_layers
 from semanticlens_tpu_torch.models.torch_adapter import TorchSubjectModel
@@ -65,7 +67,11 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
         device is used.
     num_samples : top examples kept per component.
     plot_fn : heatmap renderer (default: square crop).
-    mesh : multi-device collect is not ported; must be None.
+    mesh : optional ``DeviceMesh``: the activation sweep is data-parallel
+        (``CollectEngine``), and ``_compute_concept_db`` splits the
+        components over the ranks, each attributing and embedding its own,
+        before the concept DB is summed across ranks. Cache files are
+        written by global rank 0.
     """
 
     def __init__(
@@ -85,8 +91,7 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
         params=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise ValueError("multi-device collect is not ported; pass mesh=None")
+        self.mesh = check_mesh(mesh)
         layer_names = [layer_names] if not isinstance(layer_names, list) else layer_names
         self.model = model
         self.params = params if params is not None else getattr(model, "params", None)
@@ -129,6 +134,7 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
             layer_names=self.layer_names,
             aggregation_fn=agg,
             n_collect=num_samples,
+            mesh=mesh,
             input_preprocess=preprocess_fn,
         )
         self._attribution_fns: dict[str, object] = {}
@@ -204,9 +210,12 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
             act_max.n_latents = int(state.values.shape[0])
             act_max.state = state
             self.actmax_cache.sample_idx_counter[name] = n_seen
-        self.actmax_cache.store(self.storage_dir)
-        if ckpt_dir is not None and ckpt_dir.exists():
-            shutil.rmtree(ckpt_dir)  # the stored ActMax files supersede it
+        if is_writer(self.mesh):
+            self.actmax_cache.store(self.storage_dir)
+            if ckpt_dir is not None and ckpt_dir.exists():
+                shutil.rmtree(ckpt_dir)  # the stored ActMax files supersede it
+        if self.mesh is not None:
+            barrier()
         self._ran = True
         return self.actmax_cache.cache
 
@@ -295,7 +304,8 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
     def _compute_concept_db(self, fm, batch_size: int = 32, n_ref: int | None = None, **kwargs):
         """Embed each component's attribution-cropped top examples.
 
-        The crops of all components are encoded in flat batches of
+        Under a mesh each rank takes a contiguous run of components. The
+        crops of all (its) components are encoded in flat batches of
         ``batch_size`` (the last padded with its first crop); unfilled slots
         are zero rows. Returns ``{layer: (n_components, n_ref, D) float32 numpy}``.
         """
@@ -303,10 +313,14 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
             self.run(batch_size=batch_size)
         n_ref = n_ref or self.num_samples
 
+        size, rank, group = mesh_axis(self.mesh, "data")
+        encode = getattr(fm, "encode_image_local", fm.encode_image)
         concept_db = {}
         for layer_name in self.layer_names:
             n_components = self.get_act_max_sample_ids(layer_name).shape[0]
-            refs = self.get_max_reference(list(range(n_components)), layer_name, n_ref, batch_size)
+            per = -(-n_components // size)  # this rank's contiguous run of components
+            mine = list(range(min(rank * per, n_components), min((rank + 1) * per, n_components)))
+            refs = self.get_max_reference(mine, layer_name, n_ref, batch_size) if mine else {}
 
             flat: list = []
             spans: dict[int, tuple[int, int]] = {}
@@ -320,12 +334,16 @@ class RelevanceComponentVisualizer(AbstractComponentVisualizer):
                     for s in range(0, len(flat), batch_size):
                         chunk = flat[s : s + batch_size]
                         chunk = chunk + [chunk[0]] * (batch_size - len(chunk))
-                        rows.append(fm.encode_image(fm.preprocess(chunk)).float())
+                        rows.append(encode(fm.preprocess(chunk)).float())
                 encoded_rows = torch.cat(rows).cpu().numpy()[: len(flat)]
             embed_dim = encoded_rows.shape[-1] if encoded_rows is not None else 1
+            if size > 1:  # a rank without crops learns the width from the others
+                embed_dim = int(all_reduce(torch.tensor(embed_dim), group, dist.ReduceOp.MAX))
             db = np.zeros((n_components, n_ref, embed_dim), np.float32)
             for cid, (lo, hi) in spans.items():
                 db[cid, : hi - lo] = encoded_rows[lo:hi]
+            if size > 1:  # each component's rows come from exactly one rank
+                db = all_reduce(torch.from_numpy(db), group).numpy()
             concept_db[layer_name] = db
         return concept_db
 

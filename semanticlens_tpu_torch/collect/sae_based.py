@@ -35,7 +35,8 @@ class SAEComponentVisualizer(ActivationComponentVisualizer):
     k : override of the encode-time TopK sparsity (0 = ReLU encoder);
         defaults to the stored value; raises if neither is available or
         both are given and disagree.
-    mesh : multi-device collect is not ported; must be None.
+    mesh : optional ``DeviceMesh``: data-parallel collect, and data-parallel
+        training in :meth:`train` (see ``sae.train_sae_on_layer``).
 
     The per-image score of a latent defaults to the max of its code over
     positions (``aggregate_max_auto``): sparse codes make the mean
@@ -58,8 +59,6 @@ class SAEComponentVisualizer(ActivationComponentVisualizer):
         params=None,
         model_preprocess=None,
     ):
-        if mesh is not None:
-            raise ValueError("multi-device collect is not ported (ROADMAP queue 1 item 13); pass mesh=None")
         base_params = params if params is not None else getattr(model, "params", None)
         if base_params is None:
             raise ValueError("Model weights required: pass `params=` or set `model.params`.")
@@ -74,6 +73,7 @@ class SAEComponentVisualizer(ActivationComponentVisualizer):
             num_samples=num_samples,
             aggregate_fn=aggregate_fn or aggregators.aggregate_max_auto,
             cache_dir=cache_dir,
+            mesh=mesh,
             params=wrapped.params,
             model_preprocess=model_preprocess,
         )

@@ -28,6 +28,7 @@ import torch
 
 from semanticlens_tpu_torch.collect.activation_based import _make_grid, _to_uint8, write_png
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
+from semanticlens_tpu_torch.core.mesh import barrier, check_mesh, is_writer
 from semanticlens_tpu_torch.featviz import SynthesisConfig, synthesize
 from semanticlens_tpu_torch.models.base import validate_layers
 from semanticlens_tpu_torch.utils import safetensors_io
@@ -59,6 +60,10 @@ class SynthesisComponentVisualizer(AbstractComponentVisualizer):
         that changes the pixels or gallery shape (config, seed, image_size,
         n_components, max_batch, aggregator), and a loaded gallery is
         shape-validated with fallback to re-synthesis.
+    mesh : optional ``DeviceMesh``: each ``synthesize`` call splits its
+        canvases over the ``"data"`` axis (``max_batch``, and a single
+        shorter chunk, must be multiples of its size); global rank 0 writes
+        the gallery.
     """
 
     def __init__(
@@ -77,8 +82,10 @@ class SynthesisComponentVisualizer(AbstractComponentVisualizer):
         cache_dir: str | None = None,
         params=None,
         loop: str = "host",
+        mesh=None,
     ):
         validate_layers(model, layer_names)
+        self.mesh = check_mesh(mesh)
         self.model = model
         self.params = params if params is not None else model.params
         self.layer_names = list(layer_names)
@@ -158,8 +165,10 @@ class SynthesisComponentVisualizer(AbstractComponentVisualizer):
             ):
                 continue
             self._synthesize_layer(layer_name)
-            if self.caching:
+            if self.caching and is_writer(self.mesh):
                 self._save_gallery(layer_name)
+            if self.caching and self.mesh is not None:
+                barrier()
         return self.gallery
 
     def _synthesize_layer(self, layer_name: str) -> None:
@@ -186,6 +195,7 @@ class SynthesisComponentVisualizer(AbstractComponentVisualizer):
                 config=self.config,
                 seed=self.seed + start,
                 loop=self.loop,
+                mesh=self.mesh,
             )
             for i, (c, v) in enumerate(items[start : start + self.max_batch]):
                 imgs[c, v] = images[i]

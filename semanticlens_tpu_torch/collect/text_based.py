@@ -126,7 +126,7 @@ class TextActivationComponentVisualizer(ActivationComponentVisualizer):
     D)), and the engine's input preprocess keeps tokens integer (the
     default float32 cast would break the embedding gather). ``dataset_fm``
     must yield strings (:meth:`TokenTextDataset.texts_view`). ``mesh``:
-    multi-device collect waits for ROADMAP queue 1 item 13; must be None.
+    data-parallel collect over the token batches, as for images.
     """
 
     def __init__(
@@ -142,8 +142,6 @@ class TextActivationComponentVisualizer(ActivationComponentVisualizer):
         params=None,
         model_preprocess=None,
     ):
-        if mesh is not None:
-            raise ValueError("multi-device collect is not ported (ROADMAP queue 1 item 13); pass mesh=None")
         super().__init__(
             model,
             dataset_model,
@@ -152,6 +150,7 @@ class TextActivationComponentVisualizer(ActivationComponentVisualizer):
             num_samples,
             aggregate_fn=aggregate_fn or aggregators.aggregate_transformer_mean,
             cache_dir=cache_dir,
+            mesh=mesh,
             params=params,
             model_preprocess=model_preprocess or _keep_tokens_integer,
         )

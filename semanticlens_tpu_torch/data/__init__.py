@@ -5,10 +5,11 @@ from semanticlens_tpu_torch.data.dataset import (
     Batch,
     Subset,
     device_prefetch_batches,
+    host_shard_range,
     iter_batches,
     prefetch_batches,
 )
 from semanticlens_tpu_torch.data.image_folder import ImageFolder
 
-__all__ = ["ArrayDataset", "Batch", "ImageFolder", "Subset", "device_prefetch_batches", "iter_batches",
+__all__ = ["ArrayDataset", "Batch", "ImageFolder", "Subset", "device_prefetch_batches", "host_shard_range", "iter_batches",
            "prefetch_batches"]

@@ -17,6 +17,7 @@ uint8).
 
 from __future__ import annotations
 
+import inspect
 import queue
 import threading
 from typing import Iterator, NamedTuple
@@ -101,7 +102,8 @@ def _extract_image(item):
     return item
 
 
-def iter_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[Batch]:
+def iter_batches(dataset, batch_size: int, *, start_index: int = 0, part: tuple[int, int] = (0, 1)
+                 ) -> Iterator[Batch]:
     """Yield fixed-shape :class:`Batch` es in dataset order.
 
     The final short batch is zero-padded to ``batch_size`` with
@@ -109,46 +111,95 @@ def iter_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[
     boundary of an earlier run. A dataset with its own
     ``iter_batches(batch_size, pad_last=, start_index=)`` (the JAX
     package's protocol) produces the batches itself.
+
+    ``part=(rank, world)`` yields only rank ``rank``'s rows of each global
+    batch, rows ``[rank·B/W, (rank+1)·B/W)`` (``W`` must divide ``B``):
+    the data-parallel split of the collect engine, each batch's
+    ``start_index`` being its first row's global index. A dataset whose
+    ``iter_batches`` takes ``part`` (``ImageFolder``) reads only those
+    rows; one that does not is read whole and sliced.
     """
+    rank, world = part
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must be divisible by data-parallel degree {world}")
     custom = getattr(dataset, "iter_batches", None)
-    if custom is not None:
-        yield from custom(batch_size, pad_last=True, start_index=start_index)
+    if custom is not None and "part" in inspect.signature(custom).parameters:
+        yield from custom(batch_size, pad_last=True, start_index=start_index, part=part)
         return
-    yield from assemble_batches(dataset, batch_size, start_index=start_index)
+    if custom is not None:
+        per = batch_size // world
+        for b in custom(batch_size, pad_last=True, start_index=start_index):
+            lo = rank * per
+            yield b if world == 1 else Batch(b.images[lo : lo + per], b.start_index + lo, b.valid[lo : lo + per],
+                                             getattr(b, "ready", None))
+        return
+    yield from assemble_batches(dataset, batch_size, start_index=start_index, part=part)
 
 
-def assemble_batches(dataset, batch_size: int, *, start_index: int = 0) -> Iterator[Batch]:
+def assemble_batches(dataset, batch_size: int, *, start_index: int = 0, part: tuple[int, int] = (0, 1)
+                     ) -> Iterator[Batch]:
     """The batches of :func:`iter_batches`, assembled from the dataset's images, ``get_batch`` or items.
 
     A CUDA tensor from ``get_batch`` stays on the card: it is padded there,
-    and an event is recorded on the current stream after it.
+    and an event is recorded on the current stream after it. With
+    ``part=(rank, world)`` only that rank's rows of each batch are read.
     """
     n = len(dataset)
+    rank, world = part
+    per = batch_size // world
     fast_images = getattr(dataset, "images", None)
     get_batch = getattr(dataset, "get_batch", None)
+    template = None  # no rows, of the type and image shape of this rank's last block
     for start in range(start_index, n, batch_size):
-        stop = min(start + batch_size, n)
-        if fast_images is not None:
-            block = np.asarray(fast_images[start:stop])
+        lo = min(start + rank * per, n)
+        stop = min(lo + per, n)
+        if stop == lo:  # a rank whose rows all lie past the end of the data: padding only
+            if template is None:
+                probe = get_image(dataset, 0)
+                template = np.zeros((0, *probe.shape), probe.dtype)
+            block = template
+        elif fast_images is not None:
+            block = np.asarray(fast_images[lo:stop])
         elif get_batch is not None:
-            block = get_batch(start, stop)
+            block = get_batch(lo, stop)
             if not isinstance(block, torch.Tensor):
                 block = np.asarray(block)
         else:
-            block = np.stack([np.asarray(_extract_image(dataset[i])) for i in range(start, stop)])
-        valid = np.ones(batch_size, bool)
-        if stop - start < batch_size:
-            pad = batch_size - (stop - start)
+            block = np.stack([np.asarray(_extract_image(dataset[i])) for i in range(lo, stop)])
+        template = block[:0]
+        valid = np.ones(per, bool)
+        if stop - lo < per:
+            pad = per - (stop - lo)
             if isinstance(block, torch.Tensor):
                 block = torch.cat([block, block.new_zeros((pad, *block.shape[1:]))])
             else:
                 block = np.concatenate([block, np.zeros((pad, *block.shape[1:]), block.dtype)])
-            valid[stop - start :] = False
+            valid[stop - lo :] = False
         ready = None
         if isinstance(block, torch.Tensor) and block.is_cuda:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(block.device))
-        yield Batch(images=block, start_index=start, valid=valid, ready=ready)
+        yield Batch(images=block, start_index=start + rank * per, valid=valid, ready=ready)
+
+
+def host_shard_range(n_total: int, *, process_index: int | None = None, process_count: int | None = None):
+    """Contiguous ``[start, stop)`` sample range owned by this process.
+
+    Multi-process collect (:mod:`semanticlens_tpu_torch.parallel.multihost`):
+    each process sweeps its own shard, with ids kept global through
+    ``id_offset``. Ranges are ``ceil(n / P)`` long, the last ones shorter
+    or empty. Defaults to ``torch.distributed``'s rank and world size (0
+    and 1 without a process group).
+    """
+    import torch.distributed as dist
+
+    live = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if live else 0) if process_index is None else process_index
+    pc = (dist.get_world_size() if live else 1) if process_count is None else process_count
+    per = -(-n_total // pc)  # ceil
+    start = min(pi * per, n_total)
+    stop = min(start + per, n_total)
+    return start, stop
 
 
 def prefetch_batches(batch_iter: Iterator[Batch], depth: int = 2) -> Iterator[Batch]:

@@ -141,19 +141,22 @@ class ImageFolder:
             block[i] = self._decode(path)
         return block
 
-    def iter_batches(self, batch_size: int, pad_last: bool = True, start_index: int = 0):
+    def iter_batches(self, batch_size: int, pad_last: bool = True, start_index: int = 0,
+                     part: tuple[int, int] = (0, 1)):
         """Fixed-shape batches (``dataset.iter_batches``), decoded on a worker thread ahead of the consumer.
 
         On the card the worker decodes on a CUDA stream of its own and each
-        batch carries an event recorded after its last kernel.
+        batch carries an event recorded after its last kernel. With
+        ``part=(rank, world)`` only that rank's rows of each batch are
+        decoded (the data-parallel split of ``dataset.iter_batches``).
         """
 
         def decode():
             if self.device.type == "cpu":
-                yield from assemble_batches(self, batch_size, start_index=start_index)
+                yield from assemble_batches(self, batch_size, start_index=start_index, part=part)
                 return
             with torch.cuda.stream(torch.cuda.Stream(self.device)):
-                yield from assemble_batches(self, batch_size, start_index=start_index)
+                yield from assemble_batches(self, batch_size, start_index=start_index, part=part)
 
         return prefetch_batches(decode())
 

@@ -24,6 +24,12 @@ probing, labels and scores run on dataset-free concept databases.
   the two packages agree on a given init and draw stream, not per seed.
 - ``loop="host"`` and ``loop="scan"`` run the same steps with the same
   draws and are bit-equal (the JAX package's promise for its two modes).
+- ``mesh=`` splits the K canvases over the ranks of the ``"data"`` axis
+  (K must be a multiple of its size). Every rank draws the whole stream,
+  the K canvases' init and flips and each step's offset, and takes its own
+  canvases by index; the loss is summed over the local canvases and
+  divided by the global K, so each canvas takes the step the one-device
+  run gives it, and the gathered gallery is the one-device gallery.
   The port runs eagerly and memoizes no program (:func:`clear_programs`).
 """
 
@@ -32,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from semanticlens_tpu_torch.core.mesh import all_gather, all_reduce, mesh_axis
 from semanticlens_tpu_torch.sae import Adam
 
 __all__ = ["synthesize", "SynthesisConfig", "clear_programs"]
@@ -119,8 +126,14 @@ def _forward_objective(model, params, layer_name, aggregate_fn, model_preprocess
     return _agg_component(taps[layer_name], ids, aggregate_fn)
 
 
-def _loss(model, params, layer_name, aggregate_fn, model_preprocess, cfg, image_size, z, ids, offset, flip):
-    """``(mean(reg − obj), mean(obj))`` for one step's window ``offset`` (oy, ox) and ``flip`` (K,) mask."""
+def _loss(model, params, layer_name, aggregate_fn, model_preprocess, cfg, image_size, z, ids, offset, flip,
+          k_total=None):
+    """``(mean(reg − obj), mean(obj))`` for one step's window ``offset`` (oy, ox) and ``flip`` (K,) mask.
+
+    With ``k_total`` (these canvases are a rank's part of ``k_total``) the
+    sums over the local canvases are divided by ``k_total`` instead: each
+    rank's share of the global means.
+    """
     img = torch.sigmoid(z)
     if cfg.jitter > 0:
         oy, ox = offset
@@ -130,6 +143,8 @@ def _loss(model, params, layer_name, aggregate_fn, model_preprocess, cfg, image_
     obj = _forward_objective(model, params, layer_name, aggregate_fn, model_preprocess, img, ids)
     reg = cfg.l2 * torch.mean((img - 0.5) ** 2, dim=(1, 2, 3)) + cfg.tv * _total_variation(img)
     # ascend the objective, descend the regularizers; scale-free mean
+    if k_total is not None:
+        return torch.sum(reg - obj) / k_total, torch.sum(obj) / k_total
     return torch.mean(reg - obj), torch.mean(obj)
 
 
@@ -168,8 +183,9 @@ def synthesize(
     return_trace : also return the (steps,) mean-objective trajectory.
     loop : ``"host"`` (default) or ``"scan"``; the same steps either way,
         bit-equal (the JAX package's two loop modes).
-    mesh : multi-device synthesis waits for ROADMAP queue 1 item 13 and
-        raises.
+    mesh : optional ``DeviceMesh``: the K canvases split over its
+        ``"data"`` axis (K must be a multiple of the axis size); every rank
+        returns the whole gallery.
 
     Returns
     -------
@@ -177,8 +193,7 @@ def synthesize(
     objective : (K,) float32 — final (un-augmented) component aggregates.
     trace : (steps,) float32, only when ``return_trace``.
     """
-    if mesh is not None:
-        raise ValueError("multi-device synthesis is not ported (ROADMAP queue 1 item 13); pass mesh=None")
+    size, rank, group = mesh_axis(mesh, "data")
     cfg = config or SynthesisConfig()
     ids_np = np.asarray(component_ids, np.int64)
     if ids_np.ndim != 1:
@@ -186,15 +201,19 @@ def synthesize(
     if loop not in ("scan", "host"):
         raise ValueError(f"loop must be 'scan' or 'host', got {loop!r}")
     k = int(ids_np.shape[0])
+    if k % size:
+        raise ValueError(f"K={k} canvases must divide the mesh size {size}")
     model_preprocess = model_preprocess or _identity
     device = getattr(model, "device", torch.device("cpu"))
     pad = cfg.jitter
-    ids = torch.as_tensor(ids_np, device=device)
+    mine = slice(rank * (k // size), (rank + 1) * (k // size))  # this rank's canvases
+    ids = torch.as_tensor(ids_np[mine], device=device)
 
     generator = torch.Generator().manual_seed(int(seed))
-    z = _init_canvas(cfg, k, image_size + 2 * pad, generator).to(device)
+    z = _init_canvas(cfg, k, image_size + 2 * pad, generator)[mine].to(device)
     offsets, flips = _draws(cfg, k, generator)
-    offsets, flips = offsets.tolist(), flips.to(device)
+    offsets, flips = offsets.tolist(), flips[:, mine].to(device)
+    k_total = k if size > 1 else None
     opt = Adam(cfg.lr)
     state = opt.init({"z": z})
     objs = []
@@ -202,7 +221,7 @@ def synthesize(
         leaf = z.detach().requires_grad_(True)
         with torch.enable_grad():
             loss, obj = _loss(model, params, layer_name, aggregate_fn, model_preprocess, cfg, image_size,
-                              leaf, ids, offsets[step], flips[step])
+                              leaf, ids, offsets[step], flips[step], k_total)
             (grad,) = torch.autograd.grad(loss, [leaf])
         with torch.no_grad():
             updates, state = opt.update({"z": grad}, state)
@@ -211,11 +230,14 @@ def synthesize(
     with torch.no_grad():
         img = torch.sigmoid(z)[:, pad : pad + image_size, pad : pad + image_size, :]
         objective = _forward_objective(model, params, layer_name, aggregate_fn, model_preprocess, img, ids)
+    trace = torch.stack(objs) if objs else torch.zeros(0, device=device)
+    if size > 1:  # the whole gallery on every rank, canvases in order; the trace's mean over all canvases
+        img, objective = all_gather(img, group).flatten(0, 1), all_gather(objective, group).flatten(0, 1)
+        trace = all_reduce(trace, group)
     images = img.to("cpu", torch.float32).numpy()
     objective = objective.to("cpu", torch.float32).numpy()
     if return_trace:
-        trace = torch.stack(objs).to("cpu", torch.float32).numpy() if objs else np.zeros((0,), np.float32)
-        return images, objective, trace
+        return images, objective, trace.to("cpu", torch.float32).numpy()
     return images, objective
 
 

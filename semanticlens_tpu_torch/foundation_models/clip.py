@@ -30,7 +30,12 @@ import torch
 
 from semanticlens_tpu_torch import convert
 from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
-from semanticlens_tpu_torch.foundation_models.common import init_from_specs
+from semanticlens_tpu_torch.foundation_models.common import (
+    init_from_specs,
+    shard_tower,
+    split_encode,
+    tensor_parallel_call,
+)
 from semanticlens_tpu_torch.foundation_models.tokenizer import ClipBpeTokenizer, HashTokenizer
 from semanticlens_tpu_torch.models.layers import (
     avg_pool,
@@ -430,6 +435,13 @@ class OpenClip(AbstractVLM):
     dtype : tower compute dtype.
     device : ``None`` → the CUDA card (raises without one), or ``"cpu"``.
     seed : numpy seed of the random weights used when none are given.
+    mesh : optional ``DeviceMesh``. With a ``"data"`` axis, ``encode_image``
+        called on every rank with the same batch encodes this rank's rows
+        and all-gathers them (``encode_image_local`` encodes the rows it is
+        given, for a batch that is already this rank's); with a ``"model"``
+        axis the parameters are tensor-sharded
+        (``parallel.clip_param_specs_2d``) and both towers run under
+        ``implicit_replication``.
     """
 
     def __init__(
@@ -445,6 +457,7 @@ class OpenClip(AbstractVLM):
         seed: int = 0,
         quick_gelu: bool | None = None,
         cfg: CLIPConfig | None = None,
+        mesh=None,
     ):
         self.url = url
         preset = _resolve_preset(url)
@@ -470,6 +483,10 @@ class OpenClip(AbstractVLM):
                 jax_params = init_clip_params_jax_layout(seed, self.cfg)
             params = convert.clip_params_from_jax(jax_params)
         self.params = place_clip_params(params, self.cfg, dtype, self.device)
+        from semanticlens_tpu_torch.parallel.tensor_parallel import clip_param_specs_2d
+
+        self.mesh = mesh
+        self.params = shard_tower(self.params, mesh, clip_param_specs_2d, self.cfg)
 
         if bpe_path is None:
             from semanticlens_tpu_torch.foundation_models.assets import find_clip_bpe
@@ -506,8 +523,13 @@ class OpenClip(AbstractVLM):
         return preprocess_images(x, size=size, crop=size, mean=self.cfg.mean, std=self.cfg.std)
 
     def encode_image(self, img):
+        return split_encode(self.mesh, self.encode_image_local, img)
+
+    def encode_image_local(self, img):
+        """Embeddings of exactly the rows given (no split over a data mesh)."""
         encode = vit_encode_image if self.cfg.vision.kind == "vit" else resnet_encode_image
-        return encode(self.params, self.cfg, img.to(self.device), dtype=self.dtype)
+        return tensor_parallel_call(self.mesh, lambda x: encode(self.params, self.cfg, x, dtype=self.dtype),
+                                    img.to(self.device))
 
     def tokenize(self, txt, context_length=None):
         ids = self.tokenizer(txt, context_length or self.context_length)
@@ -515,7 +537,8 @@ class OpenClip(AbstractVLM):
 
     def encode_text(self, text_input):
         tokens = torch.as_tensor(text_input, device=self.device)
-        return clip_encode_text(self.params, self.cfg, tokens, dtype=self.dtype)
+        return tensor_parallel_call(self.mesh, lambda t: clip_encode_text(self.params, self.cfg, t, dtype=self.dtype),
+                                    tokens)
 
 
 def _resolve_preset(url: str) -> str | None:

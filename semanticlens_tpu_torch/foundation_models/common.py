@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 
 def init_from_specs(seed: int, specs) -> dict[str, np.ndarray]:
@@ -31,3 +32,47 @@ def init_from_specs(seed: int, specs) -> dict[str, np.ndarray]:
             std = 0.02 if kind == "embed" else fan_in**-0.5
             params[name] = rng.standard_normal(shape, np.float32) * np.float32(std)
     return params
+
+
+def split_encode(mesh, encode_local, img):
+    """``encode_image`` under a data mesh: this rank's rows of the global batch, all-gathered.
+
+    Every rank calls it with the same (B, …) batch; rank ``r`` of ``W`` on
+    the ``"data"`` axis encodes rows ``[r·⌈B/W⌉, (r+1)·⌈B/W⌉)`` (the batch
+    zero-padded to a multiple of ``W``) and every rank returns the (B, D)
+    embeddings in row order, as ``img`` sharded on ``"data"`` does in the
+    JAX package. Without a mesh, ``encode_local(img)``.
+    """
+    from semanticlens_tpu_torch.core.mesh import all_gather, mesh_axis
+
+    size, rank, group = mesh_axis(mesh, "data")
+    if size == 1:
+        return encode_local(img)
+    b = img.shape[0]
+    per = -(-b // size)
+    if per * size != b:
+        img = torch.cat([img, img.new_zeros((per * size - b, *img.shape[1:]))])
+    return all_gather(encode_local(img[rank * per : (rank + 1) * per]), group).flatten(0, 1)[:b]
+
+
+def tensor_parallel_call(mesh, fn, *args):
+    """``fn(*args)`` as a plain tensor: under a ``"model"`` axis, run with DTensor parameters under
+    ``implicit_replication`` and gather the output whole."""
+    from semanticlens_tpu_torch.core.mesh import full_tensor, is_tensor_parallel, tensor_parallel_region
+
+    if not is_tensor_parallel(mesh):
+        return fn(*args)
+    with tensor_parallel_region():
+        return full_tensor(fn(*args))
+
+
+def shard_tower(params: dict, mesh, specs_fn, cfg) -> dict:
+    """The tower's parameters tensor-sharded by ``specs_fn(cfg)`` when the mesh has a ``"model"``
+    axis (``parallel.shard_params``); otherwise unchanged."""
+    from semanticlens_tpu_torch.core.mesh import check_mesh, is_tensor_parallel
+
+    if not is_tensor_parallel(check_mesh(mesh)):
+        return params
+    from semanticlens_tpu_torch.parallel.tensor_parallel import shard_params
+
+    return shard_params(params, mesh, specs_fn(cfg))

@@ -19,8 +19,9 @@ layout, in deployed form (``reparam_conv``) and in raw train form
 (MobileOne ``rbr_*`` branch sets, RepMixer ``mixer``/``norm`` pairs,
 conv+BN pairs), folding the branches with :mod:`.reparam`.
 
-Not ported yet (ROADMAP.md): ``mesh=`` (item 13) and ``quantize=`` (item 14)
-raise ``ValueError``.
+``mesh=`` splits ``encode_image`` over a data mesh, as in the JAX package
+(the convolutional tower has no tensor-parallel placements there either).
+Not ported yet (ROADMAP.md): ``quantize=`` (item 14) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from semanticlens_tpu_torch.foundation_models.clip import (
     place_params,
     torch_shape,
 )
-from semanticlens_tpu_torch.foundation_models.common import init_from_specs
+from semanticlens_tpu_torch.foundation_models.common import init_from_specs, split_encode
 from semanticlens_tpu_torch.foundation_models.tokenizer import ClipBpeTokenizer, HashTokenizer
 from semanticlens_tpu_torch.models.layers import conv2d, gelu, layer_norm, linear, scaled_dot_product_attention
 from semanticlens_tpu_torch.ops.preprocess import preprocess_images
@@ -280,7 +281,10 @@ class ClipMobile(AbstractVLM):
         else a HashTokenizer fallback is used.
     dtype / device / seed / cfg : as in
         :class:`~semanticlens_tpu_torch.foundation_models.clip.OpenClip`.
-    mesh, quantize : not ported yet; anything but ``None`` raises.
+    mesh : optional ``DeviceMesh``: ``encode_image`` called on every rank
+        with the same batch encodes this rank's rows of the ``"data"`` axis
+        and all-gathers them (``encode_image_local`` encodes the rows given).
+    quantize : not ported yet; anything but ``None`` raises.
     """
 
     URLs = dict(s1="MobileCLIP-S1", s2="MobileCLIP-S2")
@@ -302,8 +306,9 @@ class ClipMobile(AbstractVLM):
     ):
         if version not in self.URLs:
             raise ValueError(f"Unknown MobileCLIP version '{version}'; expected {sorted(self.URLs)}")
-        if mesh is not None:
-            raise ValueError("ClipMobile(mesh=...): multi-GPU sharding is not ported yet (ROADMAP queue 1 item 13)")
+        from semanticlens_tpu_torch.core.mesh import check_mesh
+
+        self.mesh = check_mesh(mesh)
         if quantize is not None:
             raise ValueError(f"ClipMobile(quantize={quantize!r}): int8 inference is not ported yet "
                              "(ROADMAP queue 1 item 14, K2/K3)")
@@ -351,6 +356,10 @@ class ClipMobile(AbstractVLM):
         return preprocess_images(x, size=size, crop=size, mean=self.cfg.mean, std=self.cfg.std)
 
     def encode_image(self, img):
+        return split_encode(self.mesh, self.encode_image_local, img)
+
+    def encode_image_local(self, img):
+        """Embeddings of exactly the rows given (no split over a data mesh)."""
         return mobileclip_encode_image(self.params, self.cfg, img.to(self.device), dtype=self.dtype)
 
     def tokenize(self, txt, context_length=None):

@@ -21,8 +21,9 @@ Precision: matmuls and attention run in the tower's dtype (bf16 on the
 card); layer norms are computed in float32 and the text head is a float32
 product (the JAX package's ``Precision.HIGHEST``; TF32 stays off).
 
-Not ported yet (ROADMAP.md): ``mesh=`` (item 13) and ``quantize=`` (item 14)
-raise ``ValueError``.
+``mesh=`` splits ``encode_image`` over a data mesh and tensor-shards the
+towers over a ``"model"`` axis, as ``OpenClip`` does. Not ported yet
+(ROADMAP.md): ``quantize=`` (item 14) raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,12 @@ from semanticlens_tpu_torch.foundation_models.clip import (
     place_params,
     torch_shape,
 )
-from semanticlens_tpu_torch.foundation_models.common import init_from_specs
+from semanticlens_tpu_torch.foundation_models.common import (
+    init_from_specs,
+    shard_tower,
+    split_encode,
+    tensor_parallel_call,
+)
 from semanticlens_tpu_torch.foundation_models.tokenizer import HashTokenizer
 from semanticlens_tpu_torch.models.layers import conv2d, gelu, layer_norm, linear, scaled_dot_product_attention
 from semanticlens_tpu_torch.ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, preprocess_images
@@ -244,7 +250,11 @@ class SigLipV2(AbstractVLM):
     seed : numpy seed of the random weights used when none are given.
     cfg : optional tower configuration that replaces the preset's (a
         cut-down tower, e.g. for tests); the name stays the preset's.
-    mesh, quantize : not ported yet; anything but ``None`` raises.
+    mesh : optional ``DeviceMesh``: ``encode_image`` splits the batch over a
+        ``"data"`` axis and gathers it, a ``"model"`` axis tensor-shards
+        the towers (``parallel.siglip_param_specs_2d``), as
+        for ``OpenClip``.
+    quantize : not ported yet; anything but ``None`` raises.
     """
 
     URL = "hf-hub:timm/ViT-B-16-SigLIP2"
@@ -264,8 +274,6 @@ class SigLipV2(AbstractVLM):
         quantize: str | None = None,
         cfg: SigLIPConfig | None = None,
     ):
-        if mesh is not None:
-            raise ValueError("SigLipV2(mesh=...): multi-GPU sharding is not ported yet (ROADMAP queue 1 item 13)")
         if quantize is not None:
             raise ValueError(f"SigLipV2(quantize={quantize!r}): int8 inference is not ported yet "
                              "(ROADMAP queue 1 item 14, K2)")
@@ -283,6 +291,10 @@ class SigLipV2(AbstractVLM):
                 jax_params = init_siglip_params_jax_layout(seed, self.cfg)
             params = convert.siglip_params_from_jax(jax_params)
         self.params = place_params(load_siglip_state_dict(self.cfg, params), _float32_param, dtype, self.device)
+        from semanticlens_tpu_torch.parallel.tensor_parallel import siglip_param_specs_2d
+
+        self.mesh = mesh
+        self.params = shard_tower(self.params, mesh, siglip_param_specs_2d, self.cfg)
 
         # Resolution order: an explicit tokenizer object, an explicit .model
         # path, a locally discovered .model, then the testing fallback.
@@ -318,7 +330,12 @@ class SigLipV2(AbstractVLM):
         return preprocess_images(x, size=size, crop=size, mean=SIGLIP_MEAN, std=SIGLIP_STD)
 
     def encode_image(self, img):
-        return siglip_encode_image(self.params, self.cfg, img.to(self.device), dtype=self.dtype)
+        return split_encode(self.mesh, self.encode_image_local, img)
+
+    def encode_image_local(self, img):
+        """Embeddings of exactly the rows given (no split over a data mesh)."""
+        return tensor_parallel_call(self.mesh, lambda x: siglip_encode_image(self.params, self.cfg, x,
+                                                                              dtype=self.dtype), img.to(self.device))
 
     def tokenize(self, txt, context_length=None):
         ids = self.tokenizer(txt, context_length or self.context_length)
@@ -326,4 +343,5 @@ class SigLipV2(AbstractVLM):
 
     def encode_text(self, text_input):
         tokens = torch.as_tensor(text_input, device=self.device)
-        return siglip_encode_text(self.params, self.cfg, tokens, dtype=self.dtype)
+        return tensor_parallel_call(self.mesh, lambda t: siglip_encode_text(self.params, self.cfg, t,
+                                                                             dtype=self.dtype), tokens)

@@ -26,8 +26,16 @@ model name: ``resnet`` (variants ``''``, ``d``, ``x``, ``wide``), ``vit``,
 ``mnasnet``, ``regnet``, ``swin`` / ``swin_v2`` (``tiny``, ``small``,
 ``base``), ``maxvit``, ``inception`` (``v1`` GoogLeNet, ``v3``),
 ``shufflenet`` (``x0_5``…``x2_0``), ``alexnet`` and ``squeezenet``
-(``1_0``, ``1_1``). A mesh over several cards waits for ROADMAP queue 1
-item 13 (pass ``--no-mesh`` to run on one).
+(``1_0``, ``1_1``).
+
+Over several cards it runs one process per card:
+``torchrun --nproc-per-node N python -m semanticlens_tpu_torch.full_audit …``
+starts NCCL (gloo with ``--cpu``), builds ``core.data_mesh()`` and passes
+it to the visualizer (each rank sweeps its rows of every batch) and the
+foundation model; clarity and polysemanticity run on a
+``core.shard_concept_db`` of the concept DB, the rest whole on every rank,
+and rank 0 prints the report, whose ``"mesh"`` is ``{"data": N}``.
+``--no-mesh`` keeps one card; several cards without ``torchrun`` raise.
 ``--cpu`` (the one flag the JAX tool lacks: it takes its backend from
 ``JAX_PLATFORMS``) runs on the CPU.
 
@@ -47,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 
 import numpy as np
 import torch
@@ -222,10 +231,29 @@ def build_model(args, device):
 
 
 def build_fm(args, device):
-    """The foundation model in bf16 from ``--fm`` (``create``), random from seed 0 without ``--checkpoint``."""
+    """The foundation model in bf16 from ``--fm`` (``create``), random from seed 0 without ``--checkpoint``,
+    on the run's mesh (``args.mesh``, set by :func:`main`)."""
     from semanticlens_tpu_torch.foundation_models import create
 
-    return create(args.fm, checkpoint=args.checkpoint, bpe_path=args.bpe, dtype=torch.bfloat16, device=device)
+    return create(args.fm, checkpoint=args.checkpoint, bpe_path=args.bpe, dtype=torch.bfloat16, device=device,
+                  mesh=getattr(args, "mesh", None))
+
+
+def setup_mesh(args, device):
+    """``(device, mesh)``: under ``torchrun`` (``WORLD_SIZE`` > 1) this rank's device and a data mesh over
+    the ranks; else the device as given and no mesh. Several cards without ``torchrun`` raise."""
+    if args.no_mesh:
+        return device, None
+    from semanticlens_tpu_torch.core import data_mesh, init_distributed
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_distributed("gloo" if args.cpu else "nccl")
+        return device, data_mesh()
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        raise SystemExit(f"{n} cards: start one process per card, `torchrun --nproc-per-node {n} python -m "
+                         "semanticlens_tpu_torch.full_audit ...`, or pass --no-mesh to audit on one")
+    return device, None
 
 
 def load_dataset(args, device):
@@ -246,6 +274,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from semanticlens_tpu_torch import Lens
     from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.core import shard_concept_db
+    from semanticlens_tpu_torch.core.mesh import is_writer
     from semanticlens_tpu_torch.data.dataset import get_image
     from semanticlens_tpu_torch.scores import (
         class_composition,
@@ -256,10 +286,8 @@ def main(argv=None) -> dict:
     from semanticlens_tpu_torch.utils.device import resolve_device
 
     setup_colored_logging("INFO")
-    device = resolve_device("cpu" if args.cpu else None)
-    if not args.no_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise SystemExit(f"{torch.cuda.device_count()} cards: a mesh over several cards waits for ROADMAP "
-                         "queue 1 item 13; pass --no-mesh to audit on one")
+    device, mesh = setup_mesh(args, resolve_device("cpu" if args.cpu else None))
+    args.mesh = mesh
     logger.info("full audit on %s", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     timer = StageTimer()
 
@@ -278,6 +306,7 @@ def main(argv=None) -> dict:
         aggregate_fn=aggregate_fn,
         model_preprocess=make_preprocess_fn(size=args.image_size, crop=args.image_size),
         cache_dir=args.cache_dir,
+        mesh=mesh,
     )
 
     # --- pipeline ----------------------------------------------------------------
@@ -288,9 +317,11 @@ def main(argv=None) -> dict:
 
     scores_out = {}
     with timer.stage("scores"):
-        clarity = lens.eval_clarity(concept_db)
+        # component-sharded under a mesh: each rank scores its components, the scores are gathered
+        scored_db = concept_db if mesh is None else shard_concept_db(concept_db, mesh)
+        clarity = lens.eval_clarity(scored_db)
         redundancy = lens.eval_redundancy(agg_db)
-        poly = lens.eval_polysemanticity(concept_db)
+        poly = lens.eval_polysemanticity(scored_db)
         for layer in args.layers:
             # null-calibrated index (arXiv:2508.16950); the embedding table exists only when the
             # embed stage ran in this process (a concept-DB cache hit skips it)
@@ -385,7 +416,7 @@ def main(argv=None) -> dict:
         "dataset": getattr(dataset, "name", "?"),
         "n_images": n,
         "layers": list(args.layers),
-        "mesh": None,
+        "mesh": None if mesh is None else {"data": mesh.size()},
         "db_shapes": {k: list(np.asarray(v).shape) for k, v in concept_db.items()},
         "scores": scores_out,
         "top_neuron_per_query": search_out,
@@ -395,9 +426,12 @@ def main(argv=None) -> dict:
         "class_selective_components": class_stats_out,
         "stages": timer.summary(),
     }
-    print(json.dumps(report))
+    if is_writer(mesh):
+        print(json.dumps(report))
     return report
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -10,12 +10,14 @@ Scores, probes and labels run on the foundation model's device.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
 import torch
 
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
+from semanticlens_tpu_torch.core.mesh import ShardedRows, barrier, is_writer
 from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
 from semanticlens_tpu_torch.scores import (
     clarity_score,
@@ -234,10 +236,14 @@ class Lens:
         if fpath.exists():
             return {k: v.numpy() for k, v in safetensors_io.load_file(fpath).items()}
         concept_db = cv._compute_concept_db(self.fm, **kwargs)
-        safetensors_io.save_file(
-            {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in concept_db.items()},
-            fpath,
-        )
+        mesh = getattr(cv, "mesh", None)  # under a mesh every rank has the DB; global rank 0 writes it
+        if is_writer(mesh):
+            safetensors_io.save_file(
+                {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in concept_db.items()},
+                fpath,
+            )
+        if mesh is not None:
+            barrier()
         return concept_db
 
     def text_probing(self, query, aggregated_concept_db, templates=None, batch_size=None):
@@ -256,8 +262,11 @@ class Lens:
         """Wrapper over the stateless :func:`label_components` with the held FM."""
         return label_components(self.fm, vocabulary, aggregated_concept_db, **kwargs)
 
-    def _score_input(self, value) -> torch.Tensor:
-        """float32 tensor on the Lens device (tensors already there stay)."""
+    def _score_input(self, value):
+        """float32 tensor on the Lens device (tensors already there stay); a ``ShardedRows``
+        (``core.shard_concept_db``) keeps its split with its rows moved there."""
+        if isinstance(value, ShardedRows):
+            return dataclasses.replace(value, local=self._score_input(value.local))
         return torch.as_tensor(value).to(self.device, torch.float32)
 
     def _per_layer(self, fn, db):

@@ -443,7 +443,13 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
     where asked) runs in float32 over the repeated keys and is a constant,
     so the head is a linear map of the values and relevance goes through it
     by the ε rule; queries and keys receive none.
+
+    Tensor parallelism: the core never computes on a DTensor
+    (:func:`_dtensor_attention` hands it plain tensors).
     """
+    if _has_dtensor(q, k, v):
+        return _dtensor_attention(q, k, v, n_heads, mask=mask, n_kv_heads=n_kv_heads, scale=scale,
+                                  logit_cap=logit_cap, float32_mask=float32_mask)
     b, t, d = q.shape
     s = k.shape[1]
     head_dim = d // n_heads
@@ -485,6 +491,53 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
     attn_mask = None if mask is None else mask.to(q.dtype)
     out = F.scaled_dot_product_attention(split(q, t), split_kv(k), split_kv(v), attn_mask=attn_mask, scale=scale)
     return merge(out, q.dtype)
+
+
+def _has_dtensor(*tensors) -> bool:
+    """True when one of ``tensors`` is a DTensor; plain tensors cost a type check each, no import."""
+    if all(type(z) is torch.Tensor for z in tensors) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(z, DTensor) for z in tensors)
+
+
+def _dtensor_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None, **kwargs):
+    """The attention core under tensor parallelism, on plain tensors.
+
+    When q, k and v are split on their last axis over a 1-D mesh of ``tp``
+    ranks and ``tp`` divides both head counts, each rank holds whole heads
+    (the column-parallel q/k/v projections' output, Megatron's layout): the
+    core runs on the local tensors with ``heads/tp`` and ``kv_heads/tp``
+    (GQA's groups stay on one rank, since query head h reads kv head
+    h·kv/heads), a per-head mask is cut to the local heads, and the output
+    is wrapped back split on its last axis for the row-parallel output
+    projection. Otherwise q, k and v are replicated first and the output
+    is replicated. DTensor's own propagation through SDPA's decomposition
+    is avoided: it stalls for heads split this way.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = next(z for z in (q, k, v) if isinstance(z, DTensor)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    q, k, v = (z if isinstance(z, DTensor) else DTensor.from_local(z, mesh, rep, run_check=False) for z in (q, k, v))
+    if isinstance(mask, DTensor):
+        mask = mask.full_tensor()
+    tp, kv_heads = mesh.size(), n_kv_heads or n_heads
+
+    def last_axis_split(z):
+        return mesh.ndim == 1 and isinstance(z.placements[0], Shard) and z.placements[0].dim in (z.ndim - 1, -1)
+
+    if all(map(last_axis_split, (q, k, v))) and n_heads % tp == 0 and kv_heads % tp == 0:
+        rank, local_heads = mesh.get_local_rank(), n_heads // tp
+        if mask is not None and mask.ndim >= 3 and mask.shape[-3] == n_heads > 1:
+            mask = mask[..., rank * local_heads : (rank + 1) * local_heads, :, :]
+        out = scaled_dot_product_attention(q.to_local(), k.to_local(), v.to_local(), local_heads, mask=mask,
+                                           n_kv_heads=kv_heads // tp, **kwargs)
+        return DTensor.from_local(out, mesh, [Shard(out.ndim - 1)], run_check=False)
+    q, k, v = (z.redistribute(mesh, rep).to_local() for z in (q, k, v))
+    out = scaled_dot_product_attention(q, k, v, n_heads, mask=mask, n_kv_heads=n_kv_heads, **kwargs)
+    return DTensor.from_local(out, mesh, rep, run_check=False)
 
 
 def edge_pad_mask(ids, pad_id: int):

@@ -7,6 +7,13 @@ every restart at once as batched tensor ops. Random numbers come from a
 ``torch.Generator`` seeded with ``seed``; the streams differ from
 ``jax.random``'s, so the two packages agree on scores where the clustering
 is well determined, not bit for bit.
+
+Every draw is made for all ``total`` neurons of a layer and indexed by the
+neuron's position in it, never by how many neurons one call holds: a rank
+that clusters rows ``[start, start + m)`` of a component-sharded concept
+DB (``rows=(start, total)``) draws what one call over all ``total`` rows
+draws for them. The k-means++ candidates are drawn by inverse CDF from
+uniforms, so each neuron's draws sit at fixed places in the stream.
 """
 
 from __future__ import annotations
@@ -21,19 +28,23 @@ def _sq_dists(x, centers):
     return (xx - 2.0 * torch.einsum("mnd,mrkd->mrnk", x, centers) + cc).clamp_min(0.0)
 
 
-def _kmeanspp_init(x, k, n_init, generator, n_local_trials: int = 2):
-    """k-means++ centers (m, n_init, k, d) for every neuron and restart."""
+def _kmeanspp_init(x, k, n_init, generator, rows: tuple[int, int], n_local_trials: int = 2):
+    """k-means++ centers (m, n_init, k, d) for every neuron and restart; ``rows=(start, total)``
+    places these m neurons in the layer whose draws the stream holds."""
     m, n, d = x.shape
-    first = torch.randint(0, n, (m, n_init), generator=generator, device=x.device)
+    start, total = rows
+    mine = slice(start, start + m)
+    first = torch.randint(0, n, (total, n_init), generator=generator, device=x.device)[mine]
     centers = torch.zeros((m, n_init, k, d), dtype=x.dtype, device=x.device)
     rows = torch.arange(m, device=x.device)[:, None]
     centers[:, :, 0] = x[rows, first]
     d2 = _sq_dists(x, centers[:, :, :1])[..., 0]  # (m, r, n) distance to nearest center
     for c in range(1, k):
-        total = d2.sum(-1, keepdim=True)
-        probs = torch.where(total > 0, d2 / total.clamp_min(1e-12), torch.full_like(d2, 1.0 / n))
-        cand = torch.multinomial(probs.reshape(-1, n), n_local_trials, replacement=True,
-                                 generator=generator).reshape(m, n_init, n_local_trials)
+        mass = d2.sum(-1, keepdim=True)
+        probs = torch.where(mass > 0, d2 / mass.clamp_min(1e-12), torch.full_like(d2, 1.0 / n))
+        cdf = torch.cumsum(probs, dim=-1)
+        u = torch.rand((total, n_init, n_local_trials), generator=generator, device=x.device)[mine]
+        cand = torch.searchsorted(cdf, u * cdf[..., -1:], right=True).clamp_max(n - 1)  # (m, r, t)
         cand_x = x[rows[:, :, None], cand]  # (m, r, t, d)
         new_d2 = torch.minimum(d2[:, :, None, :], _sq_dists(x, cand_x).transpose(-1, -2))
         best = torch.argmin(new_d2.sum(-1), dim=-1)  # (m, r)
@@ -54,18 +65,20 @@ def _update(x, centers):
 
 
 def batched_kmeans(V, k: int = 2, *, n_init: int = 10, max_iters: int = 300, seed: int = 123,
-                   tol: float = 1e-8):
+                   tol: float = 1e-8, rows: tuple[int, int] | None = None):
     """Seeded k-means independently over the leading axis of ``V`` (m, n, d).
 
     Returns centers (m, k, d), labels (m, n), counts (m, k), float32 on
     ``V``'s device. Each restart stops once its center shift falls to
     ``tol`` (or after ``max_iters``); the best-inertia restart wins.
+    ``rows=(start, total)``: ``V`` is rows ``[start, start + m)`` of a
+    ``total``-neuron layer, and gets those rows' draws (default ``(0, m)``).
     """
     x = V.to(torch.float32)
     m, n, d = x.shape
     generator = torch.Generator(device=x.device)
     generator.manual_seed(seed)
-    centers = _kmeanspp_init(x, k, n_init, generator)
+    centers = _kmeanspp_init(x, k, n_init, generator, rows or (0, m))
     active = torch.ones((m, n_init), dtype=torch.bool, device=x.device)
     for _ in range(max_iters):
         _, _, new = _update(x, centers)

@@ -38,8 +38,23 @@ The virtual taps are causal as in the JAX package: an intervention on
 ``"{layer}.sae"`` substitutes the layer with encode → rewrite → decode, and
 ``TranscoderSubjectModel(replace=True)`` (or an intervention on
 ``"{tap_in}.tc"``) substitutes the target tap with the transcoder's
-prediction. Multi-device training (``mesh=``) waits for ROADMAP queue 1
-item 13.
+prediction.
+
+With ``mesh=`` (a ``DeviceMesh`` with a ``"data"`` axis) every trainer is
+data-parallel, as the JAX package's sharded minibatches are: each rank
+computes its rows' part of the loss of the *global* minibatch (every mean
+over rows is a sum over the local rows divided by the global row count),
+the gradients are summed across ranks before ``ClipAdam`` so every rank
+takes the same step, and the metrics reduce sums, never ratios: the fvu's
+numerator and denominator (about the global mean of the target), the
+fired-latent mask for dead-latent tracking (``MAX``), AuxK's terms.
+``train_sae_from_rows`` draws the same index stream on every rank and each
+takes its columns of every minibatch. The streaming trainers run the
+forward on each rank's rows of every image batch, draw positions and the
+permutation for the whole batch from one stream on every rank, all-gather
+the extracted rows and take this rank's columns of every minibatch, as the
+JAX package reshards the permuted rows: world ``W`` steps through the
+minibatches of one process.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from semanticlens_tpu_torch.core.mesh import all_gather, all_reduce, mesh_axis
 from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, iter_batches
 from semanticlens_tpu_torch.models.base import SubjectModel, apply_interventions, has_intervention, interventions
 from semanticlens_tpu_torch.utils.device import as_tensor, resolve_device
@@ -121,11 +137,6 @@ class SAEConfig:
 def _f32(value, device) -> torch.Tensor:
     """A float32 tensor on ``device`` from numpy (or anything ``np.asarray`` takes) or a tensor."""
     return as_tensor(value if isinstance(value, torch.Tensor) else np.array(value, np.float32), device, torch.float32)
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise ValueError("multi-device SAE training is not ported (ROADMAP queue 1 item 13); pass mesh=None")
 
 
 def init_sae(generator: torch.Generator, cfg: SAEConfig, device=None) -> dict:
@@ -302,8 +313,34 @@ def init_stats(cfg: SAEConfig, device=None) -> dict:
     }
 
 
-def _loss_fn(params, x, cfg: SAEConfig, last_fired, y=None):
-    """``(loss, (fired, metrics))`` of one minibatch: the JAX package's objective term for term."""
+def _fvu(err, target, group=None):
+    """Fraction of variance unexplained of a minibatch: Σ err² over Σ (target − its row mean)².
+
+    Over a data-parallel group, numerator, denominator and the mean's sums
+    and counts are summed across ranks first: the global minibatch's fvu.
+    """
+    if group is None:
+        var = torch.sum((target - torch.mean(target, dim=0)) ** 2)
+        return torch.sum(err * err) / torch.clamp_min(var, 1e-9)
+    total = all_reduce(torch.cat([torch.sum(target, dim=0), target.new_tensor([target.shape[0]])]), group)
+    mean = total[:-1] / total[-1]
+    sums = all_reduce(torch.stack([torch.sum(err * err), torch.sum((target - mean) ** 2)]), group)
+    return sums[0] / torch.clamp_min(sums[1], 1e-9)
+
+
+def _loss_fn(params, x, cfg: SAEConfig, last_fired, y=None, group=None):
+    """``(loss, (fired, metrics))`` of one minibatch: the JAX package's objective term for term.
+
+    With a data-parallel ``group`` this rank's rows are its part of the
+    global minibatch: every row mean is the local sum over the global row
+    count, so the ranks' losses (and gradients) sum to the global ones, and
+    the metrics and the fired mask are reduced across the group.
+    """
+    n_global = x.shape[0] * (1 if group is None else torch.distributed.get_world_size(group))
+
+    def row_mean(v):
+        return torch.mean(v) if group is None else torch.sum(v) / n_global
+
     x = x.to(torch.float32)
     target = x if y is None else y.to(torch.float32)
     pre = _pre_activations(params, x)
@@ -313,10 +350,10 @@ def _loss_fn(params, x, cfg: SAEConfig, last_fired, y=None):
         z = _sparsify(pre, cfg.k, cfg.approx_topk) if cfg.k > 0 else torch.relu(pre)
     recon = decode(params, z, x if "W_skip" in params else None)
     err = recon - target
-    mse = torch.mean(torch.sum(err * err, dim=-1))
+    mse = row_mean(torch.sum(err * err, dim=-1))
     loss = mse
     if cfg.jumprelu:
-        loss = loss + cfg.l0_coef * torch.mean(torch.sum(_L0STE.apply(pre, params["log_theta"], cfg.ste_eps), dim=-1))
+        loss = loss + cfg.l0_coef * row_mean(torch.sum(_L0STE.apply(pre, params["log_theta"], cfg.ste_eps), dim=-1))
     if cfg.k > 0 and cfg.aux_k > 0:
         # AuxK (arXiv:2406.04093 §A.2): the top aux_k dead latents reconstruct the
         # main residual; gradients reach only dead latents.
@@ -325,21 +362,21 @@ def _loss_fn(params, x, cfg: SAEConfig, last_fired, y=None):
         z_aux = _topk_mask(pre_dead, min(cfg.aux_k, cfg.n_latents))
         z_aux = torch.where(torch.isfinite(z_aux), z_aux, z_aux.new_zeros(()))
         aux_err = z_aux @ params["W_dec"] - (-err).detach()
-        aux = torch.mean(torch.sum(aux_err * aux_err, dim=-1))
+        aux = row_mean(torch.sum(aux_err * aux_err, dim=-1))
         # with no dead latent aux is ‖err‖², a constant of the dead path but not of the main one
         loss = loss + cfg.aux_coef * torch.where(dead.any(), aux, aux.new_zeros(()))
     if cfg.k == 0 and not cfg.jumprelu:
         row_norm = torch.linalg.vector_norm(params["W_dec"], dim=-1)
-        loss = loss + cfg.l1_coef * torch.mean(torch.sum(z * row_norm, dim=-1))
+        loss = loss + cfg.l1_coef * row_mean(torch.sum(z * row_norm, dim=-1))
     with torch.no_grad():
         positive = z > 0.0
         fired = positive.reshape(-1, positive.shape[-1]).any(dim=0)
-        var = torch.sum((target - torch.mean(target, dim=0)) ** 2)
-        metrics = {
-            "mse": mse.detach(),
-            "fvu": torch.sum(err * err) / torch.clamp_min(var, 1e-9),
-            "l0": torch.mean(torch.sum(positive, dim=-1).to(torch.float32)),
-        }
+        l0 = row_mean(torch.sum(positive, dim=-1).to(torch.float32))
+        mse_metric = mse.detach()
+        if group is not None:
+            fired = all_reduce(fired.to(torch.int32), group, torch.distributed.ReduceOp.MAX).bool()
+            mse_metric, l0 = all_reduce(torch.stack([mse_metric, l0]), group)
+        metrics = {"mse": mse_metric, "fvu": _fvu(err.detach(), target, group), "l0": l0}
     return loss, (fired, metrics)
 
 
@@ -413,10 +450,28 @@ def apply_updates(params: Mapping, updates: Mapping) -> dict:
     return {n: p + updates[n] for n, p in params.items()}
 
 
-def make_train_step(cfg: SAEConfig, optimizer=None, *, paired: bool = False):
+def _data_axis(mesh):
+    """``(size, rank, group)`` of the mesh's ``"data"`` axis; one rank trains as one process (group None)."""
+    size, rank, group = mesh_axis(mesh, "data")
+    return size, rank, group if size > 1 else None
+
+
+def _all_reduce_grads(grads: dict, group) -> dict:
+    """Every rank's gradients summed (one flat all-reduce), so every rank takes the same step."""
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]), group)
+    out, at = {}, 0
+    for name, g in grads.items():
+        out[name] = flat[at : at + g.numel()].view_as(g)
+        at += g.numel()
+    return out
+
+
+def make_train_step(cfg: SAEConfig, optimizer=None, *, paired: bool = False, group=None):
     """One optimizer step: ``step(params, opt_state, stats, x_rows)`` → the updated
     triple + scalar metrics as device tensors (``paired=True`` adds ``y_rows``,
-    the transcoder target). Nothing is read back to the host."""
+    the transcoder target). Nothing is read back to the host. With a
+    data-parallel ``group`` the rows are this rank's part of the minibatch
+    and the gradients are summed across the group before the update."""
     optimizer = optimizer or make_optimizer(cfg)
     # The unit-norm decoder is the ReLU+L1 anti-scale-gaming device; JumpReLU (L0 is
     # scale-invariant) and transcoders (calibrated decoder scale) train W_dec freely.
@@ -425,10 +480,13 @@ def make_train_step(cfg: SAEConfig, optimizer=None, *, paired: bool = False):
     def _update(params, opt_state, stats, x, y):
         leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
         with torch.enable_grad():
-            loss, (fired, metrics) = _loss_fn(leaves, x, cfg, stats["last_fired"], y)
+            loss, (fired, metrics) = _loss_fn(leaves, x, cfg, stats["last_fired"], y, group)
             found = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), found)}
         with torch.no_grad():
+            if group is not None:
+                grads = _all_reduce_grads(grads, group)
+                loss = all_reduce(loss.detach(), group)
             if constrain_dec:
                 grads = _project_decoder(params, grads)
             updates, opt_state = optimizer.update(grads, opt_state)
@@ -451,12 +509,12 @@ def make_train_step(cfg: SAEConfig, optimizer=None, *, paired: bool = False):
     return step
 
 
-def _run_steps(cfg: SAEConfig, optimizer, paired: bool = False):
+def _run_steps(cfg: SAEConfig, optimizer, paired: bool = False, group=None):
     """``run(params, opt_state, stats, batches)``: one optimizer step per leading-axis
     minibatch of ``batches`` (S, batch_rows, d_in) — or of an ``(x, y)`` pair when
     ``paired`` — on the device; returns the updated triple and each metric stacked
     over the S steps (as a scan's outputs), still on the device."""
-    step = make_train_step(cfg, optimizer, paired=paired)
+    step = make_train_step(cfg, optimizer, paired=paired, group=group)
 
     def run(params, opt_state, stats, batches):
         history = []
@@ -491,8 +549,14 @@ def train_sae_from_rows(rows, cfg: SAEConfig, *, targets=None, steps: int = 1000
     (:func:`finalize_sae_params`), ``stats`` stays on the device, metrics
     are the final step's as floats. ``params`` (numpy or tensors) replaces
     the seeded init.
+
+    With ``mesh`` every rank holds the same ``rows`` and draws the same
+    index stream; rank ``r`` of ``W`` takes columns ``[r·b/W, (r+1)·b/W)``
+    of each minibatch of ``b = batch_rows`` rows (``W`` must divide ``b``).
     """
-    _no_mesh(mesh)
+    size, rank, group = _data_axis(mesh)
+    if cfg.batch_rows % size:
+        raise ValueError(f"batch_rows={cfg.batch_rows} must be divisible by the data-parallel degree {size}")
     rows = as_tensor(rows, device, torch.float32)
     n = rows.shape[0]
     if rows.ndim != 2 or rows.shape[1] != cfg.d_in:
@@ -517,7 +581,8 @@ def train_sae_from_rows(rows, cfg: SAEConfig, *, targets=None, steps: int = 1000
     optimizer = make_optimizer(cfg)
     opt_state = optimizer.init(params)
     stats = init_stats(cfg, rows.device)
-    runner = _run_steps(cfg, optimizer, paired=paired)
+    runner = _run_steps(cfg, optimizer, paired=paired, group=group)
+    mine = slice(rank * (cfg.batch_rows // size), (rank + 1) * (cfg.batch_rows // size))
 
     rng = np.random.default_rng(cfg.seed)
     # Epoch-style sampling from chained permutations: every row once per ceil(n / batch_rows) steps.
@@ -543,7 +608,7 @@ def train_sae_from_rows(rows, cfg: SAEConfig, *, targets=None, steps: int = 1000
     metrics = {}
     while done < steps:
         s = min(chunk, steps - done)
-        idx = torch.from_numpy(_take(s * cfg.batch_rows).reshape(s, cfg.batch_rows)).to(rows.device)
+        idx = torch.from_numpy(_take(s * cfg.batch_rows).reshape(s, cfg.batch_rows)[:, mine]).to(rows.device)
         batches = (rows[idx], targets[idx]) if paired else rows[idx]
         params, opt_state, stats, metrics = runner(params, opt_state, stats, batches)
         done += s
@@ -560,7 +625,8 @@ def _calibrate_transcoder_init(params: dict, x_rows, y_rows) -> dict:
     x = x_rows.to(torch.float32)
     y = y_rows.to(torch.float32)
     y_std = torch.clamp_min(torch.std(y, correction=0), 1e-8)
-    return {**params, "b_in": torch.mean(x, dim=0), "b_dec": torch.mean(y, dim=0), "W_dec": params["W_dec"] * y_std}
+    return {**params, "b_in": torch.mean(x, dim=0), "b_dec": torch.mean(y, dim=0),
+            "W_dec": params["W_dec"] * y_std}
 
 
 def train_transcoder_from_rows(rows, targets, cfg: SAEConfig, **kwargs):
@@ -583,34 +649,37 @@ class _PreprocessedModel(SubjectModel):
         return self.base.apply(params, self.prep(x), tap_names)
 
 
-def _sampled_rows(cfg: SAEConfig, generator: torch.Generator, *taps: torch.Tensor) -> tuple:
+def _sampled_rows(cfg: SAEConfig, generator: torch.Generator, *taps: torch.Tensor, part=(0, 1)) -> tuple:
     """Each tap's float32 rows (B·positions, C), every leading/spatial axis flattened; with
-    ``positions_per_image`` the same positions of each tap, drawn per image with replacement."""
+    ``positions_per_image`` the same positions of each tap, drawn per image with replacement.
+    ``part=(rank, world)``: the taps hold rank ``rank``'s images of a batch ``world`` times larger, whose
+    positions are drawn whole and this rank's kept."""
     flats = tuple(h.reshape(h.shape[0], -1, h.shape[-1]) for h in taps)
     b, n_pos = flats[0].shape[:2]
+    rank, world = part
     if cfg.positions_per_image and cfg.positions_per_image < n_pos:
-        pos = torch.randint(0, n_pos, (b, cfg.positions_per_image), generator=generator,
-                            device=flats[0].device)[..., None]
+        pos = torch.randint(0, n_pos, (b * world, cfg.positions_per_image), generator=generator,
+                            device=flats[0].device)[rank * b : (rank + 1) * b, :, None]
         flats = tuple(torch.take_along_dim(f, pos, dim=1) for f in flats)
     return tuple(f.reshape(-1, f.shape[-1]).to(torch.float32) for f in flats)
 
 
 def _make_row_extractor(model: SubjectModel, layer_name: str, cfg: SAEConfig):
-    """``extract(params, images, generator)`` → float32 rows (B·positions, d_in) of the tap."""
+    """``extract(params, images, generator, part=(0, 1))`` → float32 rows (B·positions, d_in) of the tap."""
 
-    def extract(params, images, generator):
+    def extract(params, images, generator, part=(0, 1)):
         with torch.no_grad():
             _, taps = model.apply(params, images, (layer_name,))
-            return _sampled_rows(cfg, generator, taps[layer_name])[0]
+            return _sampled_rows(cfg, generator, taps[layer_name], part=part)[0]
 
     return extract
 
 
 def _make_pair_extractor(model: SubjectModel, tap_in: str, tap_out: str, cfg: SAEConfig):
-    """``extract(params, images, generator)`` → (x_rows, y_rows) from one forward;
+    """``extract(params, images, generator, part=(0, 1))`` → (x_rows, y_rows) from one forward;
     the same sampled positions index both taps."""
 
-    def extract(params, images, generator):
+    def extract(params, images, generator, part=(0, 1)):
         with torch.no_grad():
             _, taps = model.apply(params, images, (tap_in, tap_out))
             hx, hy = taps[tap_in], taps[tap_out]
@@ -621,26 +690,44 @@ def _make_pair_extractor(model: SubjectModel, tap_in: str, tap_out: str, cfg: SA
                     f"({n_in} vs {n_out}); a transcoder needs positionally "
                     "aligned input/target activations"
                 )
-            return _sampled_rows(cfg, generator, hx, hy)
+            return _sampled_rows(cfg, generator, hx, hy, part=part)
 
     return extract
 
 
-def _stream_minibatches(model, params, dataset, extract, cfg: SAEConfig, batch_size: int, epochs: int):
+def _stream_minibatches(model, params, dataset, extract, cfg: SAEConfig, batch_size: int, epochs: int,
+                        mesh=None):
     """Per full image batch of each epoch: ``(epoch, extracted, minibatches)`` — the
     extracted rows (or row pairs), and the same permuted on the device and cut
-    into ``(S, batch_rows, ·)`` blocks. The zero-padded tail batch is skipped."""
+    into ``(S, batch_rows, ·)`` blocks. The zero-padded tail batch is skipped.
+
+    Under a data mesh of ``W`` ranks each rank runs the forward on its rows
+    of every image batch, with the positions of the whole batch drawn from
+    the one stream every rank holds; the extracted rows are all-gathered in
+    image order, so ``extracted`` and the permutation are one process's, and
+    the blocks are this rank's ``batch_rows / W`` columns of each minibatch.
+    """
+    size, rank, group = _data_axis(mesh)
+    if batch_size % size or cfg.batch_rows % size:
+        raise ValueError(f"batch_size={batch_size} and batch_rows={cfg.batch_rows} must be divisible by the "
+                         f"data-parallel degree {size}")
     n_full = (len(dataset) // batch_size) * batch_size
     if n_full == 0:
         raise ValueError(f"dataset of {len(dataset)} samples < batch_size {batch_size}")
     device = model.device
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    per, rows_per_step = batch_size // size, cfg.batch_rows // size
     for epoch in range(epochs):
-        for images, start_index, _ in device_prefetch_batches(iter_batches(dataset, batch_size), device):
-            if start_index + batch_size > len(dataset):
+        for images, start_index, _ in device_prefetch_batches(
+            iter_batches(dataset, batch_size, part=(rank, size)), device
+        ):
+            if start_index - rank * per + batch_size > len(dataset):
                 continue  # zero-padded tail batch
-            extracted = extract(params, images, generator)
+            extracted = extract(params, images, generator, (rank, size))
             pair = isinstance(extracted, tuple)
+            if group is not None:  # the whole batch's rows on every rank, in image order
+                whole = [all_gather(r, group).flatten(0, 1) for r in (extracted if pair else (extracted,))]
+                extracted = tuple(whole) if pair else whole[0]
             n_rows = (extracted[0] if pair else extracted).shape[0]
             if n_rows < cfg.batch_rows:
                 raise ValueError(
@@ -649,9 +736,10 @@ def _stream_minibatches(model, params, dataset, extract, cfg: SAEConfig, batch_s
                 )
             s = n_rows // cfg.batch_rows
             sel = torch.randperm(n_rows, generator=generator, device=device)[: s * cfg.batch_rows]
+            sel = sel.reshape(s, size, rows_per_step)[:, rank]  # this rank's columns of each minibatch
 
             def cut(r):
-                return r[sel].reshape(s, cfg.batch_rows, r.shape[-1])
+                return r[sel]
 
             yield epoch, extracted, ((cut(extracted[0]), cut(extracted[1])) if pair else cut(extracted))
 
@@ -665,9 +753,10 @@ def train_sae_on_layer(model: SubjectModel, params, dataset, layer_name: str, cf
 
     The zero-padded tail batch is dropped. ``input_preprocess`` maps the raw
     uploaded batch to the model's input (default: a float32 cast). Returns
-    ``(sae_params, stats, metrics)``; the params carry ``k``.
+    ``(sae_params, stats, metrics)``; the params carry ``k``. ``mesh``:
+    data-parallel over the image batches (:func:`_stream_minibatches`).
     """
-    _no_mesh(mesh)
+    group = _data_axis(mesh)[2]
     if cfg.d_in <= 0:
         raise ValueError("cfg.d_in must be set to the tapped layer's width")
     wrapped = _PreprocessedModel(model, input_preprocess or (lambda x: x.to(torch.float32)))
@@ -676,9 +765,9 @@ def train_sae_on_layer(model: SubjectModel, params, dataset, layer_name: str, cf
     optimizer = make_optimizer(cfg)
     opt_state = optimizer.init(sae_params)
     stats = init_stats(cfg, model.device)
-    runner = _run_steps(cfg, optimizer)
+    runner = _run_steps(cfg, optimizer, group=group)
     done_steps, metrics = 0, {}
-    for epoch, _, mini in _stream_minibatches(wrapped, params, dataset, extract, cfg, batch_size, epochs):
+    for epoch, _, mini in _stream_minibatches(wrapped, params, dataset, extract, cfg, batch_size, epochs, mesh):
         sae_params, opt_state, stats, metrics = runner(sae_params, opt_state, stats, mini)
         done_steps += mini.shape[0]
         if _log_due(log_every, done_steps, mini.shape[0]):
@@ -693,8 +782,9 @@ def train_transcoder_on_layer(model: SubjectModel, params, dataset, tap_in: str,
                               log_every: int = 0):
     """Streaming transcoder trainer: positionally aligned (``tap_in``, ``tap_out``)
     row pairs from one forward per batch, the sibling of
-    :func:`train_sae_on_layer`. The init is calibrated on the first batch's rows."""
-    _no_mesh(mesh)
+    :func:`train_sae_on_layer`. The init is calibrated on the first batch's rows
+    (the whole batch's, under a mesh)."""
+    group = _data_axis(mesh)[2]
     if not cfg.is_transcoder:
         raise ValueError("set cfg.d_out to the target tap's width")
     if cfg.d_in <= 0:
@@ -705,9 +795,10 @@ def train_transcoder_on_layer(model: SubjectModel, params, dataset, tap_in: str,
     optimizer = make_optimizer(cfg)
     opt_state = None  # after the data-dependent calibration
     stats = init_stats(cfg, model.device)
-    runner = _run_steps(cfg, optimizer, paired=True)
+    runner = _run_steps(cfg, optimizer, paired=True, group=group)
     done_steps, metrics = 0, {}
-    for epoch, (xr, yr), mini in _stream_minibatches(wrapped, params, dataset, extract, cfg, batch_size, epochs):
+    for epoch, (xr, yr), mini in _stream_minibatches(wrapped, params, dataset, extract, cfg, batch_size, epochs,
+                                                     mesh):
         if opt_state is None:
             tc_params = _calibrate_transcoder_init(tc_params, xr, yr)
             opt_state = optimizer.init(tc_params)

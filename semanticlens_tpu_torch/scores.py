@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
+from semanticlens_tpu_torch.core.mesh import ShardedRows, all_gather
 from semanticlens_tpu_torch.ops.kmeans import batched_kmeans
 from semanticlens_tpu_torch.utils.device import as_tensor
 
@@ -56,11 +57,20 @@ def _cosine_matrix(x, y):
     return cosine_similarity_matrix(x, y)
 
 
+def _gathered(V: ShardedRows, local_scores):
+    """Per-component scores of every rank's rows, all-gathered in component order."""
+    return all_gather(local_scores, V.group).flatten(0, 1)
+
+
 def clarity_score(V, device=None):
     """Clarity of each concept: how uniform its example embeddings are.
 
     V : (..., n_samples, n_features) → (...,) in [−1/(n_samples−1), 1].
+    A :class:`~semanticlens_tpu_torch.core.mesh.ShardedRows` (``core.shard_concept_db``)
+    is scored on this rank's components and the scores all-gathered.
     """
+    if isinstance(V, ShardedRows):
+        return _gathered(V, clarity_score(V.local, device))
     V = _f32(V, device)
     n = V.shape[-2]
     mean_embed = torch.mean(_normalize(V), dim=-2)
@@ -68,7 +78,12 @@ def clarity_score(V, device=None):
 
 
 def redundancy_score(cones, device=None):
-    """Mean over components of the max off-diagonal cosine: (..., C, D) → (...,)."""
+    """Mean over components of the max off-diagonal cosine: (..., C, D) → (...,).
+
+    A component-sharded bank (``ShardedRows``) is gathered whole first: every
+    component's maximum runs over all the others."""
+    if isinstance(cones, ShardedRows):
+        cones = cones.full()
     cones = _f32(cones, device)
     sims = _cosine_matrix(cones, cones)
     sims = sims - 2.0 * torch.eye(sims.shape[-1], dtype=sims.dtype, device=sims.device)
@@ -118,10 +133,16 @@ def polysemanticity_score(V, replace_empty_clusters: bool = True, random_state: 
 
     V : (n_neurons, n_samples, n_features). Neurons whose smallest cluster
     has < 2 members get ``1 − mean_i clarity([mean(V), V[:, i]])`` over the
-    first ≤10 samples (the reference's empty-cluster fallback).
+    first ≤10 samples (the reference's empty-cluster fallback). A
+    ``ShardedRows`` is scored on this rank's components, with each
+    component's k-means draws those of the whole layer (``batched_kmeans``'s
+    ``rows``), and the scores are all-gathered.
     """
+    rows = None
+    if isinstance(V, ShardedRows):
+        sharded, rows, V = V, (V.start, V.total), V.local
     V = _f32(V, device)
-    centers, _, counts = batched_kmeans(V, n_clusters, n_init=10, seed=random_state)
+    centers, _, counts = batched_kmeans(V, n_clusters, n_init=10, seed=random_state, rows=rows)
     poly = 1.0 - clarity_score(centers)
     if replace_empty_clusters:
         degenerate = torch.amin(counts, dim=-1) < 2
@@ -130,7 +151,7 @@ def polysemanticity_score(V, replace_empty_clusters: bool = True, random_state: 
         pairs = torch.stack([v_mean[:, None].expand(-1, num_samples, -1), V[:, :num_samples]], dim=2)
         fallback = 1.0 - clarity_score(pairs).mean(dim=1)
         poly = torch.where(degenerate, fallback, poly)
-    return poly
+    return poly if rows is None else _gathered(sharded, poly)
 
 
 def _chunk_topk(sim, k: int):

@@ -14,13 +14,12 @@ import torch
 
 torch.set_num_threads(2)
 
-SUBPACKAGES = ["", ".causal", ".collect", ".data", ".featviz", ".foundation_models", ".models", ".ops",
-               ".relevance", ".scores", ".utils"]
+SUBPACKAGES = ["", ".causal", ".collect", ".core", ".data", ".featviz", ".foundation_models", ".models", ".ops",
+               ".parallel", ".relevance", ".scores", ".utils"]
 
 # JAX names the port does not have yet, by the ROADMAP queue-1 item that ports them.
 QUEUED = {
-    "": {"core": "item 13", "parallel": "item 13"},
-    ".data": {"GrainDataset": "item 13", "host_shard_range": "item 13"},
+    ".data": {"GrainDataset": "item 14"},  # needs grain, which the card lacks
     ".models": {"FlaxSubjectModel": "item 14"},  # wraps flax.linen, which the card does not have
 }
 # JAX names the port has under another name: the JAX initializers take a jax.random key, the

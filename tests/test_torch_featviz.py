@@ -247,7 +247,7 @@ def test_synthesize_on_token_taps():
 
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"loop": "nope"}, ValueError, "scan.*host"),
-    ({"mesh": object()}, ValueError, "item 13"),
+    ({"mesh": object()}, TypeError, "DeviceMesh"),
     ({"component_ids": [[0]]}, ValueError, "1-D"),
 ], ids=["loop", "mesh", "ids"])
 def test_synthesize_rejects(kwargs, error, match):

@@ -212,6 +212,7 @@ def test_checkpoint_file_and_refusals(tmp_path, towers):
         assert torch.equal(fm.params[key], value), key
     with pytest.raises(ValueError, match="Unknown MobileCLIP version"):
         tmc.ClipMobile("s9", device="cpu")
-    for kwargs, item in (({"mesh": object()}, "item 13"), ({"quantize": "int8"}, "item 14")):
-        with pytest.raises(ValueError, match=item):
+    for kwargs, error, match in (({"mesh": object()}, TypeError, "DeviceMesh"),
+                                 ({"quantize": "int8"}, ValueError, "item 14")):
+        with pytest.raises(error, match=match):
             tmc.ClipMobile("s1", device="cpu", cfg=TINY_T, **kwargs)

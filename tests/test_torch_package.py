@@ -51,7 +51,8 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "models/gpt.py", "models/llama.py", "models/gemma.py", "models/phi.py", "collect/text_based.py",
                    "relevance/text.py", "lm_audit.py", "models/zoo.py", "models/vgg.py", "models/densenet.py",
                    "models/convnext.py", "models/efficientnet.py", "models/mobilenet.py", "models/mnasnet.py",
-                   "models/regnet.py"):
+                   "models/regnet.py", "core/mesh.py", "parallel/multihost.py", "parallel/tensor_parallel.py",
+                   "parallel/launch.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
                                                   "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",

@@ -241,7 +241,7 @@ def test_train_static_method_and_refusals(pair, dictionaries):
     assert trained["W_dec"].shape == (N_LAT, 128) and trained["k"] == K
     cache = TSAECV(tmodel, tds, tds, LAYER, trained, 5).run(batch_size=8)
     assert np.isfinite(cache["layer2.sae"].activations.float().numpy()).all()
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TSAECV(tmodel, tds, tds, LAYER, tp, 5, mesh=object())
     bare = TResNet(depth=18, num_classes=10, dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="weights required"):

@@ -69,8 +69,8 @@ def _record_batches(monkeypatch):
 
         return wrapped
 
-    def t_recording(cfg, optimizer, paired=False):
-        run = t_run(cfg, optimizer, paired)
+    def t_recording(cfg, optimizer, paired=False, **kwargs):
+        run = t_run(cfg, optimizer, paired, **kwargs)
 
         def wrapped(p, o, s, batches):
             seen["port"].append((batches[0] if paired else batches).numpy().copy())
@@ -198,7 +198,7 @@ def test_error_paths():
     tc = tsae.SAEConfig(d_in=16, n_latents=8, k=2, batch_rows=64, d_out=3)
     with pytest.raises(ValueError, match="targets must be"):
         tsae.train_transcoder_from_rows(np.zeros((64, 16), np.float32), np.zeros((64, 2)), tc, device="cpu")
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsae.train_sae_from_rows(np.zeros((64, 16), np.float32), cfg, mesh=object(), device="cpu")
     model = _PortTaps()
     with pytest.raises(ValueError, match="batch_size"):

@@ -169,7 +169,9 @@ def test_siglipv2_api_matches_jax(towers):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("kwargs, item", [({"mesh": object()}, "item 13"), ({"quantize": "int8"}, "item 14")])
-def test_mesh_and_quantize_are_refused(kwargs, item):
-    with pytest.raises(ValueError, match=item):
+@pytest.mark.parametrize("kwargs, error, match", [({"mesh": object()}, TypeError, "DeviceMesh"),
+                                                  ({"quantize": "int8"}, ValueError, "item 14")],
+                         ids=["kwargs0-item 13", "kwargs1-item 14"])  # the ids from before the mesh was ported
+def test_mesh_and_quantize_are_refused(kwargs, error, match):
+    with pytest.raises(error, match=match):
         tsig.SigLipV2(device="cpu", cfg=TINY_T, **kwargs)

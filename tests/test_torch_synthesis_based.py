@@ -1,7 +1,8 @@
 """``SynthesisComponentVisualizer`` against the JAX package's, on the same weights and draws.
 
 The cases of JAX ``tests/collect/test_synthesis_based.py`` that apply to
-one device (the mesh cases wait for ROADMAP item 13). The two-conv model of
+one device (synthesis split over ranks is held in
+``test_torch_mesh_train.py``). The two-conv model of
 ``test_torch_featviz.py`` carries the same weights in both packages, and the
 port's draws are the JAX keys' (computed per chunk seed, which the CPU
 generator carries as its ``initial_seed``), so galleries agree within 1e-5

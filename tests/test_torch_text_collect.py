@@ -66,7 +66,7 @@ def test_dataset_and_visualizer_refusals():
     _, _, tmodel, tparams, _ = lm_pair("gpt2")
     tmodel.params, tmodel.name = tparams, "g"
     ds = TTDS.from_texts(TEXTS, tokenize, SEQ, pad_id=PAD, name="c")
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TTCV(tmodel, ds, ds.texts_view(), ["transformer.h.1.mlp.act"], 3, mesh=object())
     fm = tclip.OpenClip("ViT-B-32", jax_params=tclip.init_clip_params_jax_layout(1, TINY_T), dtype=torch.float32,
                         device="cpu", cfg=TINY_T)
