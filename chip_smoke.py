@@ -206,8 +206,24 @@ Phases (any failing check raises; the exit code is then non-zero):
    process (step-1 parameters, the fvu trajectory) with two controls that
    must break those bounds: a skipped gradient all-reduce and the rank-mean
    of fvu ratios. Prints the mesh path's images/s beside the plain path's.
+21. int8 — the int8 inference path (``ops/quant.py``; ``INT8``, ``INT8_GATE``;
+   ``phase_int8``): card against CPU on the same float32 inputs, ``x_q``
+   and the int32 accumulators of ``int8_matmul`` at ViT-B/32's four linears
+   at batch 256 and at 5 and 17 rows, and of ``int8_conv`` at ResNet-50's
+   stage convs and ResNeXt-50 32×4d's grouped 3×3s (batch 8), equal
+   exactly; ViT-B/32, SigLIP2 ViT-B/16 and MobileCLIP-S2 at full width, bf16,
+   ``quantize="int8"`` against float per image (cosine ≥ 0.995) and both
+   towers' images/s; ViT-B/32's linears and three ResNet-50 convs at batch
+   256 split into quantize, im2col, ``_int_mm`` and epilogue beside their
+   bounds and the bf16 product; LRP heatmaps of the float32 int8 ResNet-50
+   against its dequantized float twin within ``[lrp]``'s bounds; ResNet-50
+   bf16 and int8 on the quickstart's layer3/layer4 over its 2048-image pool
+   (pooled taps per image ≥ 0.99, top-k id overlap and value cosine),
+   collect and the fused pass with either tower int8; the int8 concept DB
+   through redundancy, probing and ``topk_cosine_search`` (K1 counted from 0
+   as the ``int8`` path).
 
-Each of phases 14–20 prints its wall seconds beside its bound
+Each of phases 14–21 prints its wall seconds beside its bound
 (``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
@@ -252,11 +268,14 @@ sys.dont_write_bytecode = True
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM data-sheet rates (dense): fp32 outside the tensor cores, TF32 on
-# the tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
+from semanticlens_tpu_torch.utils.flops import H100_SXM  # noqa: E402
+
+# H100 SXM data-sheet rates (dense, utils/flops.py): fp32 outside the tensor
+# cores, TF32 and int8 on the tensor cores, HBM3.
+PEAK_FP32_FLOPS = H100_SXM["fp32"]
+PEAK_TF32_FLOPS = H100_SXM["tf32"]
+PEAK_INT8_OPS = H100_SXM["int8"]
+PEAK_BYTES_PER_S = H100_SXM["hbm_bytes_per_s"]
 L2_BYTES = 50e6
 ATOL = 3e-5
 GRAPH_LAUNCHES = 20
@@ -485,6 +504,29 @@ MESH = {"images": 2048, "size": 224, "batch": 256, "rank_batch": 128, "num_sampl
 MESH_GATE = {"sae_step1_rel": 1e-3, "sae_fvu_step1_rel": 1e-5, "sae_fvu_rel": 5e-4}
 PROBE_WORDS = ["dog", "cat", "car", "tree", "bird", "house", "person", "boat"]
 TEMPLATES = ["a photo of a {}"]
+# The int8 inference path (``ops/quant.py``): W8A8 with dynamic activation scales, ``torch._int_mm`` (cuBLASLt)
+# for every product, an int8 im2col for convs. Gates: card against CPU on the same float32 inputs at ViT-B/32's
+# linears at batch 256 (256 · 50 rows) and at 5 and 17 rows (``_int_mm``'s > 16-row rule), and at ResNet-50's
+# stage convs and ResNeXt-50 32×4d's grouped 3×3s at batch 8: ``x_q`` and the int32 accumulators equal
+# exactly. The towers at full width, bf16, batch 256, int8 against float per image (the JAX package's
+# cosine 0.995); ResNet-50's pooled layer3/layer4 taps, int8 against bf16, per image (0.99); LRP through the
+# int8 ResNet-50 against the dequantized float model at ``[lrp]``'s float32 bounds. Then the quickstart's pool
+# (2048 images) through collect and the fused pass with either tower int8, Analyze with K1 on the int8
+# concept DB, and ViT-B/32's linears and three ResNet-50 convs at batch 256 split into their passes beside the
+# int8 bound and the bf16 product (``split_convs``: (cin, cout, kernel, stride, input side)).
+INT8 = {"images": 2048, "batch": 256, "num_samples": 25, "layers": ["layer3", "layer4"], "gate_batch": 8,
+        "tokens": 50, "small_rows": [5, 17], "dense": [(768, 2304), (768, 768), (768, 3072), (3072, 768)],
+        "split_convs": [(64, 64, 3, 1, 56), (256, 64, 1, 1, 56), (256, 256, 3, 1, 14)],
+        "lrp_images": 4, "timed_iters": 20, "bound_s": 60}
+# (cin, cout, kernel, stride, input side, groups): ResNet-50's distinct stage convs at 224² (stride 2 on the
+# first 3×3 of stages 2–4 and on the downsample), then ResNeXt-50 32×4d's grouped 3×3s of stages 1 and 2.
+INT8_CONVS = [(64, 64, 1, 1, 56, 1), (64, 64, 3, 1, 56, 1), (64, 256, 1, 1, 56, 1), (256, 64, 1, 1, 56, 1),
+              (256, 128, 1, 1, 56, 1), (128, 128, 3, 2, 56, 1), (256, 512, 1, 2, 56, 1), (128, 512, 1, 1, 28, 1),
+              (512, 256, 1, 1, 28, 1), (256, 256, 3, 2, 28, 1), (512, 1024, 1, 2, 28, 1), (1024, 256, 1, 1, 14, 1),
+              (256, 256, 3, 1, 14, 1), (1024, 512, 1, 1, 14, 1), (512, 512, 3, 2, 14, 1), (1024, 2048, 1, 2, 14, 1),
+              (2048, 512, 1, 1, 7, 1), (512, 512, 3, 1, 7, 1), (512, 2048, 1, 1, 7, 1),
+              (128, 128, 3, 1, 56, 32), (256, 256, 3, 2, 56, 32)]
+INT8_GATE = {"tower_cosine": 0.995, "pooled_tap_cosine": 0.99}
 
 
 def log(msg: str):
@@ -4253,6 +4295,335 @@ def tp_gloo_probe(root: str) -> dict:
     return results
 
 
+# --------------------------------------------------------------------------- int8
+def int8_card_vs_cpu(dev) -> dict:
+    """``x_q`` and the int32 accumulators of ``int8_matmul`` / ``int8_conv`` on the card against the CPU, on the
+    same float32 inputs, at the main path's shapes: exactly equal, or this raises. The weights are quantized
+    on each device too and must agree bit for bit."""
+    from semanticlens_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(0)
+    cases = 0
+
+    def both(fn, *cpu_args):
+        card = fn(*(a.to(dev) for a in cpu_args))
+        cpu = fn(*cpu_args)
+        return [c.cpu() for c in card], cpu
+
+    def exact(tag, card, cpu):
+        for name, a, b in zip(("x_q", "acc", "q", "scale"), card, cpu):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[int8] card vs CPU {tag}: {name} differs in {int((a != b).sum())} entries")
+
+    def dense(x, w):
+        qt = tq.quantize_weight(w)
+        x_q, _ = tq.quantize_rows(x)
+        return x_q, tq.int_mm(x_q.reshape(-1, x_q.shape[-1]), qt.q), qt.q, qt.scale
+
+    rows = [INT8["batch"] * INT8["tokens"], *INT8["small_rows"]]
+    for k, n in INT8["dense"]:
+        w = torch.randn(n, k, generator=gen) * k**-0.5
+        for m in rows:
+            x = torch.randn(m, k, generator=gen)
+            exact(f"dense {m}x{k}->{n}", *both(dense, x, w))
+            cases += 1
+
+    def conv(x, w, stride, padding, groups):
+        qt = tq.quantize_weight(w)
+        x_q, _ = tq.quantize_samples(x)
+        return x_q, tq.int8_conv_acc(x_q, qt.q, stride=stride, padding=padding, groups=groups), qt.q, qt.scale
+
+    for cin, cout, k, stride, side, groups in INT8_CONVS:
+        x = torch.randn(INT8["gate_batch"], cin, side, side, generator=gen).abs()  # post-ReLU activations
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = torch.randn(cout, cin // groups, k, k, generator=gen) * (cin // groups * k * k) ** -0.5
+        card, cpu = both(lambda xx, ww: conv(xx, ww, stride, k // 2, groups), x, w)
+        exact(f"conv {cin}->{cout} {k}x{k}/{stride} at {side}² groups {groups}", card, cpu)
+        cases += 1
+    return {"cases": cases, "all_exact": True}
+
+
+def _per_image_cosine(a, b) -> torch.Tensor:
+    a, b = a.float().flatten(1), b.float().flatten(1)
+    return (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+
+
+def _images_per_s(fn, batches, n_images) -> float:
+    fn(batches[0])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        fn(b)
+    torch.cuda.synchronize()
+    return n_images / (time.perf_counter() - t0)
+
+
+def int8_towers(dev, images) -> tuple[dict, tuple]:
+    """ViT-B/32, SigLIP2 ViT-B/16 and MobileCLIP-S2 at full width, bf16, each built twice from one numpy draw
+    (float, ``quantize="int8"``): per-image cosine over 256 images, and both towers' images/s over the pool
+    on preprocessed device-resident batches. Returns the readings and the ViT-B/32 pair."""
+    from semanticlens_tpu_torch.foundation_models import clip as tclip
+    from semanticlens_tpu_torch.foundation_models import mobileclip as tmc
+    from semanticlens_tpu_torch.foundation_models import siglip as tsig
+
+    batch = INT8["batch"]
+    towers = {
+        "vit_b_32": lambda np_params, q: tclip.OpenClip("ViT-B-32", jax_params=np_params, dtype=torch.bfloat16,
+                                                        device=dev, quantize=q),
+        "siglip2_vit_b_16": lambda np_params, q: tsig.SigLipV2(jax_params=np_params, dtype=torch.bfloat16,
+                                                               device=dev, quantize=q),
+        "mobileclip_s2": lambda np_params, q: tmc.ClipMobile("s2", jax_params=np_params, dtype=torch.bfloat16,
+                                                             device=dev, quantize=q),
+    }
+    draws = {"vit_b_32": lambda: tclip.init_clip_params_jax_layout(0, tclip.CLIP_PRESETS["ViT-B-32"]),
+             "siglip2_vit_b_16": lambda: tsig.init_siglip_params_jax_layout(
+                 0, tsig.SIGLIP_PRESETS["ViT-B-16-SigLIP2"]),
+             "mobileclip_s2": lambda: tmc.init_mobileclip_params_jax_layout(
+                 0, tmc.MOBILECLIP_PRESETS["MobileCLIP-S2"])}
+    out, vit_pair = {}, None
+    for name, build in towers.items():
+        t0 = time.perf_counter()
+        np_params = draws[name]()
+        fm, fmq = build(np_params, None), build(np_params, "int8")
+        del np_params
+        build_s = time.perf_counter() - t0
+        batches = [fm.preprocess(torch.from_numpy(images[i : i + batch]).to(dev)) for i in range(0, len(images), batch)]
+        with torch.inference_mode():
+            a, b = fm.encode_image(batches[0]), fmq.encode_image(batches[0])
+            cos = _per_image_cosine(a, b)
+            if not (torch.isfinite(b).all() and b.shape == a.shape):
+                raise AssertionError(f"[int8] {name}: int8 embeddings {tuple(b.shape)} not finite or misshapen")
+            rates = {tag: _images_per_s(m.encode_image, batches, len(images)) for tag, m in (("bf16", fm),
+                                                                                            ("int8", fmq))}
+        out[name] = {"cosine_min": float(cos.min()), "cosine_mean": float(cos.mean()),
+                     "images_per_s": rates, "int8_over_bf16": rates["int8"] / rates["bf16"],
+                     "name": fmq.name, "build_s": build_s}
+        if name == "vit_b_32":
+            vit_pair = (fm, fmq)
+        del fm, fmq, batches, a, b
+        torch.cuda.empty_cache()
+    return out, vit_pair
+
+
+def _int8_bounds_ms(ops: float, int8_bytes: float, bf16_bytes: float) -> dict:
+    """The least time of the int8 and the bf16 version: operations over the dtype's peak against bytes over
+    HBM's rate (``utils/flops.py``), the larger."""
+    from semanticlens_tpu_torch.utils.flops import H100_SXM
+
+    hbm = H100_SXM["hbm_bytes_per_s"]
+    return {"int8": max(ops / H100_SXM["int8"], int8_bytes / hbm) * 1e3,
+            "bf16": max(ops / H100_SXM["bf16"], bf16_bytes / hbm) * 1e3}
+
+
+def int8_splits(dev) -> dict:
+    """Where an int8 product's time goes, bf16 activations, ms by CUDA events over ``timed_iters`` launches
+    (``time_ms``). ViT-B/32's linears at batch 256 (12,800 rows): the row quantize, ``_int_mm``, the epilogue
+    (int32 → float32, both scales, cast), the whole ``int8_matmul`` and the bf16 ``F.linear``. ResNet-50 convs
+    at batch 256 (``INT8["split_convs"]``): the per-sample quantize, the im2col copy, ``_int_mm``, the
+    epilogue, the whole ``int8_conv`` and cuDNN's bf16 convolution. Each beside its int8 and bf16 bounds."""
+    from semanticlens_tpu_torch.ops import quant as tq
+
+    iters, batch = INT8["timed_iters"], INT8["batch"]
+    m = batch * INT8["tokens"]
+    rows = {}
+    for k, n in INT8["dense"]:
+        x = torch.randn(m, k, device=dev, dtype=torch.bfloat16)
+        w = torch.randn(n, k, device=dev) * k**-0.5
+        qt, wb = tq.quantize_weight(w), w.to(torch.bfloat16)
+        x_q, x_scale = tq.quantize_rows(x)
+        acc = tq.int_mm(x_q, qt.q)
+        ms = {"quantize": time_ms(lambda: tq.quantize_rows(x), iters),
+              "int_mm": time_ms(lambda: tq.int_mm(x_q, qt.q), iters),
+              "epilogue": time_ms(lambda: (acc.float() * x_scale * qt.scale).to(torch.bfloat16), iters),
+              "int8_matmul": time_ms(lambda: tq.int8_matmul(x, qt), iters),
+              "bf16_linear": time_ms(lambda: torch.nn.functional.linear(x, wb), iters)}
+        bounds = _int8_bounds_ms(2.0 * m * k * n, 2 * m * k + n * k + 4 * n + 2 * m * n,
+                                 2 * m * k + 2 * n * k + 2 * m * n)
+        rows[f"linear {m}x{k}->{n}"] = {"ms": ms, "bound_ms": bounds,
+                                        "int_mm_share_of_int8_bound": bounds["int8"] / ms["int_mm"],
+                                        "int8_over_bf16": ms["int8_matmul"] / ms["bf16_linear"]}
+        del x, w, qt, wb, x_q, x_scale, acc
+    for cin, cout, k, stride, side in INT8["split_convs"]:
+        x = torch.randn(batch, cin, side, side, device=dev, dtype=torch.bfloat16).abs()
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = torch.randn(cout, cin, k, k, device=dev) * (cin * k * k) ** -0.5
+        qt = tq.quantize_weight(w)
+        wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        pad = k // 2
+        x_q, x_scale = tq.quantize_samples(x)
+        cols = tq.im2col(x_q, k, k, stride=stride, padding=pad)
+        ho = cols.shape[1]
+        cols2d = cols.reshape(batch * ho * ho, cin * k * k)
+        acc = tq.int_mm(cols2d, qt.q.reshape(cout, -1)).view(batch, ho, ho, cout)
+        ms = {"quantize": time_ms(lambda: tq.quantize_samples(x), iters),
+              "im2col": time_ms(lambda: cols.reshape(batch * ho * ho, cin * k * k), iters),
+              "int_mm": time_ms(lambda: tq.int_mm(cols2d, qt.q.reshape(cout, -1)), iters),
+              "epilogue": time_ms(lambda: (acc.float() * x_scale.view(-1, 1, 1, 1) * qt.scale).to(torch.bfloat16),
+                                    iters),
+              "int8_conv": time_ms(lambda: tq.int8_conv(x, qt, stride=stride, padding=pad), iters),
+              "bf16_conv": time_ms(lambda: torch.nn.functional.conv2d(x, wb, stride=stride, padding=pad), iters)}
+        out_elems = batch * ho * ho * cout
+        bounds = _int8_bounds_ms(2.0 * out_elems * cin * k * k, 2 * x.numel() + qt.q.numel() + 4 * cout + 2 * out_elems,
+                                 2 * x.numel() + 2 * w.numel() + 2 * out_elems)
+        rows[f"conv {batch}x{cin}x{side}² {k}x{k}/{stride} ->{cout}"] = {
+            "ms": ms, "bound_ms": bounds, "int_mm_share_of_int8_bound": bounds["int8"] / ms["int_mm"],
+            "int8_over_bf16": ms["int8_conv"] / ms["bf16_conv"]}
+        del x, w, qt, wb, x_q, x_scale, cols, cols2d, acc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_lrp_gate(dev, images) -> dict:
+    """Heatmaps through the int8 ResNet-50 (float32, TF32 off) against the float ResNet-50 whose stage convs
+    are its dequantized int8 weights, on 4 images and 2 layer3 components, within ``[lrp]``'s float32 bounds;
+    a composite dequantizes, so the two must agree."""
+    from semanticlens_tpu_torch.collect.relevance_based import _Preprocessed
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops.quant import QuantizedTensor, dequantize
+    from semanticlens_tpu_torch.relevance import make_attribution_fn
+
+    x = images[: INT8["lrp_images"], :224, :224]
+    mq = ResNet(depth=50, dtype=torch.float32, device=dev, quantize="int8")
+    pq = mq.init(seed=0)
+    mf = ResNet(depth=50, dtype=torch.float32, device=dev)
+    pf = {k: dequantize(v).contiguous(memory_format=torch.channels_last) if isinstance(v, QuantizedTensor) else v
+          for k, v in pq.items()}
+    gaps = {}
+    for composite in ("epsilon_plus_flat", "epsilon"):
+        for comp in (0, 1):
+            hq, hf = (make_attribution_fn(_Preprocessed(m, imagenet_preprocess), LRP["layer"], composite=composite)(
+                p, x, comp).cpu() for m, p in ((mq, pq), (mf, pf)))
+            gap = float((hq - hf).abs().max())
+            gaps[f"{composite}[{comp}]"] = gap
+            if not (gap <= LRP_HEAT_ATOL[composite] and torch.isfinite(hq).all() and hq.abs().max() > 0):
+                raise AssertionError(f"[int8] LRP {composite} component {comp}: int8 vs dequantized {gap:.3g} > "
+                                     f"{LRP_HEAT_ATOL[composite]}")
+    del mq, pq, mf, pf
+    torch.cuda.empty_cache()
+    return {"heatmap_gap_int8_vs_dequantized": gaps, "bound": {c: LRP_HEAT_ATOL[c] for c in ("epsilon_plus_flat",
+                                                                                              "epsilon")}}
+
+
+def _fidelity(states_f, states_q) -> dict:
+    """Per layer: the mean share of each component's top-k ids that int8 keeps, and the values' cosine."""
+    out = {}
+    for layer in states_f:
+        ids_f, ids_q = states_f[layer].ids.cpu().numpy(), states_q[layer].ids.cpu().numpy()
+        overlap = np.mean([len(set(a) & set(b)) / len(a) for a, b in zip(ids_f, ids_q)])
+        vf = states_f[layer].values.float().cpu().numpy().ravel()
+        vq = states_q[layer].values.float().cpu().numpy().ravel()
+        out[layer] = {"topk_id_overlap": float(overlap),
+                      "value_cosine": float((vf * vq).sum() / (np.linalg.norm(vf) * np.linalg.norm(vq)))}
+    return out
+
+
+def int8_collect(dev, images, vit_pair, root: Path) -> tuple[dict, dict]:
+    """ResNet-50 bf16 and int8 on the quickstart's layers over the pool: pooled taps per image, the collect
+    and the fused pass (embed tower bf16 / int8, subject bf16 / int8) in turns, top-k fidelity; then the
+    concept DB of the int8 fused pass and Analyze on it (redundancy, probing, ``topk_cosine_search``) with
+    K1 counted from 0. Returns the readings and K1's launches."""
+    from semanticlens_tpu_torch import Lens, scores
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ArrayDataset
+    from semanticlens_tpu_torch.models import ResNet
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+    from semanticlens_tpu_torch.utils import make_preprocess_fn
+
+    fm, fmq = vit_pair
+    batch, layers = INT8["batch"], INT8["layers"]
+    dataset = ArrayDataset(images, name="synthetic-uint8")
+    cvs = {}
+    for tag, q in (("bf16", None), ("int8", "int8")):
+        model = ResNet(depth=50, dtype=torch.bfloat16, device=dev, quantize=q)
+        model.params = model.init(seed=0)
+        model.name = f"resnet50-{tag}"
+        cvs[tag] = ActivationComponentVisualizer(model=model, dataset_model=dataset, dataset_fm=dataset,
+                                                 layer_names=layers, num_samples=INT8["num_samples"],
+                                                 aggregate_fn=aggregate_conv_mean,
+                                                 model_preprocess=make_preprocess_fn(size=224),
+                                                 cache_dir=root / tag)
+    pre = make_preprocess_fn(size=224)
+    x = pre(torch.from_numpy(images[:batch]).to(dev))
+    with torch.inference_mode():
+        taps = {tag: cv.model.apply(cv.params, x, layers)[1] for tag, cv in cvs.items()}
+    pooled = {layer: _per_image_cosine(taps["bf16"][layer].mean(dim=(1, 2)), taps["int8"][layer].mean(dim=(1, 2)))
+              for layer in layers}
+    del taps, x
+
+    def embed_with(tower):
+        return lambda raw: tower.encode_image(tower.preprocess(raw))
+
+    def rate(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, len(images) / (time.perf_counter() - t0)
+
+    states, rates = {}, {}  # each rate twice, in turns: the first of each also warms
+    for tag in ("bf16", "int8", "bf16", "int8"):
+        (states[tag], _), r = rate(lambda: cvs[tag].engine.run(cvs[tag].params, dataset, batch))
+        rates.setdefault(f"collect_{tag}", []).append(r)
+    fused = {"subject_bf16_embed_bf16": ("bf16", fm), "subject_bf16_embed_int8": ("bf16", fmq),
+             "subject_int8_embed_int8": ("int8", fmq)}
+    for key, (tag, tower) in [*fused.items(), *fused.items()]:
+        _, r = rate(lambda: cvs[tag].engine.run_fused(cvs[tag].params, dataset, batch, embed_with(tower)))
+        rates.setdefault(f"fused_{key}", []).append(r)
+    fidelity = _fidelity(states["bf16"], states["int8"])
+
+    lens = Lens(fmq)
+    concept_db = lens.compute_concept_db(cvs["int8"], batch_size=batch)
+    agg = {k: v.mean(1) for k, v in concept_db.items()}
+    k1.reset_launch_counts()
+    redundancy = lens.eval_redundancy(agg)
+    hits = lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES)
+    components = torch.from_numpy(np.concatenate([agg[layer] for layer in layers])).to(dev)
+    queries = fmq.encode_text(fmq.tokenize([TEMPLATES[0].format(w) for w in PROBE_WORDS]))
+    values, idx = scores.topk_cosine_search(queries, components, 5)
+    torch.cuda.synchronize()
+    launches = k1.launch_counts()
+    for layer, c in (("layer3", 1024), ("layer4", 2048)):
+        if concept_db[layer].shape != (c, INT8["num_samples"], 512) or not np.isfinite(concept_db[layer]).all():
+            raise AssertionError(f"[int8] concept DB {layer}: {tuple(concept_db[layer].shape)} or not finite")
+        if hits[layer].shape != (len(PROBE_WORDS), c) or not np.isfinite(hits[layer]).all():
+            raise AssertionError(f"[int8] probe scores of {layer}")
+    if not (torch.isfinite(values).all() and int(idx.min()) >= 0 and int(idx.max()) < components.shape[0]):
+        raise AssertionError("[int8] topk_cosine_search on the int8 concept DB")
+    return {"pooled_tap_cosine_min": {k: float(v.min()) for k, v in pooled.items()},
+            "images_per_s": rates, "fidelity": fidelity,
+            "redundancy": {k: float(v) for k, v in redundancy.items()}, "k1_launches": launches}, launches
+
+
+def phase_int8(dev, root: Path) -> dict:
+    """[int8]: the card-against-CPU integer gates, the three towers and ResNet-50 int8 against their float
+    selves, LRP through the int8 ResNet-50, collect and fused passes, Analyze on the int8 concept DB, and the
+    split of int8 linears and convs into their passes. Logs every reading before it raises on a miss."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    images = _make_images(INT8["images"], seed=0)  # the quickstart's pool
+    summary = {"gates": int8_card_vs_cpu(dev)}
+    summary["towers"], vit_pair = int8_towers(dev, images)
+    summary["splits"] = int8_splits(dev)
+    summary["lrp"] = int8_lrp_gate(dev, images)
+    summary["collect"], launches = int8_collect(dev, images, vit_pair, root)
+    del vit_pair
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    summary |= {"gate": INT8_GATE, "phase_s": phase_s, "bound_s": INT8["bound_s"],
+                "within_bound": phase_s <= INT8["bound_s"]}
+    log(f"[int8] {json.dumps(summary)}")
+    missed = [f"{name} cosine {t['cosine_min']:.5f}" for name, t in summary["towers"].items()
+              if not t["cosine_min"] >= INT8_GATE["tower_cosine"]]
+    missed += [f"pooled {layer} cosine {c:.5f}" for layer, c in summary["collect"]["pooled_tap_cosine_min"].items()
+               if not c >= INT8_GATE["pooled_tap_cosine"]]
+    if launches["streaming"] < 1 or launches["tiled"] < 1:
+        missed.append(f"K1 launches on the int8 concept DB: {launches}")
+    if missed:
+        raise AssertionError(f"[int8] misses: {missed}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4304,7 +4675,8 @@ def main():
         done("sae")
         for name, phase in (("audit", phase_audit), ("causal", phase_causal), ("featviz", phase_featviz),
                             ("lm", phase_lm), ("zoo", functools.partial(phase_zoo, cfg=ZOO)),
-                            ("zoo2", functools.partial(phase_zoo, cfg=ZOO2)), ("mesh", phase_mesh)):
+                            ("zoo2", functools.partial(phase_zoo, cfg=ZOO2)), ("mesh", phase_mesh),
+                            ("int8", phase_int8)):
             with tempfile.TemporaryDirectory() as tmp:
                 by_path[name] = phase(dev, Path(tmp))
             done(name)

@@ -26,8 +26,10 @@ sys.dont_write_bytecode = True
 
 import torch  # noqa: E402
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense
-PEAK_BYTES_PER_S = 3.35e12
+from semanticlens_tpu_torch.utils.flops import H100_SXM  # noqa: E402
+
+PEAK_BF16_FLOPS = H100_SXM["bf16"]  # H100 SXM data sheet, dense
+PEAK_BYTES_PER_S = H100_SXM["hbm_bytes_per_s"]
 
 
 def _vit_flops(tokens: int, width: int, depth: int, patch: int) -> float:

@@ -16,9 +16,13 @@ SAE and transcoder dictionaries keep the JAX layout in both packages
 JAX ``tools/train_sae.py --out`` and the port's ``train_sae --out`` write).
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes, e.g. a JAX array
-on the host); outputs are float32 CPU tensors. The port's own random init
-draws its weights in the JAX layout from a numpy seed and comes through
-here, so one seed gives both packages the same weights.
+on the host); outputs are float32 CPU tensors. The CLIP-family and zoo
+converters also take the JAX package's int8 ``QuantizedTensor`` leaves
+(``q``, ``scale``): ``q`` (in, out) → (out, in), HWIO → OIHW, ``scale``
+as it is, as the port's
+:class:`~semanticlens_tpu_torch.ops.quant.QuantizedTensor`. The port's
+own random init draws its weights in the JAX layout from a numpy seed and
+comes through here, so one seed gives both packages the same weights.
 """
 
 from __future__ import annotations
@@ -33,6 +37,23 @@ from semanticlens_tpu_torch.utils.device import resolve_device
 
 def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+
+def _is_quantized(value) -> bool:
+    return hasattr(value, "q") and hasattr(value, "scale")
+
+
+def quantized_from_jax(value):
+    """A JAX ``QuantizedTensor`` (int8 ``q`` (in, out) or HWIO, float32 ``scale`` (out,)) → the port's.
+
+    The out channel moves from the last axis to dim 0: ``q`` (out, in) or
+    OIHW, contiguous; ``scale`` is unchanged.
+    """
+    from semanticlens_tpu_torch.ops.quant import QuantizedTensor
+
+    q = np.asarray(value.q, dtype=np.int8)
+    q = q.transpose(3, 2, 0, 1) if q.ndim == 4 else q.T
+    return QuantizedTensor(torch.from_numpy(np.ascontiguousarray(q)), _tensor(value.scale))
 
 
 def _is_matrix(name: str, shape, kind: str) -> bool:
@@ -76,6 +97,11 @@ def zoo_params_from_jax(params: Mapping, specs) -> dict[str, torch.Tensor]:
     """
     out = {}
     for name, shape, kind in specs:
+        if _is_quantized(params[name]):
+            if tuple(params[name].q.shape) != tuple(shape):
+                raise ValueError(f"{name}: shape {params[name].q.shape} != expected {tuple(shape)}")
+            out[name] = quantized_from_jax(params[name])
+            continue
         arr = np.asarray(params[name], dtype=np.float32)
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {arr.shape} != expected {tuple(shape)}")
@@ -97,6 +123,9 @@ def clip_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """
     out = {}
     for name, value in params.items():
+        if _is_quantized(value):
+            out[name] = quantized_from_jax(value)
+            continue
         arr = np.asarray(value, dtype=np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)

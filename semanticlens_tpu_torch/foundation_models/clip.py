@@ -15,7 +15,9 @@ in float32. The ModifiedResNet's attention pool runs in the tower's dtype,
 as in the JAX package (PERF.md records its error against float32 on the
 card).
 
-Not ported yet (ROADMAP.md): int8 quantization.
+``OpenClip(quantize="int8")`` runs the ViT tower's transformer matmuls in
+int8 (:func:`quantize_clip_params`, :mod:`semanticlens_tpu_torch.ops.quant`);
+its ``name`` gains ``-int8``, so concept-DB caches keep apart.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from semanticlens_tpu_torch import convert
 from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
 from semanticlens_tpu_torch.foundation_models.common import (
+    float32_or,
     init_from_specs,
     shard_tower,
     split_encode,
@@ -49,6 +52,7 @@ from semanticlens_tpu_torch.models.layers import (
     scaled_dot_product_attention,
 )
 from semanticlens_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, preprocess_images
+from semanticlens_tpu_torch.ops.quant import quantize_params, transformer_dense_match
 from semanticlens_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -123,24 +127,38 @@ CLIP_PRESETS: dict[str, CLIPConfig] = {
 # --------------------------------------------------------------------------- #
 # Transformer (shared by the image and text towers)
 # --------------------------------------------------------------------------- #
-def transformer_block(params, prefix, x, n_heads, *, mask=None, quick: bool = True):
-    """open_clip ResidualAttentionBlock: pre-LN attn + pre-LN MLP."""
+def _no_tap(name, value):
+    return value
+
+
+def transformer_block(params, prefix, x, n_heads, *, mask=None, quick: bool = True, tap=None):
+    """open_clip ResidualAttentionBlock: pre-LN attn + pre-LN MLP.
+
+    ``tap(name, value) → value``, when given, sees (and may replace) the
+    attention branch (``{prefix}.attn``), the MLP branch (``{prefix}.mlp``)
+    and the block output (``{prefix}``), as in the JAX package.
+    """
+    tap = tap or _no_tap
     h = layer_norm(x, params[f"{prefix}.ln_1.weight"], params[f"{prefix}.ln_1.bias"])
-    x = x + multi_head_attention(h, params, f"{prefix}.attn", n_heads, mask=mask)
+    x = x + tap(f"{prefix}.attn", multi_head_attention(h, params, f"{prefix}.attn", n_heads, mask=mask))
     h = layer_norm(x, params[f"{prefix}.ln_2.weight"], params[f"{prefix}.ln_2.bias"])
     h = linear(h, params[f"{prefix}.mlp.c_fc.weight"], params[f"{prefix}.mlp.c_fc.bias"])
     h = quick_gelu(h) if quick else gelu(h)
-    return x + linear(h, params[f"{prefix}.mlp.c_proj.weight"], params[f"{prefix}.mlp.c_proj.bias"])
+    h = linear(h, params[f"{prefix}.mlp.c_proj.weight"], params[f"{prefix}.mlp.c_proj.bias"])
+    return tap(prefix, x + tap(f"{prefix}.mlp", h))
 
 
-def transformer_stack(params, prefix, x, layers, n_heads, *, mask=None, quick=True):
+def transformer_stack(params, prefix, x, layers, n_heads, *, mask=None, quick=True, tap=None):
     for i in range(layers):
-        x = transformer_block(params, f"{prefix}.resblocks.{i}", x, n_heads, mask=mask, quick=quick)
+        x = transformer_block(params, f"{prefix}.resblocks.{i}", x, n_heads, mask=mask, quick=quick, tap=tap)
     return x
 
 
-def vit_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
-    """(B, H, W, 3) preprocessed → (B, embed_dim) float32. open_clip VisionTransformer."""
+def vit_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32, tap=None):
+    """(B, H, W, 3) preprocessed → (B, embed_dim) float32. open_clip VisionTransformer.
+
+    ``tap`` as in :func:`transformer_block`, on every block of ``visual.transformer``.
+    """
     v = cfg.vision
     x = images.permute(0, 3, 1, 2).to(dtype)
     x = conv2d(x, params["visual.conv1.weight"], stride=v.patch_size)  # (B, width, g, g)
@@ -149,7 +167,7 @@ def vit_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
     cls = params["visual.class_embedding"].to(dtype).expand(b, 1, w)
     x = torch.cat([cls, x], dim=1) + params["visual.positional_embedding"].to(dtype)
     x = layer_norm(x, params["visual.ln_pre.weight"], params["visual.ln_pre.bias"])
-    x = transformer_stack(params, "visual.transformer", x, v.layers, v.heads, quick=cfg.quick_gelu)
+    x = transformer_stack(params, "visual.transformer", x, v.layers, v.heads, quick=cfg.quick_gelu, tap=tap)
     pooled = layer_norm(x[:, 0], params["visual.ln_post.weight"], params["visual.ln_post.bias"])
     return pooled.float() @ params["visual.proj"].float()
 
@@ -210,20 +228,27 @@ def attention_pool(params, x):
     return linear(pooled, params[f"{p}.c_proj.weight"], params[f"{p}.c_proj.bias"]).float()
 
 
-def resnet_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32):
-    """(B, H, W, 3) preprocessed → (B, embed_dim) float32. CLIP ModifiedResNet with attention pool."""
+def resnet_encode_image(params, cfg: CLIPConfig, images, *, dtype=torch.float32, tap=None):
+    """(B, H, W, 3) preprocessed → (B, embed_dim) float32. CLIP ModifiedResNet with attention pool.
+
+    ``tap`` is accepted for the ViT tower's signature and, as in the JAX
+    package, names no point of this tower.
+    """
     return attention_pool(params, resnet_trunk(params, cfg, images, dtype=dtype))
 
 
-def clip_encode_text(params, cfg: CLIPConfig, tokens, *, dtype=torch.float32):
-    """(B, T) int tokens → (B, embed_dim) float32. EOT pooling via argmax(token id)."""
+def clip_encode_text(params, cfg: CLIPConfig, tokens, *, dtype=torch.float32, tap=None):
+    """(B, T) int tokens → (B, embed_dim) float32. EOT pooling via argmax(token id).
+
+    ``tap`` as in :func:`transformer_block`, on every block of ``transformer``.
+    """
     t = cfg.text
     tokens = tokens.long()
     length = tokens.shape[1]
     x = params["token_embedding.weight"].to(dtype)[tokens]
     x = x + params["positional_embedding"].to(dtype)[:length]
     mask = torch.triu(torch.full((length, length), -torch.inf, device=x.device), diagonal=1)
-    x = transformer_stack(params, "transformer", x, t.layers, t.heads, mask=mask, quick=cfg.quick_gelu)
+    x = transformer_stack(params, "transformer", x, t.layers, t.heads, mask=mask, quick=cfg.quick_gelu, tap=tap)
     x = layer_norm(x, params["ln_final.weight"], params["ln_final.bias"])
     pooled = x[torch.arange(tokens.shape[0], device=x.device), tokens.argmax(dim=-1)]
     return pooled.float() @ params["text_projection"].float()
@@ -382,6 +407,35 @@ def load_openclip_state_dict(cfg: CLIPConfig, state_dict: Mapping) -> dict[str, 
     return out
 
 
+def quantize_clip_params(params, cfg: CLIPConfig, *, include_text: bool = False):
+    """The ViT tower's transformer matmuls int8-quantized (:mod:`semanticlens_tpu_torch.ops.quant`).
+
+    Their weights become per-out-channel int8 ``QuantizedTensor`` s, which
+    ``models.layers.linear`` runs on the int8 path with per-row activation
+    scales. LayerNorms, biases, embeddings, the patch conv and the final
+    projection stay float. A ModifiedResNet tower (its FLOPs are convs) is
+    left float, with a warning. ``include_text`` quantizes the text
+    tower's blocks too.
+    """
+    if cfg.vision.kind != "vit":
+        logger.warning("int8 quantization targets ViT towers; %s vision tower left in float", cfg.vision.kind)
+    return quantize_params(params, clip_int8_match(cfg, include_text=include_text))
+
+
+def clip_int8_match(cfg: CLIPConfig, *, include_text: bool = False):
+    """The keys :func:`quantize_clip_params` quantizes: the ViT tower's (not an RN tower's) and the text
+    tower's (``include_text``) transformer matmul weights."""
+    vit = cfg.vision.kind == "vit"
+    image, text = transformer_dense_match("visual.transformer."), transformer_dense_match("transformer.")
+    return lambda key: (vit and image(key)) or (include_text and text(key))
+
+
+def check_quantize(quantize):
+    """``quantize`` must be ``None`` or ``"int8"`` (the JAX towers' message otherwise)."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"Unsupported quantize={quantize!r}; only 'int8'")
+
+
 def place_params(state_dict: Mapping, float32_param, dtype, device) -> dict[str, torch.Tensor]:
     """Checked float32 CPU tensors placed for a tower: ``float32_param(name)`` ones stay float32, the rest are
     stored once in the compute dtype the towers cast them to on use; convs channels_last."""
@@ -390,11 +444,6 @@ def place_params(state_dict: Mapping, float32_param, dtype, device) -> dict[str,
         t = t.to(device, torch.float32 if float32_param(name) else dtype)
         out[name] = t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
     return out
-
-
-def place_clip_params(state_dict: Mapping, cfg: CLIPConfig, dtype, device) -> dict[str, torch.Tensor]:
-    """An open_clip-named torch-layout state dict, checked and placed (norms and projections float32)."""
-    return place_params(load_openclip_state_dict(cfg, state_dict), _float32_param, dtype, device)
 
 
 def _load_checkpoint(checkpoint) -> Mapping:
@@ -442,6 +491,10 @@ class OpenClip(AbstractVLM):
         axis the parameters are tensor-sharded
         (``parallel.clip_param_specs_2d``) and both towers run under
         ``implicit_replication``.
+    quantize : ``None`` or ``"int8"``: the ViT image tower's transformer
+        matmuls run int8 (:func:`quantize_clip_params`), quantized from the
+        float32 weights after loading and mesh placement; the int8 weights
+        are plain tensors, whole on every rank. ``name`` gains ``-int8``.
     """
 
     def __init__(
@@ -458,7 +511,9 @@ class OpenClip(AbstractVLM):
         quick_gelu: bool | None = None,
         cfg: CLIPConfig | None = None,
         mesh=None,
+        quantize: str | None = None,
     ):
+        check_quantize(quantize)
         self.url = url
         preset = _resolve_preset(url)
         if preset is None:
@@ -482,11 +537,16 @@ class OpenClip(AbstractVLM):
                 logger.warning("No weights provided for %s — using random init.", url)
                 jax_params = init_clip_params_jax_layout(seed, self.cfg)
             params = convert.clip_params_from_jax(jax_params)
-        self.params = place_clip_params(params, self.cfg, dtype, self.device)
+        self.quantize = quantize
+        float32 = float32_or(_float32_param, clip_int8_match(self.cfg) if quantize else None)
+        self.params = place_params(load_openclip_state_dict(self.cfg, params), float32, dtype, self.device)
         from semanticlens_tpu_torch.parallel.tensor_parallel import clip_param_specs_2d
 
         self.mesh = mesh
         self.params = shard_tower(self.params, mesh, clip_param_specs_2d, self.cfg)
+        if quantize:
+            self.params = quantize_clip_params(self.params, self.cfg)
+            self.name = f"{self.name}-int8"  # concept-DB caches key on the name
 
         if bpe_path is None:
             from semanticlens_tpu_torch.foundation_models.assets import find_clip_bpe
@@ -506,7 +566,8 @@ class OpenClip(AbstractVLM):
         return self.cfg.embed_dim
 
     def __repr__(self):
-        return f"{self.__class__.__name__}(url='{self.url}', preset={self.preset})"
+        quant = f", quantize='{self.quantize}'" if self.quantize else ""
+        return f"{self.__class__.__name__}(url='{self.url}', preset={self.preset}{quant})"
 
     def preprocess(self, img):
         """Images → normalized (B, S, S, 3) on the device.

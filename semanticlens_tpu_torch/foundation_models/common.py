@@ -34,6 +34,18 @@ def init_from_specs(seed: int, specs) -> dict[str, np.ndarray]:
     return params
 
 
+def float32_or(float32_param, int8_match):
+    """``float32_param`` widened to the weights ``int8_match`` selects, or as it is when that is None.
+
+    A tower places the weights it will quantize in float32, so that its
+    int8 weights are quantized from float32, as in the JAX package, not
+    from their copies in the compute dtype.
+    """
+    if int8_match is None:
+        return float32_param
+    return lambda name: float32_param(name) or int8_match(name)
+
+
 def split_encode(mesh, encode_local, img):
     """``encode_image`` under a data mesh: this rank's rows of the global batch, all-gathered.
 

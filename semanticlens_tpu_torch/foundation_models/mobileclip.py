@@ -21,7 +21,8 @@ conv+BN pairs), folding the branches with :mod:`.reparam`.
 
 ``mesh=`` splits ``encode_image`` over a data mesh, as in the JAX package
 (the convolutional tower has no tensor-parallel placements there either).
-Not ported yet (ROADMAP.md): ``quantize=`` (item 14) raises ``ValueError``.
+``quantize="int8"`` runs the pointwise convs and the attention stage's
+denses in int8 (:func:`quantize_mobileclip_params`).
 """
 
 from __future__ import annotations
@@ -40,14 +41,16 @@ from semanticlens_tpu_torch.foundation_models.clip import (
     _load_checkpoint,
     _to_image_batch,
     _transformer_param_specs,
+    check_quantize,
     clip_encode_text,
     place_params,
     torch_shape,
 )
-from semanticlens_tpu_torch.foundation_models.common import init_from_specs, split_encode
+from semanticlens_tpu_torch.foundation_models.common import float32_or, init_from_specs, split_encode
 from semanticlens_tpu_torch.foundation_models.tokenizer import ClipBpeTokenizer, HashTokenizer
 from semanticlens_tpu_torch.models.layers import conv2d, gelu, layer_norm, linear, scaled_dot_product_attention
 from semanticlens_tpu_torch.ops.preprocess import preprocess_images
+from semanticlens_tpu_torch.ops.quant import quantize_params, transformer_dense_match
 from semanticlens_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -259,6 +262,39 @@ def load_mobileclip_state_dict(cfg: MobileCLIPConfig, state_dict: Mapping, *, ep
     return out
 
 
+#: Image-tower weight suffixes worth int8: the 1×1 pointwise convs (ConvFFN
+#: expand and project, the stage downsample's projection) and the attention
+#: stage's dense pair carry the FLOPs. Depthwise convs (``.dw``, ``.mixer``:
+#: one input channel per group, nothing for an int8 GEMM to batch), the stem
+#: (raw-pixel statistics) and the head projection stay float.
+_MOBILECLIP_QUANT_SUFFIXES = (
+    ".fc1.weight",
+    ".fc2.weight",
+    ".attn.qkv.weight",
+    ".attn.proj.weight",
+    ".downsample.pw.weight",
+)
+
+
+def mobileclip_int8_match(*, include_text: bool = False):
+    """The keys :func:`quantize_mobileclip_params` quantizes."""
+    text = transformer_dense_match("transformer.")
+    return lambda key: ((key.startswith("visual.") and key.endswith(_MOBILECLIP_QUANT_SUFFIXES))
+                        or (include_text and text(key)))
+
+
+def quantize_mobileclip_params(params, *, include_text: bool = False):
+    """The FastViT tower's pointwise convs and attention denses int8-quantized, after reparameter folding.
+
+    The W8A8 scheme of :func:`~semanticlens_tpu_torch.foundation_models.clip.quantize_clip_params`
+    (:mod:`semanticlens_tpu_torch.ops.quant`): the pointwise convs run
+    ``int8_conv`` (per-sample activation scales), the denses
+    ``int8_matmul`` (per-row). ``include_text`` quantizes the CLIP-style
+    text tower's blocks too.
+    """
+    return quantize_params(params, mobileclip_int8_match(include_text=include_text))
+
+
 def _float32_param(name: str) -> bool:
     """Tensors the towers use in float32: the layer norms and the final projections."""
     return (".norm." in name or ".ln_" in name or name.startswith("ln_")
@@ -284,7 +320,10 @@ class ClipMobile(AbstractVLM):
     mesh : optional ``DeviceMesh``: ``encode_image`` called on every rank
         with the same batch encodes this rank's rows of the ``"data"`` axis
         and all-gathers them (``encode_image_local`` encodes the rows given).
-    quantize : not ported yet; anything but ``None`` raises.
+    quantize : ``None`` or ``"int8"``: the image tower's pointwise convs
+        and attention denses run int8 (:func:`quantize_mobileclip_params`),
+        quantized from the float32 weights after loading and reparameter
+        folding; ``name`` gains ``-int8``.
     """
 
     URLs = dict(s1="MobileCLIP-S1", s2="MobileCLIP-S2")
@@ -309,9 +348,7 @@ class ClipMobile(AbstractVLM):
         from semanticlens_tpu_torch.core.mesh import check_mesh
 
         self.mesh = check_mesh(mesh)
-        if quantize is not None:
-            raise ValueError(f"ClipMobile(quantize={quantize!r}): int8 inference is not ported yet "
-                             "(ROADMAP queue 1 item 14, K2/K3)")
+        check_quantize(quantize)
         self.url = self.URLs[version]
         self.cfg = cfg or MOBILECLIP_PRESETS[self.url]
         self.dtype = dtype
@@ -325,7 +362,12 @@ class ClipMobile(AbstractVLM):
                 logger.warning("No weights provided for %s — using random init.", self.url)
                 jax_params = init_mobileclip_params_jax_layout(seed, self.cfg)
             params = convert.mobileclip_params_from_jax(jax_params)
-        self.params = place_params(load_mobileclip_state_dict(self.cfg, params), _float32_param, dtype, self.device)
+        self.quantize = quantize
+        float32 = float32_or(_float32_param, mobileclip_int8_match() if quantize else None)
+        self.params = place_params(load_mobileclip_state_dict(self.cfg, params), float32, dtype, self.device)
+        if quantize:
+            self.params = quantize_mobileclip_params(self.params)
+            self.name = f"{self.name}-int8"  # concept-DB caches key on the name
 
         if bpe_path is None:
             from semanticlens_tpu_torch.foundation_models.assets import find_clip_bpe
@@ -347,7 +389,8 @@ class ClipMobile(AbstractVLM):
         return self.cfg.embed_dim
 
     def __repr__(self):
-        return f"{self.__class__.__name__}(url='{self.url}')"
+        quant = f", quantize='{self.quantize}'" if self.quantize else ""
+        return f"{self.__class__.__name__}(url='{self.url}'{quant})"
 
     def preprocess(self, img):
         """Images → (B, 256, 256, 3) scaled to 0–1 on the device (as ``OpenClip.preprocess``)."""

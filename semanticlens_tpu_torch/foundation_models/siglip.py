@@ -22,8 +22,8 @@ card); layer norms are computed in float32 and the text head is a float32
 product (the JAX package's ``Precision.HIGHEST``; TF32 stays off).
 
 ``mesh=`` splits ``encode_image`` over a data mesh and tensor-shards the
-towers over a ``"model"`` axis, as ``OpenClip`` does. Not ported yet
-(ROADMAP.md): ``quantize=`` (item 14) raises ``ValueError``.
+towers over a ``"model"`` axis, as ``OpenClip`` does. ``quantize="int8"``
+runs the image tower's block matmuls in int8 (:func:`quantize_siglip_params`).
 """
 
 from __future__ import annotations
@@ -42,10 +42,12 @@ from semanticlens_tpu_torch.foundation_models.base import AbstractVLM
 from semanticlens_tpu_torch.foundation_models.clip import (
     _load_checkpoint,
     _to_image_batch,
+    check_quantize,
     place_params,
     torch_shape,
 )
 from semanticlens_tpu_torch.foundation_models.common import (
+    float32_or,
     init_from_specs,
     shard_tower,
     split_encode,
@@ -54,6 +56,7 @@ from semanticlens_tpu_torch.foundation_models.common import (
 from semanticlens_tpu_torch.foundation_models.tokenizer import HashTokenizer
 from semanticlens_tpu_torch.models.layers import conv2d, gelu, layer_norm, linear, scaled_dot_product_attention
 from semanticlens_tpu_torch.ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, preprocess_images
+from semanticlens_tpu_torch.ops.quant import quantize_params
 from semanticlens_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -223,6 +226,33 @@ def load_siglip_state_dict(cfg: SigLIPConfig, state_dict: Mapping) -> dict[str, 
     return out
 
 
+#: timm-Block dense suffixes (SigLIP's names, not open_clip's): the fused
+#: qkv, the attention out-proj and the MLP pair, almost all of the tower's FLOPs.
+SIGLIP_DENSE_SUFFIXES = (
+    ".attn.qkv.weight",
+    ".attn.proj.weight",
+    ".mlp.fc1.weight",
+    ".mlp.fc2.weight",
+)
+
+
+def siglip_int8_match(*, include_text: bool = False):
+    """The keys :func:`quantize_siglip_params` quantizes: the image (and with ``include_text`` the text)
+    blocks' dense weights."""
+    prefixes = ("visual.blocks.", "text.blocks.") if include_text else ("visual.blocks.",)
+    return lambda key: key.startswith(prefixes) and key.endswith(SIGLIP_DENSE_SUFFIXES)
+
+
+def quantize_siglip_params(params, *, include_text: bool = False):
+    """The SigLIP ViT blocks' matmuls int8-quantized (:mod:`semanticlens_tpu_torch.ops.quant`).
+
+    The MAP attention-pool head, the norms, biases and embeddings stay
+    float. SigLIP splits its fused qkv on the output side, after the
+    product, so no weight slicing is needed.
+    """
+    return quantize_params(params, siglip_int8_match(include_text=include_text))
+
+
 def _float32_param(name: str) -> bool:
     """Tensors the towers use in float32: the layer norms, the text head and the logit terms."""
     return ".norm" in name or name.startswith(("text.head.", "logit_"))
@@ -254,7 +284,9 @@ class SigLipV2(AbstractVLM):
         ``"data"`` axis and gathers it, a ``"model"`` axis tensor-shards
         the towers (``parallel.siglip_param_specs_2d``), as
         for ``OpenClip``.
-    quantize : not ported yet; anything but ``None`` raises.
+    quantize : ``None`` or ``"int8"``: the image tower's blocks run int8
+        (:func:`quantize_siglip_params`), quantized from the float32 weights
+        after loading and mesh placement; ``name`` gains ``-int8``.
     """
 
     URL = "hf-hub:timm/ViT-B-16-SigLIP2"
@@ -274,9 +306,7 @@ class SigLipV2(AbstractVLM):
         quantize: str | None = None,
         cfg: SigLIPConfig | None = None,
     ):
-        if quantize is not None:
-            raise ValueError(f"SigLipV2(quantize={quantize!r}): int8 inference is not ported yet "
-                             "(ROADMAP queue 1 item 14, K2)")
+        check_quantize(quantize)
         self.url = self.URL
         self.cfg = cfg or SIGLIP_PRESETS["ViT-B-16-SigLIP2"]
         self.dtype = dtype
@@ -290,11 +320,16 @@ class SigLipV2(AbstractVLM):
                 logger.warning("No weights provided for %s — using random init.", self.URL)
                 jax_params = init_siglip_params_jax_layout(seed, self.cfg)
             params = convert.siglip_params_from_jax(jax_params)
-        self.params = place_params(load_siglip_state_dict(self.cfg, params), _float32_param, dtype, self.device)
+        self.quantize = quantize
+        float32 = float32_or(_float32_param, siglip_int8_match() if quantize else None)
+        self.params = place_params(load_siglip_state_dict(self.cfg, params), float32, dtype, self.device)
         from semanticlens_tpu_torch.parallel.tensor_parallel import siglip_param_specs_2d
 
         self.mesh = mesh
         self.params = shard_tower(self.params, mesh, siglip_param_specs_2d, self.cfg)
+        if quantize:
+            self.params = quantize_siglip_params(self.params)
+            self.name = f"{self.name}-int8"  # concept-DB caches key on the name
 
         # Resolution order: an explicit tokenizer object, an explicit .model
         # path, a locally discovered .model, then the testing fallback.
@@ -321,7 +356,8 @@ class SigLipV2(AbstractVLM):
         return self.cfg.embed_dim
 
     def __repr__(self):
-        return f"{self.__class__.__name__}(url='{self.url}')"
+        quant = f", quantize='{self.quantize}'" if self.quantize else ""
+        return f"{self.__class__.__name__}(url='{self.url}'{quant})"
 
     def preprocess(self, img):
         """Images → normalized (B, S, S, 3) on the device (as ``OpenClip.preprocess``, SigLIP's mean/std)."""

@@ -152,3 +152,7 @@ def validate_layers(model: SubjectModel, layer_names: Sequence[str]) -> None:
     for layer in layer_names:
         if not model.has_module(layer):
             raise ValueError(f"Layer '{layer}' not found in model.")
+
+
+#: A layer's aggregation: (B, ...) activations → (B, C) per-component scores.
+AggregationFn = Callable[[torch.Tensor], torch.Tensor]

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
+from semanticlens_tpu_torch.ops.quant import QuantizedTensor, col_slice, dequantize, int8_conv, int8_matmul
+
 # --------------------------------------------------------------------------- #
 # LRP context
 # --------------------------------------------------------------------------- #
@@ -202,7 +204,18 @@ def conv2d(x, weight, bias=None, *, stride=1, padding=0, groups=1):
 
     Under a composite: the flat, z⁺ or ε rule (:func:`_next_rule`), whose
     transpose is cuDNN's backward-data convolution with the rule's weights.
+
+    An int8 :class:`~semanticlens_tpu_torch.ops.quant.QuantizedTensor`
+    weight runs :func:`~semanticlens_tpu_torch.ops.quant.int8_conv`
+    (per-sample activation scales), the bias added in the output dtype;
+    under a composite it is dequantized and the float rules apply.
     """
+    if isinstance(weight, QuantizedTensor):
+        if _lrp_active():
+            weight = dequantize(weight)
+        else:
+            out = int8_conv(_local(x), weight, stride=stride, padding=padding, groups=groups)
+            return out if bias is None else out + bias.to(out.dtype).view(1, -1, 1, 1)
     w = weight.to(x.dtype)
 
     def conv(xx, ww):
@@ -257,7 +270,19 @@ def batch_norm(x, weight, bias, running_mean, running_var, *, eps=1e-5):
 
 
 def linear(x, weight, bias=None):
-    """Dense layer; ``weight`` is torch's (out, in). Under a composite: flat or ε rule."""
+    """Dense layer; ``weight`` is torch's (out, in). Under a composite: flat or ε rule.
+
+    An int8 :class:`~semanticlens_tpu_torch.ops.quant.QuantizedTensor`
+    weight runs :func:`~semanticlens_tpu_torch.ops.quant.int8_matmul`
+    (per-row activation scales), the bias added in the output dtype; under
+    a composite it is dequantized and the float rules apply.
+    """
+    if isinstance(weight, QuantizedTensor):
+        if _lrp_active():
+            weight = dequantize(weight)
+        else:
+            out = int8_matmul(_local(x), weight)
+            return out if bias is None else out + bias.to(out.dtype)
     w = weight.to(x.dtype)
     b = None if bias is None else bias.to(x.dtype)
     if not _lrp_active():
@@ -393,7 +418,8 @@ def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
     Params: ``{prefix}.in_proj_weight`` (3D, D), ``{prefix}.in_proj_bias``
     (3D,), ``{prefix}.out_proj.weight`` (D, D), ``{prefix}.out_proj.bias``.
     x: (B, T, D) queries; kv: optional (B, S, D) keys/values (defaults to x).
-    mask: optional additive (T, S) float mask.
+    mask: optional additive (T, S) float mask. An int8 in-proj
+    (``QuantizedTensor``) is split into Q, K and V by ``col_slice``.
     """
     d_model = x.shape[-1]
     w_in = params[f"{prefix}.in_proj_weight"]
@@ -404,9 +430,9 @@ def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
         q, k, v = linear(x, w_in, b_in).split(d_model, dim=-1)
     else:
         kv = x if kv is None else kv
-        q = linear(x, w_in[:d_model], b_in[:d_model])
-        k = linear(kv, w_in[d_model : 2 * d_model], b_in[d_model : 2 * d_model])
-        v = linear(kv, w_in[2 * d_model :], b_in[2 * d_model :])
+        q = linear(x, col_slice(w_in, 0, d_model), b_in[:d_model])
+        k = linear(kv, col_slice(w_in, d_model, 2 * d_model), b_in[d_model : 2 * d_model])
+        v = linear(kv, col_slice(w_in, 2 * d_model, 3 * d_model), b_in[2 * d_model :])
     out = scaled_dot_product_attention(q, k, v, n_heads, mask=mask)
     return linear(out, params[f"{prefix}.out_proj.weight"], params[f"{prefix}.out_proj.bias"])
 
@@ -491,6 +517,11 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
     attn_mask = None if mask is None else mask.to(q.dtype)
     out = F.scaled_dot_product_attention(split(q, t), split_kv(k), split_kv(v), attn_mask=attn_mask, scale=scale)
     return merge(out, q.dtype)
+
+
+def _local(x):
+    """``x`` as a plain tensor: a DTensor activation is gathered whole (the int8 ops take plain tensors)."""
+    return x.full_tensor() if _has_dtensor(x) else x
 
 
 def _has_dtensor(*tensors) -> bool:

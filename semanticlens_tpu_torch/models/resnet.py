@@ -10,6 +10,11 @@ forward runs NCHW in channels_last memory (cuDNN's preferred layout);
 (B, H, W, C) conv taps. Inference-mode BN. The residual joins go through
 ``layers.residual_add``, which is ``out + identity`` outside an LRP
 composite and splits relevance proportionally inside one.
+
+``quantize="int8"`` puts every stage convolution (``layer*``) on the int8
+path of :mod:`semanticlens_tpu_torch.ops.quant`: int8 weights per output
+channel, int8 activations per sample, an int32 im2col product. The stem,
+the BNs and ``fc`` stay float, and LRP dequantizes.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from semanticlens_tpu_torch.models.layers import (
     residual_add,
 )
 from semanticlens_tpu_torch.models.zoo import ZooModel
+from semanticlens_tpu_torch.ops.quant import quantize_params
 from semanticlens_tpu_torch.utils.device import resolve_device
 
 _STAGE_BLOCKS = {
@@ -66,6 +72,10 @@ class ResNet(ZooModel):
         (bottleneck depths only): ``groups=32, width_per_group=4`` is
         ``resnext50_32x4d``, ``width_per_group=128`` is ``wide_resnet50_2``.
         The bottleneck's inner width is ``int(planes * width_per_group / 64) * groups``.
+    quantize : ``None`` (default) or ``"int8"``: the stage convolutions
+        run int8 (module docstring). Opt-in only: it perturbs the tapped
+        activations within quantization noise, and ``repr`` (the ActMax
+        cache key) says so.
     device : where parameters live and the forward runs; ``None`` → the
         CUDA card (raises without one); pass ``"cpu"`` for the CPU.
     """
@@ -73,11 +83,14 @@ class ResNet(ZooModel):
     STEM_WIDTH_D = 32  # timm resnet*d default
 
     def __init__(self, depth: int = 18, num_classes: int = 1000, dtype=torch.bfloat16, variant: str = "",
-                 groups: int = 1, width_per_group: int = 64, device=None):
+                 groups: int = 1, width_per_group: int = 64, quantize: str | None = None, device=None):
         if depth not in _STAGE_BLOCKS:
             raise ValueError(f"Unsupported ResNet depth {depth}")
         if variant not in ("", "d"):
             raise ValueError(f"Unsupported ResNet variant {variant!r}; expected '' or 'd'")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"Unsupported quantize mode {quantize!r}; expected None or 'int8'")
+        self.quantize = quantize
         self.depth = depth
         self.variant = variant
         self.num_classes = num_classes
@@ -170,6 +183,28 @@ class ResNet(ZooModel):
             return "uniform", 1.0 / math.sqrt(shape[0])
         return "const", 1.0 if kind == "bn_scale" else 0.0
 
+    def load_torch_state_dict(self, state_dict):
+        """A torchvision (timm for -D) state dict, checked and placed; stage convs int8 when quantized.
+
+        The int8 weights are quantized from the float32 weights, as in the
+        JAX package, not from their copies in the compute dtype.
+        """
+        params = super().load_torch_state_dict(state_dict)
+        if self.quantize:
+            params.update({name: torch.as_tensor(state_dict[name]).to(self.device, torch.float32)
+                           for name in self._quantized_names()})
+        return self._maybe_quantize(params)
+
+    def _quantized_names(self) -> set[str]:
+        """The stage convolutions, by the specs' kind (``downsample.1`` is a conv in -D, a BN in v1.5)."""
+        return {name for name, _, kind in self._param_specs() if kind == "conv" and name.startswith("layer")}
+
+    def _maybe_quantize(self, params: dict) -> dict:
+        """The stage convolutions int8-quantized when ``quantize='int8'``; the stem, BNs and ``fc`` stay float."""
+        if self.quantize != "int8":
+            return params
+        return quantize_params(params, self._quantized_names().__contains__)
+
     # ------------------------------------------------------------------ apply
     def _has_downsample(self, params, prefix):
         return f"{prefix}.downsample.{1 if self.variant == 'd' else 0}.weight" in params
@@ -234,4 +269,6 @@ class ResNet(ZooModel):
         v = f", variant='{self.variant}'" if self.variant else ""
         if self.groups != 1 or self.width_per_group != 64:
             v += f", groups={self.groups}, width_per_group={self.width_per_group}"
+        if self.quantize:  # the ActMax cache key: a quantized model's taps are not its float twin's
+            v += f", quantize='{self.quantize}'"
         return f"ResNet(depth={self.depth}, num_classes={self.num_classes}{v})"

@@ -186,3 +186,14 @@ def test_clip_tower_at_tp2_matches_unsharded_and_jax(tp2):
         assert np.abs(got[f"clip/{key}_tp"] - want[key]).max() <= 1e-5 * scale, key
     scale = np.abs(got["mha/plain"]).max()
     assert np.abs(got["mha/tp"] - got["mha/plain"]).max() <= 1e-5 * scale
+
+
+def test_int8_tower_at_tp2_equals_the_unsharded_int8_tower(tp2):
+    """``OpenClip(quantize="int8", mesh=…)``: quantized after the tensor sharding, every int8 weight a plain tensor,
+    whole on each rank (the JAX package's replicated int8 leaves); the image embeddings equal the unsharded
+    int8 tower's on both ranks."""
+    (a0, a1), (meta, _), _ = tp2
+    assert meta["int8_leaves_plain"] and set(meta["int8_leaves_plain"]) == {"Tensor"}
+    for arrays in (a0, a1):
+        np.testing.assert_allclose(arrays["clip/int8_image_tp"], arrays["clip/int8_image_plain"], rtol=0,
+                                   atol=1e-5 * np.abs(arrays["clip/int8_image_plain"]).max())

@@ -213,6 +213,6 @@ def test_checkpoint_file_and_refusals(tmp_path, towers):
     with pytest.raises(ValueError, match="Unknown MobileCLIP version"):
         tmc.ClipMobile("s9", device="cpu")
     for kwargs, error, match in (({"mesh": object()}, TypeError, "DeviceMesh"),
-                                 ({"quantize": "int8"}, ValueError, "item 14")):
+                                 ({"quantize": "int4"}, ValueError, "quantize")):
         with pytest.raises(error, match=match):
             tmc.ClipMobile("s1", device="cpu", cfg=TINY_T, **kwargs)

@@ -109,8 +109,7 @@ def test_layers_max_pool_ceil_mode_and_mha_match_jax():
 @pytest.fixture(scope="module")
 def tiny_clip_params():
     np_params = tclip.init_clip_params_jax_layout(0, TINY_T)
-    tparams = tclip.place_clip_params(convert.clip_params_from_jax(np_params), TINY_T,
-                                      torch.float32, torch.device("cpu"))
+    tparams = tclip.OpenClip("ViT-B-32", cfg=TINY_T, jax_params=np_params, dtype=torch.float32, device="cpu").params
     return _jax_params(np_params), tparams
 
 
@@ -131,6 +130,32 @@ def test_tiny_clip_text_tower_matches_jax(tiny_clip_params):
     ref = np.asarray(jclip.clip_encode_text(jparams, TINY_J, jnp.asarray(tokens)))
     ours = tclip.clip_encode_text(tparams, TINY_T, torch.from_numpy(tokens)).numpy()
     np.testing.assert_allclose(ours, ref, atol=2e-4)
+
+
+def test_tower_taps_match_jax(tiny_clip_params):
+    """``tap=`` on the ViT and text towers: the same names (each block's ``.attn`` and ``.mlp`` branch and
+    output), values within the towers' atol 2e-4; a tap that rewrites a value (the block-0 MLP branch
+    zeroed) changes both packages' embeddings alike."""
+    jparams, tparams = tiny_clip_params
+    imgs = np.random.default_rng(4).normal(size=(3, 16, 16, 3)).astype(np.float32)
+    tokens = np.zeros((2, 12), np.int32)
+    tokens[0, :4] = [48, 5, 7, 49]
+    tokens[1, :6] = [48, 9, 2, 11, 3, 49]
+    towers = ((jclip.vit_encode_image, tclip.vit_encode_image, imgs),
+              (jclip.clip_encode_text, tclip.clip_encode_text, tokens))
+    for jencode, tencode, inputs in towers:
+        jtaps, ttaps = {}, {}
+        jencode(jparams, TINY_J, jnp.asarray(inputs), tap=lambda n, v: jtaps.setdefault(n, v))
+        tencode(tparams, TINY_T, torch.from_numpy(inputs), tap=lambda n, v: ttaps.setdefault(n, v))
+        assert list(ttaps) == list(jtaps) and len(ttaps) == 3 * 2
+        for name in jtaps:
+            np.testing.assert_allclose(ttaps[name].numpy(), np.asarray(jtaps[name]), atol=2e-4, err_msg=name)
+        block = next(n for n in jtaps if n.endswith(".0.mlp"))
+        ref = np.asarray(jencode(jparams, TINY_J, jnp.asarray(inputs),
+                                 tap=lambda n, v: v * 0 if n == block else v))
+        ours = tencode(tparams, TINY_T, torch.from_numpy(inputs), tap=lambda n, v: v * 0 if n == block else v)
+        np.testing.assert_allclose(ours.numpy(), ref, atol=2e-4)
+        assert not np.allclose(ref, np.asarray(jencode(jparams, TINY_J, jnp.asarray(inputs))), atol=1e-3)
 
 
 def test_clip_specs_and_presets_match_jax():

@@ -25,7 +25,7 @@ torch.set_num_threads(2)
 PKG = Path(__file__).resolve().parent.parent / "semanticlens_tpu_torch"
 FIXTURES = Path(__file__).resolve().parent / "data" / "torch_jpeg"
 FORBIDDEN = {"jax", "jaxlib", "flax", "semanticlens_tpu", "safetensors", "ml_dtypes", "PIL",
-             "transformers", "sklearn", "matplotlib", "optax"}
+             "transformers", "sklearn", "matplotlib", "optax", "grain"}
 
 
 def _imported_roots(path: Path):
@@ -52,12 +52,12 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "relevance/text.py", "lm_audit.py", "models/zoo.py", "models/vgg.py", "models/densenet.py",
                    "models/convnext.py", "models/efficientnet.py", "models/mobilenet.py", "models/mnasnet.py",
                    "models/regnet.py", "core/mesh.py", "parallel/multihost.py", "parallel/tensor_parallel.py",
-                   "parallel/launch.py"):
+                   "parallel/launch.py", "ops/quant.py", "utils/flops.py", "data/grain_adapter.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
                                                   "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",
                                                   "precision_float32.py", "profile_zoo.py",
-                                                  "precision_heatmaps.py")]
+                                                  "precision_heatmaps.py", "probe_int_mm.py")]
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)

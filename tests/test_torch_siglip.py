@@ -170,8 +170,8 @@ def test_siglipv2_api_matches_jax(towers):
 
 
 @pytest.mark.parametrize("kwargs, error, match", [({"mesh": object()}, TypeError, "DeviceMesh"),
-                                                  ({"quantize": "int8"}, ValueError, "item 14")],
-                         ids=["kwargs0-item 13", "kwargs1-item 14"])  # the ids from before the mesh was ported
+                                                  ({"quantize": "int4"}, ValueError, "quantize")],
+                         ids=["kwargs0-item 13", "kwargs1-item 14"])  # the ids from before the mesh and int8 were ported
 def test_mesh_and_quantize_are_refused(kwargs, error, match):
     with pytest.raises(error, match=match):
         tsig.SigLipV2(device="cpu", cfg=TINY_T, **kwargs)

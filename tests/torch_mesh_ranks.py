@@ -227,6 +227,14 @@ def tp_ranks(rank, world, dev, out, weights):
     meta["placements"]["phi3"] = placements(shard_params(phi.init(seed=0), mesh, phi3_param_specs_2d(phi)))
     meta["spec_names"]["phi3"] = sorted(phi3_param_specs_2d(phi))
 
+    # the int8 tower: quantized after the tensor sharding, its int8 weights plain tensors on every rank
+    from semanticlens_tpu_torch.ops.quant import QuantizedTensor
+
+    int8_fms = {tag: tclip.OpenClip("ViT-B-32", jax_params=clip_np, dtype=torch.float32, device="cpu", cfg=clip_cfg,
+                                    mesh=m, quantize="int8") for tag, m in (("tp", mesh), ("plain", None))}
+    meta["int8_leaves_plain"] = [type(t).__name__ for v in int8_fms["tp"].params.values()
+                                 if isinstance(v, QuantizedTensor) for t in v]
+
     # CLIP towers at tp = 2 against the unsharded port towers
     images = torch.from_numpy(np.random.default_rng(7).normal(size=(3, 16, 16, 3)).astype(np.float32))
     tokens = torch.from_numpy(np.random.default_rng(8).integers(0, 64, size=(2, 12)))
@@ -235,6 +243,8 @@ def tp_ranks(rank, world, dev, out, weights):
         arrays["clip/image"] = plain_fm.encode_image(images).numpy()
         arrays["clip/text_tp"] = sharded_fm.encode_text(tokens).numpy()
         arrays["clip/text"] = plain_fm.encode_text(tokens).numpy()
+        for tag, fm in int8_fms.items():
+            arrays[f"clip/int8_image_{tag}"] = fm.encode_image(images).numpy()
 
         # multi_head_attention slices a column-sharded fused in_proj (the cross-attention path)
         prefix = "visual.transformer.resblocks.0.attn"
@@ -424,3 +434,25 @@ def audit_ranks(rank, world, dev, out, weights, argv):
     full_audit.load_dataset = lambda args, device: ArrayDataset(data["images"], data["labels"], name="toy")
     report = full_audit.main(list(argv))
     (Path(out) / f"audit{rank}.json").write_text(json.dumps(report))
+
+
+# --------------------------------------------------------------------------- int8 towers
+def int8_tower_ranks(rank, world, dev, out, vision, text):
+    """A tiny int8 ``OpenClip`` with and without ``mesh=data_mesh()``: image and text embeddings."""
+    from semanticlens_tpu_torch.core import data_mesh
+    from semanticlens_tpu_torch.foundation_models import clip as tclip
+
+    with np.load(Path(out) / "weights.npz") as data:
+        weights = {k: data[k] for k in data.files}
+    cfg = tclip.CLIPConfig(embed_dim=64, vision=tclip.VisionCfg(**vision), text=tclip.TextCfg(**text))
+    images = torch.from_numpy(np.random.default_rng(4).normal(size=(5, vision["image_size"], vision["image_size"],
+                                                                     3)).astype(np.float32))
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(1, text["vocab_size"] - 1, size=(3, 12)))
+    arrays = {}
+    for tag, mesh in (("mesh", data_mesh()), ("plain", None)):
+        fm = tclip.OpenClip("ViT-B-32", jax_params=weights, cfg=cfg, dtype=torch.float32, device=dev,
+                            quantize="int8", mesh=mesh)
+        arrays[f"{tag}/image"] = fm.encode_image(images).cpu().numpy()
+        arrays[f"{tag}/text"] = fm.encode_text(tokens).cpu().numpy()
+    if rank == 0:
+        np.savez(Path(out) / "int8_mesh.npz", **arrays)
