@@ -55,6 +55,21 @@ Phases (any failing check raises; the exit code is then non-zero):
    the fused pass cold and warm, the RN50 tower and the adapter against the
    native ResNet per batch, the RN50 tower's bf16 error against float32,
    the image-search latency and peak memory;
+8b. formats — the [folder] path over every format of the JAX ``ImageFolder``
+   but WebP (``FORMATS``; 60 s bound): what nvJPEG answers for the
+   committed four-plane fixtures asked for NVJPEG_OUTPUT_UNCHANGED (the
+   probe); every committed fixture (``tests/data/torch_formats``) decoded at
+   full resolution on the card against PIL's arrays (PNG and BMP exact, CMYK,
+   YCCK and RGB-coded JPEG within ``DECODE_BOUNDS``); a 4-class folder of
+   2048 images at 500×375 — 1792 nvJPEG-encoded JPEGs, 128 PNGs and 64
+   BMPs written here (all five filter types, Adam7, gray, palette, RGBA, 16
+   bits; palette, 5-6-5, V5 bit fields, RLE8, top-down), 32 copies of the
+   CMYK / YCCK fixtures and 32 PNGs under a ``.JPEG`` name — decoded alone
+   per format (every PNG and BMP equal to what it was written from), then
+   ResNet-50 bf16 through ``TorchSubjectModel`` → the fused pass with CLIP
+   RN50 (every file decoded, cold and warm) → probing and redundancy; and
+   ``POST /image_search`` with a PNG, a BMP and a CMYK JPEG, each equal to
+   the in-process search on its decode;
 9. lrp — config 4 (``BASELINE.json``), the attribution path: gates first
    (the float32 ResNet-50 on 4 images and 2 layer3 components, TF32 off:
    heatmaps of each composite on the card against the port on the CPU
@@ -223,10 +238,11 @@ Phases (any failing check raises; the exit code is then non-zero):
    through redundancy, probing and ``topk_cosine_search`` (K1 counted from 0
    as the ``int8`` path).
 
-Each of phases 14–21 prints its wall seconds beside its bound
+Each of phases 8b and 14–21 prints its wall seconds beside its bound
 (``bound_s``).
 
-After the build, ``[env]`` reports whether ``g++``, libjpeg, the CUDA
+After the build, ``[env]`` reports whether ``g++``, libjpeg, ``zlib.h``,
+``png.h``, libwebp (``find_library("webp")`` and ``webp/decode.h``), the CUDA
 toolkit's nvJPEG and matplotlib exist.
 
 Each path's K1 launches are counted from 0 and printed per path; the
@@ -245,6 +261,7 @@ temporary directory; the kernel build goes to the package's ignored
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import importlib.util
 import io
@@ -260,6 +277,7 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -286,6 +304,10 @@ RESUME = {"images": 1024, "batch": 256, "checkpoint": 512, "crash_at": 768}
 # The bring-your-own path: a JPEG folder encoded on the card (ImageNet-val's common size).
 FOLDER = {"images": 2048, "width": 500, "height": 375, "quality": 90, "classes": 4, "batch": 256}
 FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_jpeg"
+# [formats]: the [folder] path over a folder of every format the JAX ImageFolder reads but WebP; 60 s bound
+FORMATS = {"images": 2048, "jpeg": 1792, "png": 128, "bmp": 64, "cmyk": 32, "png_as_jpeg": 32, "width": 500,
+           "height": 375, "classes": 4, "batch": 256, "bound_s": 60}
+FORMAT_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_formats"
 # The decode of the fixtures against the JAX package's PIL arrays.
 DECODE_BOUNDS = {"mean_abs_levels": 1.5, "psnr_db": 40.0}
 # The config-4 relevance path (BASELINE.json config 4, the sizes of tools/bench_relevance_e2e.py;
@@ -1462,13 +1484,18 @@ def phase_resume(dev):
 
 
 def phase_env():
-    """What a host JPEG decoder would need on this machine (g++, libjpeg), nvJPEG, and matplotlib."""
+    """What host image decoders would need on this machine (g++, libjpeg, zlib.h, png.h, libwebp), nvJPEG,
+    and matplotlib."""
     import ctypes.util
 
-    headers = [p for p in ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h") if Path(p).exists()]
+    def headers(name):
+        return [p for d in ("/usr/include", "/usr/local/include") if Path(p := f"{d}/{name}").exists()]
+
     cuda = Path("/usr/local/cuda")
     env = {"gxx": shutil.which("g++"), "libjpeg": ctypes.util.find_library("jpeg"),
-           "libturbojpeg": ctypes.util.find_library("turbojpeg"), "jpeglib_h": headers,
+           "libturbojpeg": ctypes.util.find_library("turbojpeg"), "jpeglib_h": headers("jpeglib.h"),
+           "zlib_h": headers("zlib.h"), "png_h": headers("png.h"), "libwebp": ctypes.util.find_library("webp"),
+           "webp_decode_h": headers("webp/decode.h"),
            # the CUDA toolkit's own JPEG decoder, a way round a missing libjpeg
            "nvjpeg": sorted(str(p) for d in ("lib64", "targets/x86_64-linux/lib")
                             for p in (cuda / d).glob("libnvjpeg.so*"))[:1],
@@ -1725,6 +1752,422 @@ def phase_folder(dev):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     })
     log(f"[folder] {json.dumps(summary)}")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# [formats]: PNG, BMP and four-plane JPEGs on the [folder] path
+# --------------------------------------------------------------------------- #
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunk(ctype: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", zlib.crc32(ctype + body))
+
+
+def png_bytes(samples: np.ndarray, depth: int, colour: int, *, palette: bytes = b"", interlace: bool = False,
+              filters=(0, 1, 2, 3, 4)) -> bytes:
+    """(H, W, C) samples of 4, 8 or 16 bits → a PNG (stdlib zlib), row r filtered with
+    ``filters[r % len(filters)]``, Adam7 on request."""
+    bpp = max(1, samples.shape[2] * depth // 8)
+    stream = bytearray()
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        flat = sub.reshape(sub.shape[0], -1)
+        if depth == 16:
+            raw = flat.astype(">u2").view(np.uint8).astype(np.int32)
+        elif depth == 4:
+            raw = (np.pad(flat, ((0, 0), (0, flat.shape[1] % 2)))[:, 0::2] << 4
+                   | np.pad(flat, ((0, 0), (0, flat.shape[1] % 2)))[:, 1::2]).astype(np.int32)
+        else:
+            raw = flat.astype(np.int32)
+        left = np.pad(raw, ((0, 0), (bpp, 0)))[:, : raw.shape[1]]
+        up = np.vstack([np.zeros_like(raw[:1]), raw[:-1]])
+        up_left = np.pad(up, ((0, 0), (bpp, 0)))[:, : raw.shape[1]]
+        p = left + up - up_left
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+        by_type = np.stack([raw, raw - left, raw - up, raw - (left + up) // 2, raw - paeth])
+        types = np.resize(np.asarray(filters), raw.shape[0])
+        rows = by_type[types, np.arange(raw.shape[0])] & 255
+        stream += np.hstack([types[:, None], rows]).astype(np.uint8).tobytes()
+    h, w = samples.shape[:2]
+    head = _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, int(interlace)))
+    head += _png_chunk(b"PLTE", palette) if palette else b""
+    return (b"\x89PNG\r\n\x1a\n" + head + _png_chunk(b"IDAT", zlib.compress(bytes(stream), 1))
+            + _png_chunk(b"IEND", b""))
+
+
+def bmp_bytes(width: int, height: int, bits: int, pixels: bytes, *, compression: int = 0, table: bytes = b"",
+              masks: tuple = (), header: int = 40, top_down: bool = False) -> bytes:
+    """A BMP file (INFO or V5 header) around ``pixels``, the rows as stored."""
+    info = struct.pack("<IIiHHIIiiII", header, width, -height if top_down else height, 1, bits, compression,
+                       len(pixels), 2835, 2835, 0, 0)
+    if header > 40:
+        info += struct.pack("<4I", *masks) + bytes(header - 56)
+        tail = table
+    else:
+        tail = (struct.pack("<3I", *masks[:3]) if compression == 3 else b"") + table
+    start = 14 + len(info) + len(tail)
+    return b"BM" + struct.pack("<IHHI", start + len(pixels), 0, 0, start) + info + tail + pixels
+
+
+def _bmp_rows(rows: np.ndarray, top_down: bool = False) -> bytes:
+    padded = np.pad(rows, ((0, 0), (0, -rows.shape[1] % 4)))
+    return (padded if top_down else padded[::-1]).tobytes()
+
+
+def _rle8(rows: np.ndarray) -> bytes:
+    """BI_RLE8 of palette indices: runs of equal indices, pairs of single pixels, end of line per row."""
+    out = bytearray()
+    for row in rows[::-1]:
+        starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+        for s, e in zip(starts, np.r_[starts[1:], len(row)]):
+            for a in range(s, e, 255):
+                out += bytes((min(255, e - a), row[s]))
+        out += b"\x00\x00"
+    return bytes(out) + b"\x00\x01"
+
+
+# The [formats] folder's PNG and BMP variants: name → (writer of (RGB uint8 image, generator) → (bytes, the
+# RGB PIL decodes it to)). Together they use all five filter types, Adam7, gray, palette, RGBA and 16 bits;
+# BMP rows bottom-up and top-down, palette, 5-6-5 bit fields, a V5 header and RLE8.
+def _quantize332(rgb):
+    idx = (rgb[..., 0] >> 5) << 5 | (rgb[..., 1] >> 5) << 2 | rgb[..., 2] >> 6
+    table = np.stack([(np.arange(256) >> 5) * 36, ((np.arange(256) >> 2) & 7) * 36, (np.arange(256) & 3) * 85], -1)
+    return idx.astype(np.uint8), table.astype(np.uint8)
+
+
+def _gray(rgb):
+    return ((rgb.astype(np.int32) * (77, 150, 29)).sum(-1) >> 8).astype(np.uint8)
+
+
+def _png_variants():
+    def rgb8(img, g):
+        return png_bytes(img, 8, 2), img
+
+    def rgb8_adam7(img, g):
+        return png_bytes(img, 8, 2, interlace=True), img
+
+    def gray8_paeth(img, g):
+        gray = _gray(img)
+        return png_bytes(gray[..., None], 8, 0, filters=(4,)), np.repeat(gray[..., None], 3, -1)
+
+    def palette8(img, g):
+        idx, table = _quantize332(img)
+        return png_bytes(idx[..., None], 8, 3, palette=table.tobytes()), table[idx]
+
+    def palette4_adam7(img, g):
+        idx = _gray(img) >> 4
+        table = g.integers(0, 256, (16, 3), dtype=np.uint8)
+        return png_bytes(idx[..., None], 4, 3, palette=table.tobytes(), interlace=True), table[idx]
+
+    def rgba8(img, g):
+        alpha = g.integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
+        return png_bytes(np.concatenate([img, alpha], -1), 8, 6, filters=(1, 3)), img
+
+    def rgb16(img, g):
+        wide = img.astype(np.int64) << 8 | g.integers(0, 256, img.shape)
+        return png_bytes(wide, 16, 2, filters=(2, 4)), img
+
+    def gray16(img, g):  # PIL's I;16 clips at 255 on the way to RGB
+        wide = _gray(img).astype(np.int64) * 4
+        return png_bytes(wide[..., None], 16, 0), np.repeat(np.minimum(wide, 255)[..., None], 3, -1).astype(np.uint8)
+
+    return [rgb8, rgb8_adam7, gray8_paeth, palette8, palette4_adam7, rgba8, rgb16, gray16]
+
+
+def _bmp_variants():
+    def bgr24(img, g):
+        return bmp_bytes(img.shape[1], img.shape[0], 24, _bmp_rows(img[..., ::-1].reshape(img.shape[0], -1))), img
+
+    def bgr24_top_down(img, g):
+        h, w = img.shape[:2]
+        return bmp_bytes(w, h, 24, _bmp_rows(img[..., ::-1].reshape(h, -1), True), top_down=True), img
+
+    def palette8(img, g):
+        idx, table = _quantize332(img)
+        quad = np.hstack([table[:, ::-1], np.zeros((256, 1), np.uint8)]).tobytes()
+        return bmp_bytes(img.shape[1], img.shape[0], 8, _bmp_rows(idx), table=quad), table[idx]
+
+    def bitfields565(img, g):
+        r, gg, b = (img[..., 0] >> 3).astype(np.int32), (img[..., 1] >> 2).astype(np.int32), (img[..., 2] >> 3)
+        v = (r << 11 | gg << 5 | b).astype("<u2")
+        want = np.stack([r * 255 // 31, gg * 255 // 63, b.astype(np.int32) * 255 // 31], -1).astype(np.uint8)
+        return bmp_bytes(img.shape[1], img.shape[0], 16, _bmp_rows(v.view(np.uint8).reshape(img.shape[0], -1)),
+                         compression=3, masks=(0xF800, 0x7E0, 0x1F)), want
+
+    def rgba32_v5(img, g):
+        h, w = img.shape[:2]
+        px = np.concatenate([img, g.integers(0, 256, (h, w, 1), dtype=np.uint8)], -1)
+        return bmp_bytes(w, h, 32, _bmp_rows(px.reshape(h, -1)), compression=3, header=124,
+                         masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000)), img
+
+    def rle8(img, g):  # eight gray levels through a random palette: the flat areas run-length coding is for
+        idx = _gray(img) >> 5 << 5
+        table = g.integers(0, 256, (256, 3), dtype=np.uint8)
+        quad = np.hstack([table[:, ::-1], np.zeros((256, 1), np.uint8)]).tobytes()
+        return bmp_bytes(img.shape[1], img.shape[0], 8, _rle8(idx), compression=1, table=quad), table[idx]
+
+    return [bgr24, bgr24_top_down, palette8, bitfields565, rgba32_v5, rle8]
+
+
+def nvjpeg_four_plane_probe(dev) -> dict:
+    """What nvJPEG answers for each committed CMYK, YCCK and RGB-coded fixture asked for
+    NVJPEG_OUTPUT_UNCHANGED: its component count and subsampling, the status of the decode and each
+    plane's size and mean."""
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+
+    decoder, report = NvJpegDecoder(dev), {}
+    for path in sorted(FORMAT_FIXTURES.glob("*.jpg")):
+        data = path.read_bytes()
+        widths, heights, n, css = (ctypes.c_int * 4)(), (ctypes.c_int * 4)(), ctypes.c_int(), ctypes.c_int()
+        status = decoder._lib.sl_nvjpeg_info(decoder._ctx, data, len(data), widths, heights, ctypes.byref(n),
+                                             ctypes.byref(css))
+        entry = {"info_status": status, "components": n.value, "subsampling": css.value,
+                 "planes": [[heights[c], widths[c]] for c in range(min(n.value, 4))]}
+        if status == 0:
+            full = max(h for h, _ in entry["planes"]) * max(w for _, w in entry["planes"])
+            planes = [torch.zeros(full, dtype=torch.uint8, device=dev)[: h * w].view(h, w) for h, w in entry["planes"]]
+            pointers = (ctypes.c_void_p * len(planes))(*[p.data_ptr() for p in planes])
+            pitches = (ctypes.c_int * len(planes))(*[p.stride(0) for p in planes])
+            entry["decode_status"] = decoder._lib.sl_nvjpeg_decode_planes(
+                decoder._ctx, data, len(data), len(planes), 0, pointers, pitches,
+                torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.synchronize()
+            entry["plane_means"] = [round(float(p.float().mean()), 3) for p in planes]
+        report[path.name] = entry
+    decoder.close()
+    return report
+
+
+def check_format_fixtures(dev) -> dict:
+    """Every committed PNG, BMP and CMYK / YCCK / RGB-coded JPEG fixture at full resolution on the card
+    against PIL's array: PNG and BMP max |Δ| 0, JPEG within DECODE_BOUNDS."""
+    from semanticlens_tpu_torch.data import image_decode
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+
+    ref = np.load(FORMAT_FIXTURES / "pil_full.npz")
+    decoder, report, missed = NvJpegDecoder(dev), {}, []
+    for name in ref.files:
+        data = (FORMAT_FIXTURES / name).read_bytes()
+        got = image_decode.decode(data, name, dev, nvjpeg=decoder).cpu().numpy()
+        diff = got.astype(np.float64) - ref[name]
+        mse = float((diff**2).mean())
+        entry = {"format": image_decode.sniff(data), "max_abs": float(np.abs(diff).max()),
+                 "mean_abs": float(np.abs(diff).mean()), "psnr_db": 10 * math.log10(255.0**2 / max(mse, 1e-12))}
+        report[name] = entry
+        lossless = entry["format"] != "jpeg"
+        if (lossless and entry["max_abs"] != 0) or (not lossless and (
+                entry["mean_abs"] > DECODE_BOUNDS["mean_abs_levels"] or entry["psnr_db"] < DECODE_BOUNDS["psnr_db"])):
+            missed.append(name)
+    decoder.close()
+    log(f"[formats] fixtures vs PIL at full resolution: {json.dumps(report)}")
+    if missed:
+        raise AssertionError(f"[formats] fixture decode misses (lossless exact, JPEG {DECODE_BOUNDS}): {missed}")
+    return report
+
+
+def _write_variant(writer, image: np.ndarray, seed: int, path: Path) -> tuple[int, np.ndarray]:
+    data, want = writer(image, np.random.default_rng(seed))
+    path.write_bytes(data)
+    return len(data), want
+
+
+def make_mixed_folder(dev, root: Path) -> tuple[dict, dict]:
+    """FORMATS' mixed class-per-subdirectory folder: YCbCr JPEGs (nvJPEG, as [folder]), PNG and BMP
+    variants (written here), copies of the four-plane fixtures, PNGs under a .JPEG name. Returns
+    (numbers, {path: the RGB the file decodes to} for every PNG and BMP)."""
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+
+    h, w, n, classes = FORMATS["height"], FORMATS["width"], FORMATS["images"], FORMATS["classes"]
+    kinds = (["jpeg"] * FORMATS["jpeg"] + ["png"] * FORMATS["png"] + ["bmp"] * FORMATS["bmp"]
+             + ["cmyk"] * FORMATS["cmyk"] + ["png_as_jpeg"] * FORMATS["png_as_jpeg"])
+    order = np.random.default_rng(5).permutation(n)  # formats spread over the classes and batches
+    four_plane = sorted(p for p in FORMAT_FIXTURES.glob("*.jpg") if not p.name.startswith("rgb"))
+    png_writers, bmp_writers = _png_variants(), _bmp_variants()
+    encoder, gen = NvJpegDecoder(dev), torch.Generator(device=dev).manual_seed(11)
+    expected, sizes, t0, chunk, pending = {}, {k: 0 for k in set(kinds)}, time.perf_counter(), 256, {}
+    with ThreadPoolExecutor(8) as pool:  # PNG and BMP files are written on host threads (zlib drops the GIL)
+        for start in range(0, n, chunk):
+            scenes = synthetic_scenes(gen, min(chunk, n - start), h, w, dev)
+            host_scenes = None
+            for i in range(scenes.shape[0]):
+                index = int(order[start + i])
+                kind = kinds[index]
+                folder = root / f"class_{(start + i) * classes // n}"
+                folder.mkdir(parents=True, exist_ok=True)
+                suffix = {"png": ".png", "bmp": ".bmp", "png_as_jpeg": ".JPEG"}.get(kind, ".jpg")
+                path = folder / f"{start + i:05d}_{kind}{suffix}"
+                if kind in ("png", "bmp", "png_as_jpeg"):
+                    if host_scenes is None:
+                        host_scenes = scenes.cpu().numpy()
+                    writers = bmp_writers if kind == "bmp" else png_writers
+                    pending[path] = (kind, pool.submit(_write_variant, writers[index % len(writers)],
+                                                       host_scenes[i], index, path))
+                    continue
+                if kind == "jpeg":
+                    data = encoder.encode(scenes[i], FOLDER["quality"])
+                else:
+                    data = four_plane[index % len(four_plane)].read_bytes()
+                path.write_bytes(data)
+                sizes[kind] += len(data)
+        for path, (kind, future) in pending.items():
+            size, expected[path] = future.result()
+            sizes[kind] += size
+    encoder.close()
+    counts = {k: kinds.count(k) for k in sizes}
+    return {"images": n, "size": [w, h], "classes": classes, "counts": counts,
+            "mean_kb": {k: sizes[k] / counts[k] / 1024 for k in sizes},
+            "write_s": round(time.perf_counter() - t0, 4)}, expected
+
+
+def phase_formats(dev):
+    """Every format of the JAX ImageFolder but WebP on the [folder] path at full width; K1 counted from 0."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ImageFolder, image_decode
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import TorchSubjectModel
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+    from semanticlens_tpu_torch.serve import SearchService, serve
+    from semanticlens_tpu_torch.utils import cuda_build, make_preprocess_fn
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    n, batch = FORMATS["images"], FORMATS["batch"]
+    summary = {"nvjpeg_four_plane_probe": nvjpeg_four_plane_probe(dev)}
+    log(f"[formats] nvJPEG NVJPEG_OUTPUT_UNCHANGED probe: {json.dumps(summary['nvjpeg_four_plane_probe'])}")
+    summary["fixtures"] = check_format_fixtures(dev)
+    summary["png_cpu_build_s"] = cuda_build.BUILD_LOG["png_cpu"]["seconds"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        summary["folder"], expected = make_mixed_folder(dev, tmp / "mixed")
+        ds = ImageFolder(tmp / "mixed", image_size=224, name="synthetic-mixed", device=dev)
+        if len(ds) != n or len(ds.class_to_idx) != FORMATS["classes"]:
+            raise AssertionError(f"[formats] ImageFolder lists {len(ds)} images in {len(ds.class_to_idx)} classes")
+        by_kind = {}
+        for path, _ in ds.samples:
+            by_kind.setdefault(path.stem.split("_", 1)[1], []).append(path)
+
+        # Decode alone, per format, at full resolution (the first 256 YCbCr JPEGs; every other file), then
+        # each PNG and BMP held to the RGB it was written from.
+        rates, decoder, outputs = {}, NvJpegDecoder(dev), {}
+        for kind, paths in sorted(by_kind.items()):
+            paths = paths[:256]
+            blobs = [p.read_bytes() for p in paths]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            images = [image_decode.decode(b, p.name, dev, nvjpeg=decoder) for b, p in zip(blobs, paths)]
+            torch.cuda.synchronize()
+            rates[kind] = len(paths) / (time.perf_counter() - t)
+            outputs.update((p, im) for p, im in zip(paths, images) if p in expected)
+        summary["decode_images_per_s_alone"] = rates
+        wrong = [p.name for p, want in expected.items()
+                 if not torch.equal(outputs[p], torch.from_numpy(np.ascontiguousarray(want)).to(dev))]
+        summary["lossless_files_exact"] = f"{len(expected) - len(wrong)} of {len(expected)}"
+        if wrong:
+            raise AssertionError(f"[formats] {len(wrong)} PNG / BMP files decode other than written: {wrong[:8]}")
+        del expected, outputs, images
+        # The sweep's own decode (worker thread, decode + resize to 224), every batch waited for, no model.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in ds.iter_batches(batch):
+            b.ready.synchronize()
+        summary["decode_images_per_s_worker"] = n / (time.perf_counter() - t)
+
+        torch.manual_seed(0)
+        module = TorchvisionResNet50().to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+        subject = TorchSubjectModel(module, name="torchvision-resnet50", device=dev)
+        fm = OpenClip("RN50", dtype=torch.bfloat16, device=dev, seed=0)
+        cv = ActivationComponentVisualizer(
+            model=subject, dataset_model=ds, dataset_fm=ds, layer_names=["layer3", "layer4"], num_samples=25,
+            aggregate_fn=aggregate_conv_mean, model_preprocess=make_preprocess_fn(size=224),
+            cache_dir=str(tmp / "cache"))
+        lens = Lens(fm)
+        decoded, names, lock, decode = {}, set(), threading.Lock(), image_decode.decode
+
+        def counting(data, name, device, nvjpeg=None):  # every decode of the sweep, by format and by file
+            image = decode(data, name, device, nvjpeg=nvjpeg)
+            with lock:
+                kind = image_decode.sniff(data)
+                decoded[kind] = decoded.get(kind, 0) + 1
+                names.add(name)
+            return image
+
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with patched(image_decode, decode=counting):
+            db = lens.compute_concept_db(cv, batch_size=batch)
+        torch.cuda.synchronize()
+        summary["fused_pass_cold_s"] = time.perf_counter() - t
+        summary["decoded_in_sweep"] = decoded
+        missing = {str(p) for p, _ in ds.samples} - names
+        if missing:
+            raise AssertionError(f"[formats] the sweep decoded {decoded} and missed {len(missing)} files")
+        agg = {k: v.mean(1) for k, v in db.items()}
+        hits = lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES)
+        redundancy = {k: float(v) for k, v in lens.eval_redundancy(agg).items()}
+        for layer, c in (("layer3", 1024), ("layer4", 2048)):
+            if db[layer].shape != (c, 25, 1024) or not np.isfinite(db[layer]).all():
+                raise AssertionError(f"[formats] concept DB {layer}: {db[layer].shape}")
+            ids = cv.get_max_reference(layer)
+            if ids.min() < -1 or ids.max() >= n:
+                raise AssertionError(f"[formats] ids of {layer} out of range [{ids.min()}, {ids.max()}]")
+            if hits[layer].shape != (8, c) or not np.isfinite(hits[layer]).all():
+                raise AssertionError(f"[formats] probing of {layer}")
+
+        # Uploads: a PNG, a BMP and a four-plane JPEG of the folder through POST /image_search, each equal to
+        # the in-process search on the same bytes' decode.
+        service = SearchService(fm, agg, templates=TEMPLATES)
+        server, thread = serve(service, port=0, background=True)
+        uploads, decoder = {}, NvJpegDecoder(dev)
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/image_search?k=5"
+            for kind in ("png", "bmp", "cmyk"):
+                path = by_kind[kind][0]
+                data = path.read_bytes()
+                t = time.perf_counter()
+                status, out = _http_json(url, data=data, method="POST")
+                ms = 1e3 * (time.perf_counter() - t)
+                if status != 200:
+                    raise AssertionError(f"[formats] POST /image_search with {path.name}: {status} {out}")
+                direct = service.image_search(image_decode.decode(data, path.name, dev, nvjpeg=decoder), k=5)
+                if out["results"] != direct:
+                    raise AssertionError(f"[formats] the uploaded {kind} differs from image_search on its decode")
+                uploads[kind] = {"file": path.name, "ms": ms}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            service.close()
+            decoder.close()
+        launches = k1.launch_counts()
+        if launches["streaming"] < 1 or launches["tiled"] < 2:
+            raise AssertionError(f"[formats] K1 launches on the path: {launches}")
+
+        def embed_fn(raw):
+            return fm.encode_image(fm.preprocess(raw))
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cv.engine.run_fused(cv.params, ds, batch, embed_fn)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+    summary.update({
+        "images_per_s_fused_cold": n / summary["fused_pass_cold_s"], "images_per_s_fused_warm": n / warm_s,
+        "uploads": uploads, "redundancy": redundancy, "k1_launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "phase_s": time.perf_counter() - t_phase, "bound_s": FORMATS["bound_s"],
+    })
+    summary["within_bound"] = summary["phase_s"] <= FORMATS["bound_s"]
+    log(f"[formats] {json.dumps(summary)}")
     return launches
 
 
@@ -4661,6 +5104,8 @@ def main():
         done("resume")
         by_path["folder"] = phase_folder(dev)
         done("folder")
+        by_path["formats"] = phase_formats(dev)
+        done("formats")
         by_path["lrp"] = phase_lrp(dev)
         done("lrp")
         with tempfile.TemporaryDirectory() as tmp:

@@ -3,15 +3,19 @@
 // The CPU counterpart of jpeg_nvjpeg.cu, and the port's own copy of the
 // libjpeg decode of the JAX package's native/decoder.cpp, without its DCT
 // prescaling and bilinear resize. Both decoders stop at the image's
-// component planes (Y, Cb, Cr at their own subsampling, or the gray plane):
-// data/native_decoder.py upsamples the chroma and converts to RGB as libjpeg
-// does by default (PIL's decode), on the CPU or the card alike.
+// component planes, each at its own subsampling (Y, Cb, Cr; the gray plane;
+// R, G, B; C, M, Y, K; or Y, Cb, Cr, K): data/native_decoder.py upsamples
+// them and converts to RGB as libjpeg does by default and PIL takes the
+// result, on the CPU or the card alike.
 //
 // Plain C interface for ctypes (semanticlens_tpu_torch/data/native_decoder.py):
-//   sl_jpeg_info(data, size, widths, heights, &components, msg, msg_len) -> status
+//   sl_jpeg_info(data, size, widths, heights, &components, &color_space, msg, msg_len) -> status
 //   sl_jpeg_decode_planes(data, size, planes, msg, msg_len) -> status
+// color_space is libjpeg's J_COLOR_SPACE as it reads the markers (JFIF,
+// Adobe's APP14 transform, the component ids): JCS_GRAYSCALE, JCS_RGB,
+// JCS_YCbCr, JCS_CMYK or JCS_YCCK.
 // Status: 0 decoded; 1 libjpeg refused the data (its message is in msg);
-// 2 the colour space is not gray or YCbCr (CMYK, YCCK, RGB-coded).
+// 2 another colour space or component count.
 
 #include <algorithm>
 #include <csetjmp>
@@ -60,12 +64,13 @@ int open_header(jpeg_decompress_struct* cinfo, ErrorMgr* err, const unsigned cha
   jpeg_create_decompress(cinfo);
   jpeg_mem_src(cinfo, data, size);
   jpeg_read_header(cinfo, TRUE);
-  const bool gray = cinfo->jpeg_color_space == JCS_GRAYSCALE && cinfo->num_components == 1;
-  const bool ycc = cinfo->jpeg_color_space == JCS_YCbCr && cinfo->num_components == 3;
-  if (!gray && !ycc) {
-    std::snprintf(err->message, sizeof(err->message),
-                  "colour space %d with %d components is not gray or YCbCr (CMYK?)",
-                  static_cast<int>(cinfo->jpeg_color_space), cinfo->num_components);
+  const J_COLOR_SPACE space = cinfo->jpeg_color_space;
+  const int n = cinfo->num_components;
+  const bool known = (space == JCS_GRAYSCALE && n == 1) || ((space == JCS_YCbCr || space == JCS_RGB) && n == 3) ||
+                     ((space == JCS_CMYK || space == JCS_YCCK) && n == 4);
+  if (!known) {
+    std::snprintf(err->message, sizeof(err->message), "colour space %d with %d components has no RGB decode",
+                  static_cast<int>(space), n);
     return 2;
   }
   cinfo->raw_data_out = TRUE;
@@ -77,9 +82,10 @@ int open_header(jpeg_decompress_struct* cinfo, ErrorMgr* err, const unsigned cha
 
 extern "C" {
 
-// Each component's plane size (downsampled width and height) and the component count (1 or 3).
+// Each component's plane size (downsampled width and height), the component
+// count (1, 3 or 4) and libjpeg's colour space.
 int sl_jpeg_info(const unsigned char* data, unsigned long size, int* widths, int* heights,
-                 int* components, char* msg, int msg_len) {
+                 int* components, int* color_space, char* msg, int msg_len) {
   jpeg_decompress_struct cinfo;
   ErrorMgr err;
   if (setjmp(err.jump)) {
@@ -89,6 +95,7 @@ int sl_jpeg_info(const unsigned char* data, unsigned long size, int* widths, int
   }
   const int status = open_header(&cinfo, &err, data, size);
   *components = cinfo.num_components;
+  *color_space = static_cast<int>(cinfo.jpeg_color_space);
   if (status == 0) {
     for (int c = 0; c < cinfo.num_components; ++c) {
       widths[c] = static_cast<int>(cinfo.comp_info[c].downsampled_width);

@@ -9,7 +9,8 @@
 // decode rate follows the host's cores.
 //
 // The decoder stops at the component planes (Y, Cb, Cr at their own
-// subsampling): nvJPEG's own chroma upsampling replicates samples, where
+// subsampling, or the planes as stored for RGB-coded, CMYK and YCCK files):
+// nvJPEG's own chroma upsampling replicates samples, where
 // libjpeg (PIL's decode, the JAX package's reference) interpolates, and
 // differs by up to ~100 levels at colour edges. data/native_decoder.py
 // upsamples and converts the planes as libjpeg does.
@@ -74,10 +75,13 @@ int sl_nvjpeg_info(void* p, const unsigned char* data, size_t size, int* widths,
   return s;
 }
 
-// Decodes the component planes (NVJPEG_OUTPUT_YUV: Y, Cb, Cr at their own
-// subsampling; the Y plane alone for a gray image) into planes[c] on the card,
-// rows pitches[c] bytes apart, on the given stream.
-int sl_nvjpeg_decode_planes(void* p, const unsigned char* data, size_t size, int components,
+// Decodes the component planes into planes[c] on the card, rows pitches[c]
+// bytes apart, on the given stream. `output` is an nvjpegOutputFormat_t:
+// NVJPEG_OUTPUT_YUV (Y, Cb, Cr at their own subsampling), NVJPEG_OUTPUT_Y (the
+// gray plane), or NVJPEG_OUTPUT_UNCHANGED (every component as stored: R, G, B
+// of an RGB-coded file, the four planes of a CMYK or YCCK file, which
+// NVJPEG_MAX_COMPONENT = 4 allows).
+int sl_nvjpeg_decode_planes(void* p, const unsigned char* data, size_t size, int components, int output,
                             unsigned char** planes, const int* pitches, void* stream) {
   auto* ctx = static_cast<Context*>(p);
   nvjpegImage_t image = {};
@@ -85,9 +89,8 @@ int sl_nvjpeg_decode_planes(void* p, const unsigned char* data, size_t size, int
     image.channel[c] = planes[c];
     image.pitch[c] = static_cast<unsigned int>(pitches[c]);
   }
-  const nvjpegStatus_t s = nvjpegDecode(ctx->handle, ctx->state, data, size,
-                                        components == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV, &image,
-                                        static_cast<cudaStream_t>(stream));
+  const nvjpegStatus_t s = nvjpegDecode(ctx->handle, ctx->state, data, size, static_cast<nvjpegOutputFormat_t>(output),
+                                        &image, static_cast<cudaStream_t>(stream));
   if (s != NVJPEG_STATUS_SUCCESS) return s;
   return cudaGetLastError() == cudaSuccess ? 0 : -1;
 }

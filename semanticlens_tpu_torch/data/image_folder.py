@@ -1,14 +1,16 @@
-"""Directory-of-JPEGs dataset, decoded on the card.
+"""Directory-of-images dataset, decoded on the card.
 
 Counterpart of ``semanticlens_tpu.data.image_folder.ImageFolder`` for
 ImageNet-style layouts (``root/class_x/img.jpeg``). The sample list,
 ``class_to_idx``, the labels and ``name`` are the JAX package's, so caches
 keyed by dataset index agree between the packages.
 
-Each image decodes at full resolution (nvJPEG on the card, the port's
-libjpeg shim on the CPU: :mod:`~semanticlens_tpu_torch.data.native_decoder`)
-and is then resized and cropped as the JAX package's PIL path does
-(``_pil_decode``, the reference's torchvision path): shorter side to
+Each image decodes at full resolution to PIL's RGB array
+(:mod:`~semanticlens_tpu_torch.data.image_decode`, the format chosen by the
+file's content as PIL chooses it: JPEG on nvJPEG on the card and the port's
+libjpeg shim on the CPU; PNG and BMP parsed on the host and converted on the
+dataset's device) and is then resized and cropped as the JAX package's PIL
+path does (``_pil_decode``, the reference's torchvision path): shorter side to
 ``image_size`` (Python's ``round``), bicubic with antialias (PIL's a=-0.5),
 center crop at ``(w - S) // 2``, rounding to uint8 after each of the two
 passes as PIL does.
@@ -18,12 +20,11 @@ leaves the device, and :meth:`ImageFolder.iter_batches` decodes on a worker
 thread with its own nvJPEG handle and CUDA stream, ahead of the consumer,
 which waits on each batch's event (``dataset.device_prefetch_batches``).
 
-The device decides the decoder: nvJPEG on the card, libjpeg on the CPU.
-Only JPEG files decode. The listing keeps the JAX package's extensions, so a
-``.png`` is a sample here too, but decoding it raises
-:class:`~semanticlens_tpu_torch.data.native_decoder.JpegError` (a
-``ValueError``) naming the file, as do corrupt, truncated and CMYK files (PIL
-decodes PNG and CMYK in the JAX package).
+The device decides the decoder: nvJPEG on the card, libjpeg on the CPU. A
+file no decoder reads (WebP, another format, or a corrupt, truncated or
+oversized file) raises
+:class:`~semanticlens_tpu_torch.data.raw.DecodeError` (a ``ValueError``)
+naming the file, where PIL decodes WebP in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,14 +36,13 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from semanticlens_tpu_torch.data import native_decoder
+from semanticlens_tpu_torch.data import image_decode, native_decoder
 from semanticlens_tpu_torch.data.dataset import assemble_batches, prefetch_batches
 from semanticlens_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 _EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
-_JPEG_EXTENSIONS = {".jpg", ".jpeg"}
 
 
 def resize_crop(image: torch.Tensor, size: int) -> torch.Tensor:
@@ -70,7 +70,7 @@ def resize_crop(image: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class ImageFolder:
-    """Class-per-subdirectory JPEG dataset yielding (uint8 HWC, label).
+    """Class-per-subdirectory image dataset yielding (uint8 HWC, label).
 
     Parameters
     ----------
@@ -111,17 +111,12 @@ class ImageFolder:
 
     def _decode(self, path: Path) -> torch.Tensor:
         """One file → (S, S, 3) uint8 on the dataset's device."""
-        if path.suffix.lower() not in _JPEG_EXTENSIONS:
-            raise native_decoder.JpegError(f"{path}: only JPEG files decode in this package (the JAX package "
-                                           f"decodes {path.suffix} files with PIL)")
-        data = path.read_bytes()
-        if self.device.type == "cpu":
-            image = native_decoder.decode_cpu(data, str(path))
-        else:
+        decoder = None
+        if self.device.type == "cuda":
             decoder = getattr(self._local, "decoder", None)
             if decoder is None:
                 decoder = self._local.decoder = native_decoder.NvJpegDecoder(self.device)
-            image = decoder.decode(data, str(path))
+        image = image_decode.decode(path.read_bytes(), str(path), self.device, nvjpeg=decoder)
         return resize_crop(image, self.image_size)
 
     def __getitem__(self, idx: int):

@@ -9,13 +9,14 @@ codes are the JAX package's:
 - ``GET /text_search?q=dog&k=5`` → per-layer top-k component ids and scores
 - ``GET /label?words=dog,cat&top_m=3&max_components=64`` → per-component
   vocabulary labels (:func:`semanticlens_tpu_torch.lens.label_components`)
-- ``POST /image_search?k=5`` with a JPEG file as the body → the same as
-  text search for that image. The body decodes at full resolution to RGB
-  with the port's decoder (nvJPEG on the card, libjpeg on the CPU), on the
-  service's device thread, where the decoder's nvJPEG handle lives. A body
-  the decoder refuses (not a JPEG, corrupt, CMYK) is a 400; the JAX server
-  decodes with PIL, which takes more formats, and answers a body it cannot
-  decode with 500.
+- ``POST /image_search?k=5`` with an image file as the body → the same as
+  text search for that image. The body decodes at full resolution to PIL's
+  RGB array, its format (JPEG, PNG or BMP) chosen by its content
+  (``data/image_decode.py``: nvJPEG on the card and libjpeg on the CPU for
+  JPEGs), on the service's device thread, where the decoder's nvJPEG handle
+  lives. A body no decoder reads (WebP, another format, corrupt, truncated
+  or oversized) is a 400; the JAX server decodes with PIL, which also takes
+  WebP, and answers a body it cannot decode with 500.
 
 Each query is embedded, then held against every layer's bank by kernel K1
 (one launch per layer: the streaming kernel for one query), then a stable
@@ -43,7 +44,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from semanticlens_tpu_torch.data import native_decoder
+from semanticlens_tpu_torch.data import image_decode, native_decoder
 from semanticlens_tpu_torch.lens import _embed_vocabulary, _encode_text_chunked, label_components
 from semanticlens_tpu_torch.scores import _cosine_matrix
 
@@ -154,9 +155,10 @@ class SearchService:
         return self._bank_topk(q, k)
 
     def image_file_search(self, data: bytes, k: int = 5) -> dict:
-        """Top-k components per layer for a JPEG file's bytes, decoded at full resolution to RGB.
+        """Top-k components per layer for an image file's bytes (JPEG, PNG or BMP, told apart by content),
+        decoded at full resolution to RGB.
 
-        Raises :class:`~semanticlens_tpu_torch.data.native_decoder.JpegError` for bytes the decoder refuses.
+        Raises :class:`~semanticlens_tpu_torch.data.raw.DecodeError` for bytes no decoder reads.
         """
         return self._on_device_thread(self._image_file_search, data, k)
 
@@ -167,10 +169,8 @@ class SearchService:
         return self._jpeg_decoder
 
     def _image_file_search(self, data: bytes, k: int) -> dict:
-        if self.device.type == "cuda":
-            image = self._nvjpeg().decode(data, "request body")
-        else:
-            image = native_decoder.decode_cpu(data, "request body")
+        decoder = self._nvjpeg() if self.device.type == "cuda" else None
+        image = image_decode.decode(data, "request body", self.device, nvjpeg=decoder)
         return self._image_search(image, k)
 
     def _vocab_embeds(self, vocabulary: list[str]) -> torch.Tensor:
@@ -283,7 +283,7 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             k = self._int_param(qs, "k", 5)
             self._json({"results": self.service.image_file_search(raw, k)})
-        except (_BadRequest, native_decoder.JpegError) as exc:  # bad k, or a body the decoder refuses
+        except (_BadRequest, image_decode.DecodeError) as exc:  # bad k, or a body no decoder reads
             self._json({"error": str(exc)}, 400)
         except Exception as exc:  # pragma: no cover — defensive: keep serving
             logger.exception("request failed")

@@ -52,7 +52,8 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "relevance/text.py", "lm_audit.py", "models/zoo.py", "models/vgg.py", "models/densenet.py",
                    "models/convnext.py", "models/efficientnet.py", "models/mobilenet.py", "models/mnasnet.py",
                    "models/regnet.py", "core/mesh.py", "parallel/multihost.py", "parallel/tensor_parallel.py",
-                   "parallel/launch.py", "ops/quant.py", "utils/flops.py", "data/grain_adapter.py"):
+                   "parallel/launch.py", "ops/quant.py", "utils/flops.py", "data/grain_adapter.py",
+                   "data/image_decode.py", "data/png.py", "data/bmp.py", "data/raw.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
                                                   "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",
@@ -201,6 +202,30 @@ def test_cuda_nvjpeg_fixtures_within_bounds(cuda_device):
         psnr = 10 * np.log10(255.0**2 / max((diff**2).mean(), 1e-12))
         assert np.abs(diff).mean() <= 1.5 and psnr >= 40, (path.name, np.abs(diff).mean(), psnr)
         np.testing.assert_array_equal(batch[i].cpu().numpy(), ds[i][0])
+
+
+@pytest.mark.cuda
+def test_cuda_format_fixtures_decode(cuda_device):
+    """Every committed PNG, BMP and CMYK / YCCK / RGB-coded JPEG fixture decoded on the card at full
+    resolution against PIL's array: PNG and BMP exactly, JPEG within chip_smoke's DECODE_BOUNDS (nvJPEG's
+    IDCT is not libjpeg's); the PNG under a .JPEG name decodes as a PNG."""
+    from semanticlens_tpu_torch.data import image_decode
+    from semanticlens_tpu_torch.data.native_decoder import NvJpegDecoder
+
+    folder = FIXTURES.parent / "torch_formats"
+    ref = np.load(folder / "pil_full.npz")
+    decoder = NvJpegDecoder(cuda_device)
+    for name in ref.files:
+        data = (folder / name).read_bytes()
+        got = image_decode.decode(data, name, cuda_device, nvjpeg=decoder)
+        assert got.device.type == "cuda", name
+        got = got.cpu().numpy()
+        if image_decode.sniff(data) == "jpeg":
+            diff = got.astype(np.float64) - ref[name]
+            psnr = 10 * np.log10(255.0**2 / max((diff**2).mean(), 1e-12))
+            assert np.abs(diff).mean() <= 1.5 and psnr >= 40, (name, np.abs(diff).mean(), psnr)
+        else:
+            np.testing.assert_array_equal(got, ref[name], err_msg=name)
 
 
 @pytest.mark.cuda

@@ -291,6 +291,59 @@ def test_http_image_search_matches_jax_server(http, fms, k):
         jthread.join(timeout=10)
 
 
+def _image_bytes(fmt: str) -> bytes:
+    """The JPEG test image re-encoded as PNG (RGBA), BMP (palette) or CMYK JPEG, the formats PIL uploads take."""
+    import io
+
+    from PIL import Image
+
+    image = Image.open(io.BytesIO(_jpeg_bytes(seed=6, size=(41, 33)))).convert("RGB")
+    buf = io.BytesIO()
+    if fmt == "png":
+        image.convert("RGBA").save(buf, "PNG")
+    elif fmt == "bmp":
+        image.quantize(64).save(buf, "BMP")
+    else:
+        image.convert("CMYK").save(buf, "JPEG", quality=90)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", ["png", "bmp", "cmyk"])
+def test_http_image_search_other_formats_match_jax_server(http, fms, fmt):
+    """POST /image_search with a PNG, a BMP or a CMYK JPEG: the port picks the decoder by content and
+    decodes to PIL's array, as the JAX server does with PIL; ids equal, scores within 1e-5."""
+    jfm, _ = fms
+    service, base = http
+    jservice = jserve.SearchService(jfm, service.banks, templates=TEMPLATES)
+    jserver, jthread = jserve.serve(jservice, port=0, background=True)
+    try:
+        data = _image_bytes(fmt)
+        results = {}
+        for name, url in (("torch", base), ("jax", f"http://127.0.0.1:{jserver.server_address[1]}")):
+            request = urllib.request.Request(f"{url}/image_search?k=5", data=data, method="POST")
+            status, out = _status(request)
+            assert status == 200, (name, out)
+            results[name] = out["results"]
+        _assert_same_results(results["torch"], results["jax"])
+    finally:
+        jserver.shutdown()
+        jserver.server_close()
+        jthread.join(timeout=10)
+
+
+def test_http_image_search_refuses_webp_naming_the_queue(http):
+    """WebP, which the JAX server decodes with PIL, is a 400 whose message names the ROADMAP item."""
+    import io
+
+    from PIL import Image
+
+    _, base = http
+    buf = io.BytesIO()
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(buf, "WEBP")
+    status, out = _status(urllib.request.Request(f"{base}/image_search?k=3", data=buf.getvalue(), method="POST"))
+    assert status == 400 and "request body: WebP" in out["error"] and "ROADMAP" in out["error"]
+
+
 def test_http_concurrent_clients(http):
     """8 clients at once, each a few text and label requests: every answer equals the
     sequential one."""
