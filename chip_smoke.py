@@ -56,7 +56,7 @@ Phases (any failing check raises; the exit code is then non-zero):
    native ResNet per batch, the RN50 tower's bf16 error against float32,
    the image-search latency and peak memory;
 8b. formats — the [folder] path over every format of the JAX ``ImageFolder``
-   but WebP (``FORMATS``; 60 s bound): what nvJPEG answers for the
+   but WebP, which 8c takes (``FORMATS``; 60 s bound): what nvJPEG answers for the
    committed four-plane fixtures asked for NVJPEG_OUTPUT_UNCHANGED (the
    probe); every committed fixture (``tests/data/torch_formats``) decoded at
    full resolution on the card against PIL's arrays (PNG and BMP exact, CMYK,
@@ -70,6 +70,19 @@ Phases (any failing check raises; the exit code is then non-zero):
    RN50 (every file decoded, cold and warm) → probing and redundancy; and
    ``POST /image_search`` with a PNG, a BMP and a CMYK JPEG, each equal to
    the in-process search on its decode;
+8c. webp — the [folder] path over WebP (``WEBP``; 60 s bound): the two host
+   decoders' build seconds (``csrc/webp_lossless.cpp``, ``webp_lossy.cpp``,
+   built with the kernels in phase 1); every committed WebP fixture
+   (``tests/data/torch_formats``) decoded on the card, its array's SHA-256
+   equal to PIL's (``pil_webp_sha256.json``); each full-width variant (lossy
+   q75 and q90, lossless, lossy with alpha, an animation's first frame)
+   decoded 256 times alone, the host bitstream decode timed apart, every
+   output equal; a 4-class folder of 1024 copies (768 lossy, 192 lossless,
+   64 lossy with alpha) through the worker's decode, then ResNet-50 bf16
+   through ``TorchSubjectModel`` → the fused pass with CLIP RN50 (every file
+   decoded, cold and warm) → probing and redundancy; and ``POST
+   /image_search`` with a lossy and a lossless WebP, each equal to the
+   in-process search on its decode (K1 counted from 0 as the ``webp`` path);
 9. lrp — config 4 (``BASELINE.json``), the attribution path: gates first
    (the float32 ResNet-50 on 4 images and 2 layer3 components, TF32 off:
    heatmaps of each composite on the card against the port on the CPU
@@ -238,7 +251,7 @@ Phases (any failing check raises; the exit code is then non-zero):
    through redundancy, probing and ``topk_cosine_search`` (K1 counted from 0
    as the ``int8`` path).
 
-Each of phases 8b and 14–21 prints its wall seconds beside its bound
+Each of phases 8b, 8c and 14–21 prints its wall seconds beside its bound
 (``bound_s``).
 
 After the build, ``[env]`` reports whether ``g++``, libjpeg, ``zlib.h``,
@@ -263,6 +276,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import hashlib
 import importlib.util
 import io
 import json
@@ -304,10 +318,18 @@ RESUME = {"images": 1024, "batch": 256, "checkpoint": 512, "crash_at": 768}
 # The bring-your-own path: a JPEG folder encoded on the card (ImageNet-val's common size).
 FOLDER = {"images": 2048, "width": 500, "height": 375, "quality": 90, "classes": 4, "batch": 256}
 FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_jpeg"
-# [formats]: the [folder] path over a folder of every format the JAX ImageFolder reads but WebP; 60 s bound
+# [formats]: the [folder] path over a folder of every format the JAX ImageFolder reads but WebP ([webp]); 60 s bound
 FORMATS = {"images": 2048, "jpeg": 1792, "png": 128, "bmp": 64, "cmyk": 32, "png_as_jpeg": 32, "width": 500,
            "height": 375, "classes": 4, "batch": 256, "bound_s": 60}
 FORMAT_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_formats"
+# Host decoders built with the kernels (plain C++ with no library, so the card machine's g++ builds them).
+HOST_DECODERS = ("webp_lossless", "webp_lossy")
+# [webp]: the [folder] path over a folder of copies of the full-width WebP fixtures; 60 s bound
+WEBP = {"images": 1024, "lossy": 768, "lossless": 192, "lossy_alpha": 64, "classes": 4, "batch": 256,
+        "decodes_alone": 256, "host_decodes_alone": 64, "bound_s": 60}
+WEBP_VARIANTS = {"lossy_q75": "webp_lossy_q75_500x375.webp", "lossy_q90": "webp_lossy_q90_500x375.webp",
+                 "lossless": "webp_lossless_500x375.webp", "lossy_alpha": "webp_lossy_alpha_500x375.webp",
+                 "anim": "webp_anim_500x375.webp"}
 # The decode of the fixtures against the JAX package's PIL arrays.
 DECODE_BOUNDS = {"mean_abs_levels": 1.5, "psnr_db": 40.0}
 # The config-4 relevance path (BASELINE.json config 4, the sizes of tools/bench_relevance_e2e.py;
@@ -669,22 +691,23 @@ def cold_l2_inputs(x, y) -> list:
 
 
 def phase_build():
+    """Every CUDA source (nvcc) and the host WebP decoders (g++), all compiled at once."""
     from semanticlens_tpu_torch.utils import cuda_build
 
-    names = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
+    names = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu")) + list(HOST_DECODERS)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:
         for fut in [ex.submit(cuda_build.build, n) for n in names]:
             fut.result()
     for name in names:
         entry = cuda_build.BUILD_LOG[name]
-        log(f"[build] {name}.cu: {entry['seconds']:.2f} s")
+        log(f"[build] {cuda_build.source_path(name).name}: {entry['seconds']:.2f} s")
         for line in entry["compiler_output"].splitlines():
             log(f"[build]   {line}")
         # ptxas C7518: wgmma serialized (a branch touches its accumulators in the K loop)
         if "C7518" in entry["compiler_output"]:
             raise AssertionError(f"{name}.cu: ptxas serializes wgmma (C7518); see the [build] lines")
-    log(f"[build] all kernels: {time.perf_counter() - t0:.2f} s")
+    log(f"[build] all kernels and host decoders: {time.perf_counter() - t0:.2f} s")
 
 
 def cosine_bounds_ms(batch, m, n, d) -> dict:
@@ -2168,6 +2191,201 @@ def phase_formats(dev):
     })
     summary["within_bound"] = summary["phase_s"] <= FORMATS["bound_s"]
     log(f"[formats] {json.dumps(summary)}")
+    return launches
+
+
+def webp_fixture_refs() -> dict:
+    """name → {"shape", "sha256"} of PIL's RGB array of each committed WebP fixture (written where PIL is)."""
+    return json.loads((FORMAT_FIXTURES / "pil_webp_sha256.json").read_text())
+
+
+def sha256_of(image: torch.Tensor) -> str:
+    return hashlib.sha256(np.ascontiguousarray(image.cpu().numpy()).tobytes()).hexdigest()
+
+
+def check_webp_fixtures(dev) -> dict:
+    """Every committed WebP fixture decoded on the card at full resolution, exactly PIL's array (its SHA-256)."""
+    from semanticlens_tpu_torch.data import image_decode
+
+    refs = webp_fixture_refs()
+    missed = []
+    for name, ref in refs.items():
+        got = image_decode.decode((FORMAT_FIXTURES / name).read_bytes(), name, dev)
+        if got.device.type != dev.type or list(got.shape) != ref["shape"] or sha256_of(got) != ref["sha256"]:
+            missed.append(name)
+    report = {"fixtures": len(refs), "exact": len(refs) - len(missed)}
+    log(f"[webp] fixtures vs PIL at full resolution: {json.dumps(report)}")
+    if missed:
+        raise AssertionError(f"[webp] fixtures that decode other than PIL's array on the card: {missed}")
+    return report
+
+
+def make_webp_folder(root: Path) -> dict:
+    """WEBP's class-per-subdirectory folder of copies of the full-width fixtures: lossy (q75 and q90 in turn),
+    lossless and lossy with alpha, spread over the classes and batches."""
+    n, classes = WEBP["images"], WEBP["classes"]
+    kinds = ["lossy"] * WEBP["lossy"] + ["lossless"] * WEBP["lossless"] + ["lossy_alpha"] * WEBP["lossy_alpha"]
+    order = np.random.default_rng(7).permutation(n)
+    blobs = {k: (FORMAT_FIXTURES / v).read_bytes() for k, v in WEBP_VARIANTS.items()}
+    counts, sizes = {}, {}
+    for i in range(n):
+        kind = kinds[int(order[i])]
+        variant = ("lossy_q75", "lossy_q90")[i % 2] if kind == "lossy" else kind
+        folder = root / f"class_{i * classes // n}"
+        folder.mkdir(parents=True, exist_ok=True)
+        (folder / f"{i:05d}_{variant}.webp").write_bytes(blobs[variant])
+        counts[variant] = counts.get(variant, 0) + 1
+        sizes[variant] = len(blobs[variant])
+    return {"images": n, "classes": classes, "counts": counts, "kb": {k: v / 1024 for k, v in sizes.items()}}
+
+
+def phase_webp(dev):
+    """WebP on the [folder] path at full width: fixtures exact on the card, decode alone per variant, the
+    fused RN50 sweep over 1024 files cold and warm, and WebP uploads; K1 counted from 0."""
+    from semanticlens_tpu_torch import Lens
+    from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+    from semanticlens_tpu_torch.data import ImageFolder, image_decode, webp
+    from semanticlens_tpu_torch.foundation_models import OpenClip
+    from semanticlens_tpu_torch.models import TorchSubjectModel
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.ops.aggregators import aggregate_conv_mean
+    from semanticlens_tpu_torch.serve import SearchService, serve
+    from semanticlens_tpu_torch.utils import cuda_build, make_preprocess_fn
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    n, batch, reps, host_reps = WEBP["images"], WEBP["batch"], WEBP["decodes_alone"], WEBP["host_decodes_alone"]
+    summary = {"build_s": {name: cuda_build.BUILD_LOG[name]["seconds"] for name in HOST_DECODERS},
+               "fixtures": check_webp_fixtures(dev)}
+
+    # Decode alone per variant at 500×375: the host bitstream decode by itself, then the whole decode
+    # (container, bitstream, one upload, conversion on the card), every output equal to the first, whose
+    # SHA-256 was PIL's above.
+    refs = webp_fixture_refs()
+    rates, host_rates, wrong = {}, {}, []
+    for variant, name in WEBP_VARIANTS.items():
+        data = (FORMAT_FIXTURES / name).read_bytes()
+        want = image_decode.decode(data, name, dev)
+        if sha256_of(want) != refs[name]["sha256"]:
+            raise AssertionError(f"[webp] {name} decodes other than PIL's array")
+        header = webp.read_header(data, name)
+        w, h, bits = header.frame.width, header.frame.height, header.bitstream()
+        host = webp.decode_lossless if header.lossless else webp.decode_lossy
+        t = time.perf_counter()
+        for _ in range(host_reps):
+            host(bits, w, h, name)
+        host_rates[variant] = host_reps / (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = [image_decode.decode(data, name, dev) for _ in range(reps)]
+        torch.cuda.synchronize()
+        rates[variant] = reps / (time.perf_counter() - t)
+        wrong += [f"{variant}#{i}" for i, out in enumerate(outs) if not torch.equal(out, want)]
+        del outs
+    summary.update({"decode_images_per_s_alone": rates, "host_bitstream_images_per_s": host_rates,
+                    "decodes_alone_exact": f"{len(WEBP_VARIANTS) * reps - len(wrong)} of {len(WEBP_VARIANTS) * reps}"})
+    if wrong:
+        raise AssertionError(f"[webp] {len(wrong)} repeated decodes differ from the first: {wrong[:8]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        summary["folder"] = make_webp_folder(tmp / "webp")
+        ds = ImageFolder(tmp / "webp", image_size=224, name="synthetic-webp", device=dev)
+        if len(ds) != n or len(ds.class_to_idx) != WEBP["classes"]:
+            raise AssertionError(f"[webp] ImageFolder lists {len(ds)} images in {len(ds.class_to_idx)} classes")
+        # The sweep's own decode (worker thread, decode + resize to 224), every batch waited for, no model.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in ds.iter_batches(batch):
+            b.ready.synchronize()
+        summary["decode_images_per_s_worker"] = n / (time.perf_counter() - t)
+
+        torch.manual_seed(0)
+        module = TorchvisionResNet50().to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+        subject = TorchSubjectModel(module, name="torchvision-resnet50", device=dev)
+        fm = OpenClip("RN50", dtype=torch.bfloat16, device=dev, seed=0)
+        cv = ActivationComponentVisualizer(
+            model=subject, dataset_model=ds, dataset_fm=ds, layer_names=["layer3", "layer4"], num_samples=25,
+            aggregate_fn=aggregate_conv_mean, model_preprocess=make_preprocess_fn(size=224),
+            cache_dir=str(tmp / "cache"))
+        lens = Lens(fm)
+        decoded, names, lock, decode = {}, set(), threading.Lock(), image_decode.decode
+
+        def counting(data, name, device, nvjpeg=None):  # every decode of the sweep, by format and by file
+            image = decode(data, name, device, nvjpeg=nvjpeg)
+            with lock:
+                kind = image_decode.sniff(data)
+                decoded[kind] = decoded.get(kind, 0) + 1
+                names.add(name)
+            return image
+
+        k1.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with patched(image_decode, decode=counting):
+            db = lens.compute_concept_db(cv, batch_size=batch)
+        torch.cuda.synchronize()
+        summary["fused_pass_cold_s"] = time.perf_counter() - t
+        summary["decoded_in_sweep"] = decoded
+        missing = {str(p) for p, _ in ds.samples} - names
+        if missing or set(decoded) != {"webp"}:
+            raise AssertionError(f"[webp] the sweep decoded {decoded} and missed {len(missing)} files")
+        agg = {k: v.mean(1) for k, v in db.items()}
+        hits = lens.text_probing(PROBE_WORDS, agg, templates=TEMPLATES)
+        redundancy = {k: float(v) for k, v in lens.eval_redundancy(agg).items()}
+        for layer, c in (("layer3", 1024), ("layer4", 2048)):
+            if db[layer].shape != (c, 25, 1024) or not np.isfinite(db[layer]).all():
+                raise AssertionError(f"[webp] concept DB {layer}: {db[layer].shape}")
+            ids = cv.get_max_reference(layer)
+            if ids.min() < -1 or ids.max() >= n:
+                raise AssertionError(f"[webp] ids of {layer} out of range [{ids.min()}, {ids.max()}]")
+            if hits[layer].shape != (8, c) or not np.isfinite(hits[layer]).all():
+                raise AssertionError(f"[webp] probing of {layer}")
+
+        # Uploads: a lossy and a lossless WebP through POST /image_search, each equal to the in-process
+        # search on the same bytes' decode.
+        service = SearchService(fm, agg, templates=TEMPLATES)
+        server, thread = serve(service, port=0, background=True)
+        uploads = {}
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/image_search?k=5"
+            for variant in ("lossy_q75", "lossless"):
+                name = WEBP_VARIANTS[variant]
+                data = (FORMAT_FIXTURES / name).read_bytes()
+                t = time.perf_counter()
+                status, out = _http_json(url, data=data, method="POST")
+                ms = 1e3 * (time.perf_counter() - t)
+                if status != 200:
+                    raise AssertionError(f"[webp] POST /image_search with {name}: {status} {out}")
+                if out["results"] != service.image_search(image_decode.decode(data, name, dev), k=5):
+                    raise AssertionError(f"[webp] the uploaded {variant} differs from image_search on its decode")
+                uploads[variant] = {"file": name, "ms": ms}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            service.close()
+        launches = k1.launch_counts()
+        if launches["streaming"] < 1 or launches["tiled"] < 2:
+            raise AssertionError(f"[webp] K1 launches on the path: {launches}")
+
+        def embed_fn(raw):
+            return fm.encode_image(fm.preprocess(raw))
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cv.engine.run_fused(cv.params, ds, batch, embed_fn)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t
+    summary.update({
+        "images_per_s_fused_cold": n / summary["fused_pass_cold_s"], "images_per_s_fused_warm": n / warm_s,
+        "uploads": uploads, "redundancy": redundancy, "k1_launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "phase_s": time.perf_counter() - t_phase, "bound_s": WEBP["bound_s"],
+    })
+    summary["within_bound"] = summary["phase_s"] <= WEBP["bound_s"]
+    log(f"[webp] {json.dumps(summary)}")
     return launches
 
 
@@ -5106,6 +5324,8 @@ def main():
         done("folder")
         by_path["formats"] = phase_formats(dev)
         done("formats")
+        by_path["webp"] = phase_webp(dev)
+        done("webp")
         by_path["lrp"] = phase_lrp(dev)
         done("lrp")
         with tempfile.TemporaryDirectory() as tmp:

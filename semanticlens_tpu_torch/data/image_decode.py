@@ -15,8 +15,10 @@ then another:
   the libjpeg shim on the CPU;
 - PNG: :mod:`~semanticlens_tpu_torch.data.png`;
 - BMP: :mod:`~semanticlens_tpu_torch.data.bmp`;
-- WebP is recognised and refused (ROADMAP queue 1, the WebP item), as is
-  anything else.
+- WebP (lossless, lossy, with alpha, extended, the first frame of an
+  animation): :mod:`~semanticlens_tpu_torch.data.webp`.
+
+Anything else is refused.
 
 Every refusal, and PIL's limit on the pixel count, raises
 :class:`~semanticlens_tpu_torch.data.raw.DecodeError` naming the file.
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from semanticlens_tpu_torch.data import bmp, native_decoder, png
+from semanticlens_tpu_torch.data import bmp, native_decoder, png, webp
 from semanticlens_tpu_torch.data.raw import DecodeError, check_size
 
 __all__ = ["DecodeError", "decode", "sniff"]
@@ -49,8 +51,8 @@ def decode(data: bytes, name: str, device, nvjpeg: native_decoder.NvJpegDecoder 
     """Image bytes → (H, W, 3) uint8 RGB on ``device`` at full resolution: PIL's array for the same file.
 
     ``nvjpeg`` is the calling thread's decoder for JPEGs on the card (one is
-    made for this call if it is ``None``). PNG and BMP are parsed on the host
-    and reach ``device`` in one upload.
+    made for this call if it is ``None``). PNG, BMP and WebP are parsed on the
+    host and reach ``device`` in one upload.
     """
     device = torch.device(device)
     kind = sniff(data)
@@ -65,6 +67,5 @@ def decode(data: bytes, name: str, device, nvjpeg: native_decoder.NvJpegDecoder 
     if kind == "bmp":
         return bmp.decode(data, name, device)
     if kind == "webp":
-        raise DecodeError(f"{name}: WebP does not decode in this package yet (ROADMAP queue 1, the WebP item; "
-                          f"the JAX package decodes it with PIL)")
+        return webp.decode(data, name, device)
     raise DecodeError(f"{name}: not a JPEG, PNG, BMP or WebP file (first bytes {data[:8]!r})")

@@ -8,8 +8,8 @@ keyed by dataset index agree between the packages.
 Each image decodes at full resolution to PIL's RGB array
 (:mod:`~semanticlens_tpu_torch.data.image_decode`, the format chosen by the
 file's content as PIL chooses it: JPEG on nvJPEG on the card and the port's
-libjpeg shim on the CPU; PNG and BMP parsed on the host and converted on the
-dataset's device) and is then resized and cropped as the JAX package's PIL
+libjpeg shim on the CPU; PNG, BMP and WebP parsed and entropy-decoded on the
+host and converted on the dataset's device) and is then resized and cropped as the JAX package's PIL
 path does (``_pil_decode``, the reference's torchvision path): shorter side to
 ``image_size`` (Python's ``round``), bicubic with antialias (PIL's a=-0.5),
 center crop at ``(w - S) // 2``, rounding to uint8 after each of the two
@@ -21,10 +21,10 @@ thread with its own nvJPEG handle and CUDA stream, ahead of the consumer,
 which waits on each batch's event (``dataset.device_prefetch_batches``).
 
 The device decides the decoder: nvJPEG on the card, libjpeg on the CPU. A
-file no decoder reads (WebP, another format, or a corrupt, truncated or
+file PIL does not read (another format, or a corrupt, truncated or
 oversized file) raises
 :class:`~semanticlens_tpu_torch.data.raw.DecodeError` (a ``ValueError``)
-naming the file, where PIL decodes WebP in the JAX package.
+naming the file.
 """
 
 from __future__ import annotations

@@ -11,12 +11,12 @@ codes are the JAX package's:
   vocabulary labels (:func:`semanticlens_tpu_torch.lens.label_components`)
 - ``POST /image_search?k=5`` with an image file as the body → the same as
   text search for that image. The body decodes at full resolution to PIL's
-  RGB array, its format (JPEG, PNG or BMP) chosen by its content
+  RGB array, its format (JPEG, PNG, BMP or WebP) chosen by its content
   (``data/image_decode.py``: nvJPEG on the card and libjpeg on the CPU for
   JPEGs), on the service's device thread, where the decoder's nvJPEG handle
-  lives. A body no decoder reads (WebP, another format, corrupt, truncated
-  or oversized) is a 400; the JAX server decodes with PIL, which also takes
-  WebP, and answers a body it cannot decode with 500.
+  lives. A body no decoder reads (another format, corrupt, truncated or
+  oversized) is a 400; the JAX server decodes with PIL and answers a body it
+  cannot decode with 500.
 
 Each query is embedded, then held against every layer's bank by kernel K1
 (one launch per layer: the streaming kernel for one query), then a stable

@@ -12,10 +12,13 @@ folder's batches stay within one level of the JAX ``ImageFolder(decoder="pil")``
 the bound of the JPEG path's ``test_cpu_images_within_one_level_of_jax_pil``.
 
 The committed fixtures under ``tests/data/torch_formats`` (the card's decode
-check in ``chip_smoke.py``) hold PIL's arrays in ``pil_full.npz``.
+check in ``chip_smoke.py``) hold PIL's arrays in ``pil_full.npz``, and the
+SHA-256 of PIL's arrays of the WebP fixtures in ``pil_webp_sha256.json``.
 """
 
+import hashlib
 import io
+import json
 import struct
 import zlib
 from pathlib import Path
@@ -202,11 +205,11 @@ def test_sniff_reads_magic_bytes_only():
 
 
 def test_webp_and_unknown_formats_raise_naming_the_file():
+    """WebP decodes as PIL decodes it (tests/test_torch_webp.py holds the format); anything else raises."""
     buf = io.BytesIO()
     Image.fromarray(_smooth(9, 7, 3, 255, 0).astype(np.uint8)).save(buf, "WEBP", lossless=True)
     assert _pil(buf.getvalue()).shape == (9, 7, 3)  # PIL decodes it in the JAX package
-    with pytest.raises(DecodeError, match=r"photo\.webp: WebP .*ROADMAP queue 1"):
-        image_decode.decode(buf.getvalue(), "photo.webp", "cpu")
+    np.testing.assert_array_equal(_decode(buf.getvalue(), "photo.webp"), _pil(buf.getvalue()))
     gif = io.BytesIO()
     Image.fromarray(_smooth(9, 7, 3, 255, 0).astype(np.uint8)).convert("P").save(gif, "GIF")
     for data in (gif.getvalue(), b"", b"plain text"):
@@ -355,7 +358,7 @@ def test_png_inflate_is_bounded_by_the_header():
     np.testing.assert_array_equal(_decode(data)[0, 0], [5, 6, 7])
 
 
-@pytest.mark.parametrize("fmt", ["png", "bmp", "jpeg"])
+@pytest.mark.parametrize("fmt", ["png", "bmp", "jpeg", "webp"])
 def test_size_guard_refuses_what_pil_refuses_before_allocating(fmt):
     """PIL refuses more than 2 · MAX_IMAGE_PIXELS pixels when it opens a file; so does the port, from the
     header alone (no pixel data follows)."""
@@ -366,6 +369,10 @@ def test_size_guard_refuses_what_pil_refuses_before_allocating(fmt):
             b"IDAT", zlib.compress(b"")) + png_chunk(b"IEND", b"")
     elif fmt == "bmp":
         data = write_bmp(w, h, 24, b"")
+    elif fmt == "webp":  # a VP8L header (14-bit sizes) and no pixel data
+        w, h = 16383, 12000
+        body = bytes([0x2F]) + ((w - 1) | (h - 1) << 14).to_bytes(4, "little") + bytes(7)
+        data = b"RIFF" + struct.pack("<I", 12 + len(body)) + b"WEBPVP8L" + struct.pack("<I", len(body)) + body
     else:
         good = io.BytesIO()
         Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(good, "JPEG")
@@ -582,16 +589,30 @@ def test_jpeg_layouts_pil_does_not_read_raise():
 # Fixtures, folders
 # --------------------------------------------------------------------------- #
 def test_fixtures_equal_pil_arrays_and_stay_small():
+    """PNG, BMP and JPEG fixtures against pil_full.npz; WebP fixtures against the SHA-256 of PIL's arrays
+    (pil_webp_sha256.json, written with them by webp_fixtures.py). Each group stays under 1 MiB."""
     ref = np.load(FIXTURES / "pil_full.npz")
-    files = sorted(p.name for p in FIXTURES.iterdir() if p.name != "pil_full.npz")
+    webp_refs = json.loads((FIXTURES / "pil_webp_sha256.json").read_text())
+    images = sorted(p.name for p in FIXTURES.iterdir() if image_decode.sniff(p.read_bytes()[:16]) is not None)
+    files = [f for f in images if not f.endswith(".webp")]
     assert sorted(ref.files) == files and len(files) >= 16
-    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 2**20
-    kinds = {image_decode.sniff((FIXTURES / f).read_bytes()) for f in files}
-    assert kinds == {"jpeg", "png", "bmp"}
+    assert sorted(webp_refs) == [f for f in images if f.endswith(".webp")] and len(webp_refs) >= 19
+    webp_group = [FIXTURES / f for f in webp_refs] + [FIXTURES / "pil_webp_sha256.json",
+                                                     FIXTURES / "webp_recipes.cpp", FIXTURES / "webp_fixtures.py"]
+    assert sum(p.stat().st_size for p in webp_group) < 2**20
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir() if p not in webp_group) < 2**20
+    kinds = {image_decode.sniff((FIXTURES / f).read_bytes()) for f in images}
+    assert kinds == {"jpeg", "png", "bmp", "webp"}
     for name in files:
         data = (FIXTURES / name).read_bytes()
         np.testing.assert_array_equal(_pil(data), ref[name])
         np.testing.assert_array_equal(_decode(data, name), ref[name])
+    for name, want in webp_refs.items():
+        data = (FIXTURES / name).read_bytes()
+        for got in (_pil(data), _decode(data, name)):
+            got = np.ascontiguousarray(got)
+            assert list(got.shape) == want["shape"], name
+            assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"], name
 
 
 @pytest.fixture(scope="module")

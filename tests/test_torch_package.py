@@ -53,7 +53,7 @@ def test_port_imports_no_jax_or_missing_libraries():
                    "models/convnext.py", "models/efficientnet.py", "models/mobilenet.py", "models/mnasnet.py",
                    "models/regnet.py", "core/mesh.py", "parallel/multihost.py", "parallel/tensor_parallel.py",
                    "parallel/launch.py", "ops/quant.py", "utils/flops.py", "data/grain_adapter.py",
-                   "data/image_decode.py", "data/png.py", "data/bmp.py", "data/raw.py"):
+                   "data/image_decode.py", "data/png.py", "data/bmp.py", "data/raw.py", "data/webp.py"):
         assert PKG / module in files
     files += [PKG.parent / script for script in ("chip_smoke.py", "profile_port.py", "profile_serve.py", "profile_decode.py",
                                                   "profile_lrp.py", "profile_fm.py", "profile_sae.py", "sweep_k1.py",
@@ -62,6 +62,22 @@ def test_port_imports_no_jax_or_missing_libraries():
     bad = [f"{f.relative_to(PKG.parent)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, "\n".join(bad)
+
+
+def test_webp_decoders_link_no_image_library():
+    """WebP is decoded by the port's own C++: no csrc source includes a libwebp (or other image library)
+    header, and the WebP sources link nothing."""
+    from semanticlens_tpu_torch.utils import cuda_build
+
+    sources = sorted(p for p in cuda_build.CSRC.iterdir() if p.suffix in (".cpp", ".cu", ".h", ".cuh"))
+    assert {"webp_lossless.cpp", "webp_lossy.cpp"} <= {p.name for p in sources}
+    includes = [(p.name, line) for p in sources for line in p.read_text().splitlines()
+                if line.lstrip().startswith("#include")]
+    assert not [x for x in includes if "webp/" in x[1] or "png.h" in x[1]]
+    assert not [x for x in includes if x[0].startswith("webp_") and "<" not in x[1]]  # standard headers only
+    flags = [flag for link in cuda_build.LINK_FLAGS.values() for flag in link]
+    assert not [f for f in flags if "webp" in f] and "webp_lossless" not in cuda_build.LINK_FLAGS
+    assert "webp_lossy" not in cuda_build.LINK_FLAGS
 
 
 def _no_cuda(monkeypatch):
@@ -226,6 +242,25 @@ def test_cuda_format_fixtures_decode(cuda_device):
             assert np.abs(diff).mean() <= 1.5 and psnr >= 40, (name, np.abs(diff).mean(), psnr)
         else:
             np.testing.assert_array_equal(got, ref[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_webp_fixtures_decode(cuda_device):
+    """Every committed WebP fixture decoded on the card at full resolution: the SHA-256 of PIL's array,
+    exactly (the bitstreams are decoded on the host, the colour conversion runs on the card)."""
+    import hashlib
+    import json
+
+    from semanticlens_tpu_torch.data import image_decode
+
+    folder = FIXTURES.parent / "torch_formats"
+    refs = json.loads((folder / "pil_webp_sha256.json").read_text())
+    assert len(refs) >= 19
+    for name, ref in refs.items():
+        got = image_decode.decode((folder / name).read_bytes(), name, cuda_device)
+        assert got.device.type == "cuda", name
+        got = np.ascontiguousarray(got.cpu().numpy())
+        assert list(got.shape) == ref["shape"] and hashlib.sha256(got.tobytes()).hexdigest() == ref["sha256"], name
 
 
 @pytest.mark.cuda

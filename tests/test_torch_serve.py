@@ -292,7 +292,8 @@ def test_http_image_search_matches_jax_server(http, fms, k):
 
 
 def _image_bytes(fmt: str) -> bytes:
-    """The JPEG test image re-encoded as PNG (RGBA), BMP (palette) or CMYK JPEG, the formats PIL uploads take."""
+    """The JPEG test image re-encoded as PNG (RGBA), BMP (palette), CMYK JPEG or WebP (lossy with alpha, or
+    lossless), the formats PIL uploads take."""
     import io
 
     from PIL import Image
@@ -303,14 +304,18 @@ def _image_bytes(fmt: str) -> bytes:
         image.convert("RGBA").save(buf, "PNG")
     elif fmt == "bmp":
         image.quantize(64).save(buf, "BMP")
+    elif fmt == "webp-lossy":
+        image.convert("RGBA").save(buf, "WEBP", quality=80)
+    elif fmt == "webp-lossless":
+        image.save(buf, "WEBP", lossless=True)
     else:
         image.convert("CMYK").save(buf, "JPEG", quality=90)
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("fmt", ["png", "bmp", "cmyk"])
+@pytest.mark.parametrize("fmt", ["png", "bmp", "cmyk", "webp-lossy", "webp-lossless"])
 def test_http_image_search_other_formats_match_jax_server(http, fms, fmt):
-    """POST /image_search with a PNG, a BMP or a CMYK JPEG: the port picks the decoder by content and
+    """POST /image_search with a PNG, a BMP, a CMYK JPEG or a WebP: the port picks the decoder by content and
     decodes to PIL's array, as the JAX server does with PIL; ids equal, scores within 1e-5."""
     jfm, _ = fms
     service, base = http
@@ -329,19 +334,6 @@ def test_http_image_search_other_formats_match_jax_server(http, fms, fmt):
         jserver.shutdown()
         jserver.server_close()
         jthread.join(timeout=10)
-
-
-def test_http_image_search_refuses_webp_naming_the_queue(http):
-    """WebP, which the JAX server decodes with PIL, is a 400 whose message names the ROADMAP item."""
-    import io
-
-    from PIL import Image
-
-    _, base = http
-    buf = io.BytesIO()
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(buf, "WEBP")
-    status, out = _status(urllib.request.Request(f"{base}/image_search?k=3", data=buf.getvalue(), method="POST"))
-    assert status == 400 and "request body: WebP" in out["error"] and "ROADMAP" in out["error"]
 
 
 def test_http_concurrent_clients(http):
