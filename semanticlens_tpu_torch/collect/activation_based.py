@@ -42,6 +42,7 @@ from semanticlens_tpu_torch.data.dataset import _extract_image, device_prefetch_
 from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
 from semanticlens_tpu_torch.ops import aggregators
 from semanticlens_tpu_torch.utils.helper import get_fallback_name
+from semanticlens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -230,11 +231,12 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
             embeds = self._embed_vision_dataset(fm, batch_size, checkpoint=checkpoint, **kwargs)
         self._embedding_table = embeds
         concept_db = {}
-        for layer_name in self.layer_names:
-            ids = self.get_max_reference(layer_name)
-            db = embeds[ids]
-            db[ids < 0] = 0.0
-            concept_db[layer_name] = db
+        with span("concept_db.gather"):
+            for layer_name in self.layer_names:
+                ids = self.get_max_reference(layer_name)
+                db = embeds[ids]
+                db[ids < 0] = 0.0
+                concept_db[layer_name] = db
         return concept_db
 
     def _has_collect_cache(self) -> bool:
@@ -256,14 +258,18 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         encode = _local_encoder(fm)
 
         def embed_fn(raw_device_batch):
-            return encode(fm.preprocess(raw_device_batch))
+            with span("embed.preprocess", raw_device_batch.device):
+                x = fm.preprocess(raw_device_batch)
+            with span("embed.encode", raw_device_batch.device):
+                return encode(x)
 
         ckpt_dir = self._checkpoint_dir("fused", checkpoint)
         states, embeds, n_seen = self.engine.run_fused(
             self.params, self.dataset, batch_size, embed_fn, checkpoint_dir=ckpt_dir,
             checkpoint_every=self._every(ckpt_dir, checkpoint, batch_size),
         )
-        self._ingest(states, n_seen)
+        with span("concept_db.ingest"):
+            self._ingest(states, n_seen)
         if embeds.shape[0] != n_seen:
             raise RuntimeError("Number of embeddings does not match number of ids!")
         self._clear_checkpoint(ckpt_dir)

@@ -68,6 +68,7 @@ from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, get_ima
 from semanticlens_tpu_torch.models.base import SubjectModel
 from semanticlens_tpu_torch.ops.topk import TopKState, init_topk, topk_merge, topk_update
 from semanticlens_tpu_torch.utils import safetensors_io
+from semanticlens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -100,7 +101,8 @@ class EmbedSink:
 
     def drain(self):
         if self.pending:
-            self.since_commit.append(torch.cat(self.pending).to("cpu", torch.float32).numpy())
+            with span("collect.drain", self.pending[0].device):
+                self.since_commit.append(torch.cat(self.pending).to("cpu", torch.float32).numpy())
             self.pending, self.pending_bytes = [], 0
 
     def commit(self, directory, next_start: int):
@@ -154,13 +156,15 @@ class CollectEngine:
         self.input_preprocess = input_preprocess or (lambda x: x.to(torch.float32))
 
     def _aggregate(self, params, images):
-        x = self.input_preprocess(images)
-        if self.tensor_parallel:
-            with tensor_parallel_region():
+        with span("collect.preprocess", self.device):
+            x = self.input_preprocess(images)
+        with span("collect.forward", self.device):
+            if self.tensor_parallel:
+                with tensor_parallel_region():
+                    _, taps = self.model.apply(params, x, self.layer_names)
+                    taps = {name: full_tensor(t) for name, t in taps.items()}
+            else:
                 _, taps = self.model.apply(params, x, self.layer_names)
-                taps = {name: full_tensor(t) for name, t in taps.items()}
-        else:
-            _, taps = self.model.apply(params, x, self.layer_names)
         return {name: self.aggregation_fn(taps[name]).to(torch.float32) for name in self.layer_names}
 
     def infer_n_latents(self, params, dataset) -> dict[str, int]:
@@ -176,10 +180,11 @@ class CollectEngine:
         sample_ids = start + torch.arange(b, dtype=torch.int32, device=self.device)
         valid = (sample_ids < n_total)[:, None]
         aggs = self._aggregate(params, images)
-        return {
-            name: topk_update(states[name], torch.where(valid, aggs[name], -torch.inf), sample_ids)
-            for name in self.layer_names
-        }
+        with span("collect.topk", self.device):
+            return {
+                name: topk_update(states[name], torch.where(valid, aggs[name], -torch.inf), sample_ids)
+                for name in self.layer_names
+            }
 
     @staticmethod
     def _check_id_range(n: int, id_offset: int):
@@ -196,8 +201,9 @@ class CollectEngine:
             raise ValueError(f"batch_size {batch_size} must be divisible by data-parallel degree {self.n_shards}")
 
     def _init_states(self, params, dataset):
-        n_latents = self.infer_n_latents(params, dataset)
-        return {name: init_topk(c, self.n_collect, self.device) for name, c in n_latents.items()}
+        with span("collect.init"):
+            n_latents = self.infer_n_latents(params, dataset)
+            return {name: init_topk(c, self.n_collect, self.device) for name, c in n_latents.items()}
 
     def _gather_states(self, states):
         """Every data rank's states stacked to (W, C, k) values and ids."""

@@ -25,6 +25,8 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
+from semanticlens_tpu_torch.utils.profiling import span
+
 
 class Batch(NamedTuple):
     """One fixed-shape batch: host data, or a tensor a dataset decoded on the card."""
@@ -243,7 +245,9 @@ def device_prefetch_batches(batch_iter: Iterator[Batch], device: torch.device, d
     """
     if device.type != "cuda":
         for batch in batch_iter:
-            yield torch.from_numpy(np.ascontiguousarray(batch.images)), batch.start_index, batch.valid
+            with span("collect.upload"):
+                images = torch.from_numpy(np.ascontiguousarray(batch.images))
+            yield images, batch.start_index, batch.valid
         return
 
     side = torch.cuda.Stream(device)
@@ -252,11 +256,12 @@ def device_prefetch_batches(batch_iter: Iterator[Batch], device: torch.device, d
     def upload(batch: Batch):
         if isinstance(batch.images, torch.Tensor) and batch.images.is_cuda:
             return batch.images, getattr(batch, "ready", None), batch
-        host = torch.from_numpy(np.ascontiguousarray(batch.images)).pin_memory()
-        with torch.cuda.stream(side):
-            images = host.to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
+        with span("collect.upload"):
+            host = torch.from_numpy(np.ascontiguousarray(batch.images)).pin_memory()
+            with torch.cuda.stream(side):
+                images = host.to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
         return images, done, batch
 
     def ready(item):

@@ -54,6 +54,7 @@ from semanticlens_tpu_torch.models.layers import (
 from semanticlens_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, preprocess_images
 from semanticlens_tpu_torch.ops.quant import quantize_params, transformer_dense_match
 from semanticlens_tpu_torch.utils.device import resolve_device
+from semanticlens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -539,7 +540,8 @@ class OpenClip(AbstractVLM):
             params = convert.clip_params_from_jax(jax_params)
         self.quantize = quantize
         float32 = float32_or(_float32_param, clip_int8_match(self.cfg) if quantize else None)
-        self.params = place_params(load_openclip_state_dict(self.cfg, params), float32, dtype, self.device)
+        with span("fm.load"):
+            self.params = place_params(load_openclip_state_dict(self.cfg, params), float32, dtype, self.device)
         from semanticlens_tpu_torch.parallel.tensor_parallel import clip_param_specs_2d
 
         self.mesh = mesh

@@ -52,6 +52,7 @@ from semanticlens_tpu_torch.models.layers import conv2d, gelu, layer_norm, linea
 from semanticlens_tpu_torch.ops.preprocess import preprocess_images
 from semanticlens_tpu_torch.ops.quant import quantize_params, transformer_dense_match
 from semanticlens_tpu_torch.utils.device import resolve_device
+from semanticlens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -364,7 +365,8 @@ class ClipMobile(AbstractVLM):
             params = convert.mobileclip_params_from_jax(jax_params)
         self.quantize = quantize
         float32 = float32_or(_float32_param, mobileclip_int8_match() if quantize else None)
-        self.params = place_params(load_mobileclip_state_dict(self.cfg, params), float32, dtype, self.device)
+        with span("fm.load"):
+            self.params = place_params(load_mobileclip_state_dict(self.cfg, params), float32, dtype, self.device)
         if quantize:
             self.params = quantize_mobileclip_params(self.params)
             self.name = f"{self.name}-int8"  # concept-DB caches key on the name

@@ -58,6 +58,7 @@ from semanticlens_tpu_torch.models.layers import conv2d, gelu, layer_norm, linea
 from semanticlens_tpu_torch.ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, preprocess_images
 from semanticlens_tpu_torch.ops.quant import quantize_params
 from semanticlens_tpu_torch.utils.device import resolve_device
+from semanticlens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -322,7 +323,8 @@ class SigLipV2(AbstractVLM):
             params = convert.siglip_params_from_jax(jax_params)
         self.quantize = quantize
         float32 = float32_or(_float32_param, siglip_int8_match() if quantize else None)
-        self.params = place_params(load_siglip_state_dict(self.cfg, params), float32, dtype, self.device)
+        with span("fm.load"):
+            self.params = place_params(load_siglip_state_dict(self.cfg, params), float32, dtype, self.device)
         from semanticlens_tpu_torch.parallel.tensor_parallel import siglip_param_specs_2d
 
         self.mesh = mesh

@@ -22,9 +22,9 @@ the wrapper pads D with zeros, which changes neither dots nor norms.
 
 A CPU tensor takes :func:`cosine_similarity_matrix_plain`; a CUDA tensor
 launches one of the two kernels or raises. Each variant counts its launches
-(``launch_counts()``), and ``cosine_similarity_matrix.launches`` is their
-sum (never plain-version calls), so a run can show that its main path went
-through the kernels.
+in the tracer's counters ``k1.launches.streaming`` and ``k1.launches.tiled``
+(never plain-version calls; ``launch_counts()`` reads them), so a run can
+show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from semanticlens_tpu_torch.utils.profiling import count, counters, reset
 
 _EPS = 1e-24
 
@@ -146,8 +148,7 @@ def _launch_streaming(x, y, out, plan: LaunchPlan, stream: int):
     batch, m, d = x.shape
     err = _kernel_fns()["streaming"](x.data_ptr(), y.data_ptr(), out.data_ptr(), batch, m, y.shape[1], d, stream)
     _check(err, "streaming")
-    _launch_streaming.launches += 1
-    cosine_similarity_matrix.launches += 1
+    count("k1.launches.streaming")
 
 
 def _launch_tiled(x, y, out, plan: LaunchPlan, stream: int):
@@ -155,12 +156,9 @@ def _launch_tiled(x, y, out, plan: LaunchPlan, stream: int):
     err = _kernel_fns()["tiled"](x.data_ptr(), y.data_ptr(), out.data_ptr(), batch, m, y.shape[1], d,
                                  plan.config, stream)
     _check(err, "tiled")
-    _launch_tiled.launches += 1
-    cosine_similarity_matrix.launches += 1
+    count("k1.launches.tiled")
 
 
-_launch_streaming.launches = 0
-_launch_tiled.launches = 0
 _LAUNCH = {"streaming": _launch_streaming, "tiled": _launch_tiled}
 
 
@@ -213,14 +211,15 @@ def cosine_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return cosine_similarity_matrix_cuda(x, y)
 
 
-cosine_similarity_matrix.launches = 0
+_LAUNCH_COUNTERS = {"streaming": "k1.launches.streaming", "tiled": "k1.launches.tiled"}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, per variant and in total."""
-    return {"streaming": _launch_streaming.launches, "tiled": _launch_tiled.launches,
-            "total": cosine_similarity_matrix.launches}
+    counted = counters()
+    out = {variant: counted.get(name, 0) for variant, name in _LAUNCH_COUNTERS.items()}
+    return {**out, "total": sum(out.values())}
 
 
 def reset_launch_counts():
-    _launch_streaming.launches = _launch_tiled.launches = cosine_similarity_matrix.launches = 0
+    reset(*_LAUNCH_COUNTERS.values())

@@ -23,6 +23,7 @@ from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
 from semanticlens_tpu_torch.core.mesh import ShardedRows, all_gather
 from semanticlens_tpu_torch.ops.kmeans import batched_kmeans
 from semanticlens_tpu_torch.utils.device import as_tensor
+from semanticlens_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -163,7 +164,10 @@ def _chunk_topk(sim, k: int):
     """
     vals, cols = torch.topk(sim, k, dim=1)
     cut = vals[:, -1:]
-    if not torch.equal((sim == cut).sum(dim=1), (vals == cut).sum(dim=1)):
+    with span("search.tie_test"):  # the host waits here for the chunk's select
+        exact = torch.equal((sim == cut).sum(dim=1), (vals == cut).sum(dim=1))
+    if not exact:
+        count("search.tie_fallbacks")
         vals, cols = torch.sort(sim, dim=1, descending=True, stable=True)
         vals, cols = vals[:, :k], cols[:, :k]
     return vals, cols
@@ -198,18 +202,22 @@ def topk_cosine_search(queries, components, k: int, *, chunk_size: int = 65536, 
     Returns ``(values (Q, k) float32 desc, indices (Q, k) int32)`` with
     global component row numbers.
     """
-    queries = _f32(queries, device)
-    components = _f32(components, queries.device)
-    q, n = queries.shape[0], components.shape[0]
-    if k > n:
-        raise ValueError(f"k={k} exceeds component count {n}")
-    chunk_size = min(chunk_size, max(n, 1))
-    best_vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=queries.device)
-    best_idx = torch.full((q, k), -1, dtype=torch.int32, device=queries.device)
-    for start in range(0, n, chunk_size):
-        sim = _cosine_matrix(queries, components[start : start + chunk_size])
-        best_vals, best_idx = _merge_topk(best_vals, best_idx, sim, start)
-    return best_vals, best_idx
+    with span("search.call"):
+        with span("search.prepare"):
+            queries = _f32(queries, device)
+            components = _f32(components, queries.device)
+            q, n = queries.shape[0], components.shape[0]
+            if k > n:
+                raise ValueError(f"k={k} exceeds component count {n}")
+            chunk_size = min(chunk_size, max(n, 1))
+            best_vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=queries.device)
+            best_idx = torch.full((q, k), -1, dtype=torch.int32, device=queries.device)
+        for start in range(0, n, chunk_size):
+            with span("search.k1", queries.device):
+                sim = _cosine_matrix(queries, components[start : start + chunk_size])
+            with span("search.merge", queries.device):
+                best_vals, best_idx = _merge_topk(best_vals, best_idx, sim, start)
+        return best_vals, best_idx
 
 
 def class_composition(sample_ids, labels, n_classes: int | None = None):

@@ -1,4 +1,4 @@
-"""Helpers: device resolution, cache naming, preprocessing, logging, stage timing, the safetensors layout."""
+"""Helpers: device resolution, cache naming, preprocessing, logging, timing and tracing, the safetensors layout."""
 
 from semanticlens_tpu_torch.utils.device import resolve_device
 from semanticlens_tpu_torch.utils.helper import (
@@ -8,7 +8,19 @@ from semanticlens_tpu_torch.utils.helper import (
     to_transforms_compose,
 )
 from semanticlens_tpu_torch.utils.log_setup import setup_colored_logging
-from semanticlens_tpu_torch.utils.profiling import StageTimer, device_trace, force_materialize
+from semanticlens_tpu_torch.utils.profiling import (
+    StageTimer,
+    count,
+    counters,
+    device_trace,
+    enable,
+    enabled,
+    force_materialize,
+    reset,
+    snapshot,
+    span,
+)
 
 __all__ = ["get_denormalization_transform", "get_fallback_name", "make_preprocess_fn", "resolve_device",
-           "to_transforms_compose", "setup_colored_logging", "StageTimer", "device_trace", "force_materialize"]
+           "to_transforms_compose", "setup_colored_logging", "StageTimer", "device_trace", "force_materialize",
+           "span", "count", "counters", "enable", "enabled", "snapshot", "reset"]

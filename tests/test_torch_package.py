@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix, cosine_similarity_matrix_plain
+from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix, cosine_similarity_matrix_plain, launch_counts
 
 torch.set_num_threads(2)
 
@@ -164,10 +164,10 @@ def test_cuda_kernel_matches_plain_version(cuda_device, m, n, d):
     g = torch.Generator(device=cuda_device).manual_seed(m * n + d)
     x = torch.randn(m, d, generator=g, device=cuda_device)
     y = torch.randn(n, d, generator=g, device=cuda_device)
-    before = cosine_similarity_matrix.launches
+    before = launch_counts()["total"]
     out = cosine_similarity_matrix(x, y)
     torch.cuda.synchronize()
-    assert cosine_similarity_matrix.launches == before + 1
+    assert launch_counts()["total"] == before + 1
     torch.testing.assert_close(out, cosine_similarity_matrix_plain(x, y), atol=3e-5, rtol=0)
 
 
