@@ -16,6 +16,18 @@ Phases (any failing check raises; the exit code is then non-zero):
    of 20 launches, with the inputs warm in L2 and with them cold, and the
    host-loop time beside it); compute each kernel's bounds from the card's
    data-sheet rates;
+2b. k1b — K1b, the top-k in the tiled kernel's epilogue, through
+   ``topk_cosine_search`` at the audit search's shape (``K1B``: 1024 ×
+   1,048,576 × 512, k = 32) and at two smaller tiled shapes with planted
+   ties (duplicated and dead rows and queries; one past K1's 512-wide flush
+   in D): values bitwise equal to the chunked path's (K1 blocks and the
+   merge) and indices equal, its plain version within atol 3e-5; one
+   ``k1.launches.tiled`` and one ``search.k1b`` a call; K1's full matrix at
+   2048² × 512 bitwise the tree's before K1b (``K1_REDUNDANCY_SHA256``);
+   K1b's device time warm and cold (CUDA-graph replay) and the whole
+   call's host time beside the chunked path, the plain version, one
+   PyTorch formulation (cuBLAS fp32 matmul + ``torch.topk``) and the
+   3×TF32 bound;
 3. reference — the slice at full model width on 16 images in float32 on the
    card, held against the same code on the CPU (plain kernel versions);
 4. quickstart — the README quickstart through the port's entry points at
@@ -313,6 +325,13 @@ ATOL = 3e-5
 GRAPH_LAUNCHES = 20
 # topk_cosine_search at audit scale: 2 GiB of fp32 components.
 AUDIT = {"queries": 1024, "components": 1 << 20, "k": 32, "chunk": 65536}
+# [k1b] shapes (Q, N, D, k): the audit search, labeling a 2048-component layer over 1000 words, and a shape past
+# K1's 512-wide flush in D (SigLIP's width) with no dimension a multiple of the 128 × 256 tile; the last two with
+# planted ties.
+K1B = {"audit": (1024, 1 << 20, 512, 32), "labels": (2048, 1000, 512, 5), "d768": (300, 70_001, 768, 32)}
+# SHA-256 of K1's output bytes for x = default_rng(0).standard_normal((2048, 512), float32) against itself,
+# as the tree before K1b computed it (NVIDIA H100 80GB HBM3): K1b left the tiled kernel's output unchanged.
+K1_REDUNDANCY_SHA256 = "314c7cb8770192c1b5339236dc7f903c6fc2fa18235f52b308fddcd2a638c6c1"
 # The preempted sweep: checkpoints every 512 samples, stops after the batch at 768.
 RESUME = {"images": 1024, "batch": 256, "checkpoint": 512, "crash_at": 768}
 # The bring-your-own path: a JPEG folder encoded on the card (ImageNet-val's common size).
@@ -913,6 +932,87 @@ def phase_kernels(dev):
     return rows, max_err, checked
 
 
+def k1_redundancy_sha256(dev) -> str:
+    """SHA-256 of K1's full matrix (the tiled kernel) for ``K1_REDUNDANCY_SHA256``'s input."""
+    from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2048, 512), dtype=np.float32)).to(dev)
+    return hashlib.sha256(cosine_similarity_matrix(x, x).cpu().numpy().tobytes()).hexdigest()
+
+
+def k1b_inputs(dev, q, n, d, ties: bool, seed: int = 22):
+    """(queries, bank) on the card; with ``ties``: every third bank row a copy of row 1, every third dead (zero),
+    one query on the copies' direction, one dead and one opposite."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bank = torch.randn(n, d, generator=gen, device=dev)
+    queries = torch.randn(q, d, generator=gen, device=dev)
+    if ties:
+        bank[4::3] = bank[1]
+        bank[2::3] = 0.0
+        queries[0], queries[1], queries[2] = bank[1], 0.0, -bank[1]
+    return queries, bank
+
+
+def phase_k1b(dev) -> dict:
+    """K1b against the chunked path (bitwise), its plain version and K1's full matrix; counters and times."""
+    from semanticlens_tpu_torch import scores
+    from semanticlens_tpu_torch.ops import cosine as k1
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    digest = k1_redundancy_sha256(dev)
+    if digest != K1_REDUNDANCY_SHA256:
+        raise AssertionError(f"[k1b] K1's full matrix changed: sha256 {digest}, before K1b {K1_REDUNDANCY_SHA256}")
+    out = {"k1_redundancy_sha256": digest}
+    for name, (q, n, d, k) in K1B.items():
+        queries, bank = k1b_inputs(dev, q, n, d, ties=name != "audit")
+        if not k1.takes_k1b(dev, q, n, d, k):
+            raise AssertionError(f"[k1b] {name}: the search would not take K1b")
+        search = functools.partial(scores.topk_cosine_search, queries, bank, k)
+        search()  # the build and the first launch
+        reset("k1.launches.tiled", "k1.launches.streaming", "search.k1b")
+        vals, idx = search()
+        torch.cuda.synchronize()
+        launched = {key: counters().get(key, 0) for key in ("k1.launches.tiled", "k1.launches.streaming", "search.k1b")}
+        if launched != {"k1.launches.tiled": 1, "k1.launches.streaming": 0, "search.k1b": 1}:
+            raise AssertionError(f"[k1b] {name}: counters {launched}")
+        chunked = functools.partial(scores._chunked_topk, queries, bank, k, AUDIT["chunk"])
+        ref_vals, ref_idx = chunked()
+        if not (torch.equal(vals, ref_vals) and torch.equal(idx, ref_idx)):
+            bad = (vals != ref_vals) | (idx != ref_idx)
+            raise AssertionError(f"[k1b] {name}: {int(bad.sum())} of {bad.numel()} entries differ from the chunked "
+                                 f"path (rows {bad.any(1).nonzero().flatten()[:8].tolist()}), max value gap "
+                                 f"{float((vals - ref_vals).abs().max())}")
+        splits = k1.k1b_splits(q, n, k1._num_sms(torch.cuda.current_device()))
+        plain = functools.partial(k1.cosine_topk_plain, queries, bank, k, splits)
+        plain_vals, _ = plain()
+        plain_err = float((vals - plain_vals).abs().max())
+        if not plain_err <= ATOL:
+            raise AssertionError(f"[k1b] {name}: K1b against its plain version: {plain_err}")
+        # The copies' query picks copies only; the dead query's scores all tie at 0: the first k columns.
+        if name != "audit" and not (bool((idx[0] % 3 == 1).all()) and idx[1].tolist() == list(range(k))):
+            raise AssertionError(f"[k1b] {name}: tied rows picked {idx[0].tolist()} and {idx[1].tolist()}")
+        candidates = functools.partial(k1.cosine_topk_candidates, queries, bank, k)
+        cold = cold_l2_inputs(queries, bank) if 4 * (q + n) * d < L2_BYTES else [(queries, bank)]
+        bounds = cosine_bounds_ms(1, q, n, d)
+        row = {
+            "shape": [q, n, d, k], "splits": splits, "max_abs_err_vs_plain": plain_err,
+            "device_ms": graph_ms(lambda a, b: k1.cosine_topk_candidates(a, b, k), [(queries, bank)]),
+            "device_ms_cold_l2": graph_ms(lambda a, b: k1.cosine_topk_candidates(a, b, k), cold),
+            "ms": time_ms(search),  # the whole call: K1b, the merge, the host's work
+            "merge_ms": time_ms(functools.partial(k1.merge_candidates, *candidates(), k)),
+            "chunked_ms": time_ms(chunked, iters=5, warmup=1),
+            "plain_ms": time_ms(plain, iters=3, warmup=1),
+            "library_ms": time_ms(lambda: torch.topk(library_cosine(queries, bank), k, dim=1), iters=5, warmup=1),
+            "bound_ms": bounds["tf32x3_tensor_core"], "bound_by": "operations",
+        }
+        row["share_of_bound_cold_l2"] = row["bound_ms"] / row["device_ms_cold_l2"]
+        out[name] = row
+        log(f"[k1b] {name}: {json.dumps(row)}")
+        del queries, bank, cold
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def recording_k1_shapes(shapes: set):
     """Add the (batch, M, N, D) of every K1 launch made inside to ``shapes``."""
@@ -1208,8 +1308,8 @@ def phase_analyze(dev, res):
         audit_queries, audit_bank, k_audit, chunk_size=chunk))
     launches = k1.launch_counts()
     # cosine labels 1 and soft-WPMI 2 (dataset mean, evidence rows) per layer, match,
-    # coverage, and one per chunk of the audit search
-    if launches["tiled"] < 2 * (1 + 2) + 2 + n_audit // chunk:
+    # coverage, and one for the audit search (K1b)
+    if launches["tiled"] < 2 * (1 + 2) + 2 + 1:
         raise AssertionError(f"[analyze] K1 launches: {launches}")
 
     # Shapes and finiteness.
@@ -5307,6 +5407,8 @@ def main():
     done("build_env")
     rows, max_err, checked = phase_kernels(dev)
     done("kernels")
+    phase_k1b(dev)
+    done("k1b")
     phase_reference(dev)
     done("reference")
     shapes = set()

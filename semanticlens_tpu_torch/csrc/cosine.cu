@@ -1,4 +1,4 @@
-// Fused cosine-similarity matrix for Hopper (sm_90a): two hand-written kernels.
+// Fused cosine-similarity matrix for Hopper (sm_90a): three hand-written kernels.
 //
 // Replaces the TPU kernel semanticlens_tpu/ops/pallas_ops.py:
 // cosine_similarity_matrix (body _cosine_kernel): for x (M, D) and y (N, D),
@@ -54,19 +54,67 @@
 //    It is compiled for M <= 32. Its time grows with M*N (x is re-read from
 //    shared memory for every y row), so the wrapper sends larger problems to
 //    the tiled kernel.
+// 3. cosine_topk_tiled_kernel, K1b (the audit search and labeling: each row
+//    of x's k best rows of y, k <= KMAX = 32). The TPU kernel's note names
+//    the fused form ("masked per-row top-k similarity"); it wrote none. At
+//    1024 x 1,048,576 x 512 the matrix is 4.3 GB, and writing it in blocks
+//    for torch.topk to read back cost more than the products. K1b runs the
+//    tiled kernel's main loop unchanged (mma_slabs: the split, 3xTF32 wgmma,
+//    the TMA ring; the flush every FLUSH_K into a per-block buffer, `part`,
+//    in place of the output; the same rsqrt factors applied in the same
+//    order, so every score is bitwise the tiled kernel's), and replaces the
+//    store with an exact running top-k per row: no score reaches device
+//    memory. Design:
+//    - Persistent blocks: a block owns 128 rows of x and a contiguous run of
+//      256-wide column tiles (one of `splits` near-equal runs, the host's
+//      choice: whole waves, one block an SM) and walks it in ascending column
+//      order. The producer warp's ring runs on across tiles, so the next
+//      tile's first slabs load during the selection.
+//    - Each row keeps a ranked list of KMAX (value, column) entries in shared
+//      memory. After a tile's products, phase 1 marks the 8-column groups
+//      where some score is not below its row's k-th value: two multiplies
+//      and a compare a score, and after the first tiles few groups (about
+//      k(1 + ln(n/k)) of a split's n columns enter). Phase 2 takes the
+//      warp's marked groups in turn; a switch fetches the group's
+//      accumulators (registers cannot be indexed), and each exact survivor
+//      is offered to its row with the whole warp inserting: lane i holds
+//      entry i, one ballot counts the entries ranked before the candidate,
+//      the rest shift down one lane. Phase 2's code exists once: the first
+//      form, with insertion code in every group and each row's quad sharing
+//      the list, ran 2.4x slower (spills, and every slot walked).
+//    - Ranking: the larger value first, NaN above every number, the lower
+//      column on equal values (-0 == +0): torch's stable descending sort and
+//      lax.top_k. Insertions commute, so the order survivors come in does not
+//      change the list.
+//    - Output: each row's first k entries per split, side by side in split
+//      order, (M, splits * k). Columns ascend with the split, so a stable
+//      descending sort of that by value, cut to k, is the exact top-k (the
+//      wrapper's merge). A split narrower than k (only the last can be: a
+//      tile is 256 wide) pads with (-inf, INT_MAX).
+//    - Registers: 288 threads leave 168 a thread (three warps share a
+//      quarter of the SM's file); the accumulators take 128. The flush loop
+//      inside the tile loop pushes them into local memory (and ptxas then
+//      serializes wgmma), so it is compiled only into the D > FLUSH_K
+//      instance; setmaxnreg with a producer warpgroup did not lift ptxas's
+//      limit.
+//    Shared memory at the 128 x 256 tile, 4 stages: the tiled kernel's
+//    199,232 B + 128 rows x 32 x 8 B of lists = 232,000 of 232,448 B. A
+//    longer list would cost a stage.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
 constexpr float kEps = 1e-24f;
 constexpr int kErrTensorMapEntry = -1;  // cuTensorMapEncodeTiled not found
 constexpr int kErrTensorMapEncode = -2;  // the CUDA driver refused a tensor map
-constexpr int kErrConfig = -3;           // no such tile configuration, or M too large
+constexpr int kErrConfig = -3;           // no such tile configuration, M too large, or k / splits out of range
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -490,6 +538,238 @@ __global__ void __launch_bounds__(Tiled<WG, BN, STAGES>::THREADS, Tiled<WG, BN, 
   }
 }
 
+// ------------------------------------------------------ top-k tiled kernel
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+
+// Whether (va, ca) ranks before (vb, cb): the larger value first, NaN above
+// every number, the lower column first on equal values.
+__device__ __forceinline__ bool ranks_before(float va, int ca, float vb, int cb) {
+  const bool na = isnan(va), nb = isnan(vb);
+  if (na || nb) return na && (!nb || ca < cb);
+  return va > vb || (va == vb && ca < cb);
+}
+
+// Insert (v, c) into a row's ranked list [0, k) (values lv, columns lc, in
+// shared memory, KMAX = 32 entries) if it ranks among the first k. The whole
+// warp takes part, lane i holding entry i: the entries ranked before (v, c)
+// are a prefix, counted by one ballot; the rest shift down one lane.
+__device__ __forceinline__ void insert_ranked(float* lv, int* lc, int lane, int k, float v, int c) {
+  const float ev = lv[lane];
+  const int ec = lc[lane];
+  const int above = __popc(__ballot_sync(FULL_MASK, lane < k && ranks_before(ev, ec, v, c)));
+  const float pv = __shfl_up_sync(FULL_MASK, ev, 1);
+  const int pc = __shfl_up_sync(FULL_MASK, ec, 1);
+  if (lane >= above && lane < k) {
+    lv[lane] = lane == above ? v : pv;
+    lc[lane] = lane == above ? c : pc;
+  }
+  __syncwarp();
+}
+
+// grid (splits, row blocks); block (s, b) walks column tiles [s*T/splits,
+// (s+1)*T/splits) of T for rows [b*BM, b*BM + BM) and writes each row's first
+// k entries to cand_v / cand_c (m, splits * k) at columns [s*k, s*k + k).
+// part: BM x BN floats per block for the flushed partial sums. FLUSH (d >
+// FLUSH_K) is a template flag: the flush loop inside the tile loop costs the
+// registers that keep the accumulators out of local memory at 168 a thread
+// (ptxas then serializes wgmma), so D <= FLUSH_K, the main path, runs without.
+template <int WG, int BN, int STAGES, int KMAX, bool FLUSH>
+__global__ void __launch_bounds__(Tiled<WG, BN, STAGES>::THREADS, 1)
+    cosine_topk_tiled_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+                             float* __restrict__ part, float* __restrict__ cand_v, int* __restrict__ cand_c, int m,
+                             int n, int d, int k) {
+  static_assert(BN == 256 && KMAX == 32, "the selection names 32 groups of 8 columns, and a list entry a lane");
+  using C = Tiled<WG, BN, STAGES>;
+  constexpr int E = KMAX / 4;  // list entries each lane of a row's quad sets up and writes out
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* x_inv = reinterpret_cast<float*>(smem + STAGES * C::STAGE_BYTES);
+  float* y_inv = x_inv + C::BM;
+  uint64_t* full = reinterpret_cast<uint64_t*>(y_inv + BN);
+  uint64_t* empty = full + STAGES;
+  float* list_v = reinterpret_cast<float*>(empty + STAGES);
+  int* list_c = reinterpret_cast<int*>(list_v + C::BM * KMAX);
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * C::BM;
+  const int k_tiles = (d + BK - 1) / BK;
+  const long long col_tiles = (n + BN - 1) / BN;
+  const int t0 = static_cast<int>(blockIdx.x * col_tiles / gridDim.x);
+  const int t1 = static_cast<int>((blockIdx.x + 1) * col_tiles / gridDim.x);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= C::CONSUMERS) {  // producer warp: one thread issues every load, the ring running on across tiles
+    if (tid == C::CONSUMERS) {
+      int g = 0;
+      for (int t = t0; t < t1; ++t) {
+        for (int kt = 0; kt < k_tiles; ++kt, ++g) {
+          const int s = g % STAGES;
+          if (g >= STAGES) mbar_wait(&empty[s], ((g / STAGES) - 1) & 1);
+          uint8_t* a = smem + s * C::STAGE_BYTES;
+          mbar_arrive_expect_tx(&full[s], C::A_BYTES + C::B_BYTES);
+          tma_load_3d(a, &x_map, &full[s], kt * BK, row0, 0);
+          tma_load_3d(a + C::A_BYTES, &y_map, &full[s], kt * BK, t * BN, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: the tiled kernel's layout (see there).
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int chunk = tid % C::CHUNKS;
+  const int prow = tid / C::CHUNKS;
+  const int q = lane % 4;
+  const int lrow = wg * 64 + warp * 16 + lane / 4;  // this thread's rows: lrow and lrow + 8
+  float* part_b = FLUSH ? part + static_cast<long long>(blockIdx.y * gridDim.x + blockIdx.x) * C::BM * BN : nullptr;
+
+  // Every list starts with entries that any score outranks.
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      list_v[(lrow + 8 * h) * KMAX + q * E + i] = -INFINITY;
+      list_c[(lrow + 8 * h) * KMAX + q * E + i] = INT_MAX;
+    }
+  __syncwarp();
+
+  float acc[BN / 2];
+  float nx[C::A_PASSES], ny[C::B_PASSES];
+  for (int t = t0, g = 0; t < t1; ++t, g += k_tiles) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < C::A_PASSES; ++p) nx[p] = 0.f;
+#pragma unroll
+    for (int p = 0; p < C::B_PASSES; ++p) ny[p] = 0.f;
+
+    // The tiled kernel's K loop and flushes, into part_b in place of out.
+    int k0 = 0;
+    if constexpr (FLUSH) {
+      for (; k0 + C::FLUSH_SLABS < k_tiles; k0 += C::FLUSH_SLABS) {
+        mma_slabs<C, BN, STAGES>(smem, full, empty, g + k0, g + k0 + C::FLUSH_SLABS, wg, prow, chunk, acc, nx, ny);
+        const bool again = k0 > 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int r = lrow + 8 * h, c = j * 8 + 2 * q;
+            const float2 prev = flushed_pair(part_b, again, r, c, C::BM, BN, true);
+            store_pair(part_b, r, c, C::BM, BN, true, acc[4 * j + 2 * h] + prev.x, acc[4 * j + 2 * h + 1] + prev.y);
+            acc[4 * j + 2 * h] = 0.f;
+            acc[4 * j + 2 * h + 1] = 0.f;
+          }
+      }
+    }
+    mma_slabs<C, BN, STAGES>(smem, full, empty, g + k0, g + k_tiles, wg, prow, chunk, acc, nx, ny);
+
+#pragma unroll
+    for (int p = 0; p < C::A_PASSES; ++p) {
+      const float v = row_sum<C::CHUNKS>(nx[p]);
+      if (chunk == 0) x_inv[p * C::ROWS_PER_PASS + prow] = rsqrtf(v + kEps);
+    }
+#pragma unroll
+    for (int p = 0; p < C::B_PASSES; ++p) {
+      const float v = row_sum<C::CHUNKS>(ny[p]);
+      if (chunk == 0) y_inv[p * C::ROWS_PER_PASS + prow] = rsqrtf(v + kEps);
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(C::CONSUMERS) : "memory");
+
+    // Selection: each score as the tiled kernel's epilogue computes it. Phase
+    // 1 marks the 8-column groups j where a score is not below its row's k-th
+    // value (a superset of what enters: NaN and equal values pass); phase 2
+    // takes the warp's marked groups one at a time, recomputes their scores
+    // (a switch fetches group j's accumulators: one copy of the code, not one
+    // per group) and offers the exact survivors to their rows one by one.
+    const float xi0 = x_inv[lrow], xi1 = x_inv[lrow + 8];
+    const int col0 = t * BN;
+    unsigned marked = 0;
+    {
+      const float th0 = list_v[lrow * KMAX + k - 1], th1 = list_v[(lrow + 8) * KMAX + k - 1];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int lc = j * 8 + 2 * q;
+        const float2 p0 = flushed_pair(part_b, FLUSH, lrow, lc, C::BM, BN, true);
+        const float2 p1 = flushed_pair(part_b, FLUSH, lrow + 8, lc, C::BM, BN, true);
+        const float y0 = y_inv[lc], y1 = y_inv[lc + 1];
+        const float v0 = (acc[4 * j] + p0.x) * xi0 * y0, v1 = (acc[4 * j + 1] + p0.y) * xi0 * y1;
+        const float v2 = (acc[4 * j + 2] + p1.x) * xi1 * y0, v3 = (acc[4 * j + 3] + p1.y) * xi1 * y1;
+        if (!(v0 < th0) || !(v1 < th0) || !(v2 < th1) || !(v3 < th1)) marked |= 1u << j;
+      }
+    }
+    marked = __reduce_or_sync(FULL_MASK, marked);
+    while (marked != 0) {
+      const int j = __ffs(marked) - 1;
+      marked &= marked - 1;
+      float a0, a1, a2, a3;
+      switch (j) {
+#define K1B_GROUP(J)     \
+  case J:                \
+    a0 = acc[4 * J];     \
+    a1 = acc[4 * J + 1]; \
+    a2 = acc[4 * J + 2]; \
+    a3 = acc[4 * J + 3]; \
+    break;
+        K1B_GROUP(0) K1B_GROUP(1) K1B_GROUP(2) K1B_GROUP(3) K1B_GROUP(4) K1B_GROUP(5) K1B_GROUP(6) K1B_GROUP(7)
+        K1B_GROUP(8) K1B_GROUP(9) K1B_GROUP(10) K1B_GROUP(11) K1B_GROUP(12) K1B_GROUP(13) K1B_GROUP(14)
+        K1B_GROUP(15) K1B_GROUP(16) K1B_GROUP(17) K1B_GROUP(18) K1B_GROUP(19) K1B_GROUP(20) K1B_GROUP(21)
+        K1B_GROUP(22) K1B_GROUP(23) K1B_GROUP(24) K1B_GROUP(25) K1B_GROUP(26) K1B_GROUP(27) K1B_GROUP(28)
+        K1B_GROUP(29) K1B_GROUP(30) default: K1B_GROUP(31)
+#undef K1B_GROUP
+      }
+      const int lc = j * 8 + 2 * q;
+      const float2 p0 = flushed_pair(part_b, FLUSH, lrow, lc, C::BM, BN, true);
+      const float2 p1 = flushed_pair(part_b, FLUSH, lrow + 8, lc, C::BM, BN, true);
+      const float y0 = y_inv[lc], y1 = y_inv[lc + 1];
+      const float vs[4] = {(a0 + p0.x) * xi0 * y0, (a1 + p0.y) * xi0 * y1, (a2 + p1.x) * xi1 * y0,
+                           (a3 + p1.y) * xi1 * y1};
+#pragma unroll
+      for (int which = 0; which < 4; ++which) {  // (row half, column parity)
+        const int h = which >> 1;
+        const int row = lrow + 8 * h;
+        const int c = col0 + lc + (which & 1);
+        const bool live = row0 + row < m && c < n;
+        unsigned offers = __ballot_sync(
+            FULL_MASK, live && ranks_before(vs[which], c, list_v[row * KMAX + k - 1], list_c[row * KMAX + k - 1]));
+        while (offers != 0) {  // each lane's score to its row, the whole warp inserting
+          const int src = __ffs(offers) - 1;
+          offers &= offers - 1;
+          const float v = __shfl_sync(FULL_MASK, vs[which], src);
+          const int r = wg * 64 + warp * 16 + src / 4 + 8 * h;
+          insert_ranked(list_v + r * KMAX, list_c + r * KMAX, lane, k, v, col0 + j * 8 + 2 * (src % 4) + (which & 1));
+        }
+      }
+    }
+  }
+
+  // Each row's first k entries, ranked, into its split's k columns.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + lrow + 8 * h;
+    if (r >= m) continue;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int at = q * E + i;
+      if (at < k) {
+        const long long o = (static_cast<long long>(r) * gridDim.x + blockIdx.x) * k + at;
+        cand_v[o] = list_v[(lrow + 8 * h) * KMAX + at];
+        cand_c[o] = list_c[(lrow + 8 * h) * KMAX + at];
+      }
+    }
+  }
+}
+
 // -------------------------------------------------------- streaming kernel
 constexpr int STREAM_WARPS = 8;   // one y row per warp at a time
 constexpr int STREAM_UNROLL = 4;  // 16-byte loads in flight per lane
@@ -623,6 +903,32 @@ int launch_tiled(const float* x, const float* y, float* out, int batch, int m, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1b's tile (the tiled kernel's config 0, 128 x 256, 4 stages) and list length.
+constexpr int TOPK_WG = 2, TOPK_BN = 256, TOPK_STAGES = 4, TOPK_KMAX = 32;
+
+template <bool FLUSH>
+int launch_topk_tiled(const float* x, const float* y, float* part, float* cand_v, int* cand_c, int m, int n, int d,
+                      int k, int splits, cudaStream_t stream) {
+  using C = Tiled<TOPK_WG, TOPK_BN, TOPK_STAGES>;
+  constexpr int SMEM_BYTES = C::SMEM_BYTES + C::BM * TOPK_KMAX * 8;  // + the rows' ranked lists
+  if (k < 1 || k > TOPK_KMAX || splits < 1 || splits > (n + TOPK_BN - 1) / TOPK_BN) return kErrConfig;
+  if (FLUSH && part == nullptr) return kErrConfig;
+  CUtensorMap x_map, y_map;
+  int err = encode_rows_map(&x_map, x, 1, m, d, C::BM);
+  if (err == 0) err = encode_rows_map(&y_map, y, 1, n, d, TOPK_BN);
+  if (err != 0) return err;
+  auto kernel = cosine_topk_tiled_kernel<TOPK_WG, TOPK_BN, TOPK_STAGES, TOPK_KMAX, FLUSH>;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attribute_set = true;
+  }
+  const dim3 grid(splits, (m + C::BM - 1) / C::BM);
+  kernel<<<grid, C::THREADS, SMEM_BYTES, stream>>>(x_map, y_map, part, cand_v, cand_c, m, n, d, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel: allow the
 // device's most, so that a launch is refused only by the hardware's limit.
 template <typename Kernel>
@@ -681,6 +987,16 @@ extern "C" int cosine_tiled_f32(const float* x, const float* y, float* out, int 
     default: return kErrConfig;
   }
 #undef TILED_CASE
+}
+
+// K1b: x (m, d), y (n, d) as above; cand_v (m, splits * k) float32 and cand_c
+// (m, splits * k) int32, each row's k best of every split side by side (see
+// the header); part: (row blocks * splits) * 128 * 256 float32 scratch when
+// d > 512, else null. 1 <= k <= 32, 1 <= splits <= the 256-wide column tiles.
+extern "C" int cosine_topk_tiled_f32(const float* x, const float* y, float* part, float* cand_v, int* cand_c,
+                                     int m, int n, int d, int k, int splits, cudaStream_t stream) {
+  if (d > FLUSH_K) return launch_topk_tiled<true>(x, y, part, cand_v, cand_c, m, n, d, k, splits, stream);
+  return launch_topk_tiled<false>(x, y, part, cand_v, cand_c, m, n, d, k, splits, stream);
 }
 
 // m <= 32; x (m * d * 4 bytes) is staged in shared memory, so a launch

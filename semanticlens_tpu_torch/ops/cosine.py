@@ -1,4 +1,4 @@
-"""Fused cosine-similarity matrix: the hand-written CUDA kernel K1 and its plain version.
+"""Fused cosine-similarity matrix: the hand-written CUDA kernel K1, its top-k form K1b, and their plain versions.
 
 Replaces the one TPU kernel of the JAX package,
 ``semanticlens_tpu/ops/pallas_ops.py: cosine_similarity_matrix``. The CUDA
@@ -25,6 +25,15 @@ launches one of the two kernels or raises. Each variant counts its launches
 in the tracer's counters ``k1.launches.streaming`` and ``k1.launches.tiled``
 (never plain-version calls; ``launch_counts()`` reads them), so a run can
 show that its main path went through the kernels.
+
+**K1b** (:func:`cosine_topk_candidates`, for ``scores.topk_cosine_search``)
+is the tiled kernel with a selecting epilogue: one persistent launch keeps
+each row's k ≤ ``K1B_MAX_K`` best (value, column) of each of ``splits``
+column ranges in shared memory and writes only those, (M, splits·k);
+:func:`merge_candidates` (one stable descending sort) finishes the top-k.
+Its scores are bitwise the tiled kernel's. It counts under
+``k1.launches.tiled``. :func:`takes_k1b` says which searches take it, from
+the device, the shape and k; :func:`cosine_topk_plain` is its plain version.
 """
 
 from __future__ import annotations
@@ -53,6 +62,16 @@ STREAMING_MAX_X_BYTES = 160 * 1024
 # Tiles of cosine.cu's tiled kernel: config id → (block rows, block cols).
 TILE_CONFIGS = {0: (128, 256), 1: (64, 128)}
 _INT32_MAX = 2**31 - 1
+# K1b runs at config 0's tile; each row's ranked list of K1B_MAX_K entries fills
+# the shared memory its four stages leave. D above FLUSH_K gives it a buffer of
+# flushed partial sums, one tile per block.
+K1B_TILE = TILE_CONFIGS[0]
+K1B_MAX_K = 32
+FLUSH_K = 512
+# What a split costs K1b besides its tiles, in tiles: its first tiles, while the
+# lists fill, insert far more than the rest (≈ 1 ms a block against ≈ 42 µs a
+# tile at 1024 × 1,048,576 × 512 on an H100; the split sweep in PERF.md).
+K1B_SPLIT_TILES = 24
 
 
 def cosine_similarity_matrix_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -85,6 +104,11 @@ def _tiled_config(m: int, n: int, num_sms: int) -> int:
     return min(TILE_CONFIGS, key=cost)
 
 
+def _streams(m: int, n: int, d_pad: int) -> bool:
+    """Whether K1 takes its streaming kernel for (M, d_pad) × (N, d_pad)."""
+    return m <= STREAMING_MAX_M and m * n <= STREAMING_MAX_MN and m * d_pad * 4 <= STREAMING_MAX_X_BYTES
+
+
 def plan_launch(batch: int, m: int, n: int, d: int, num_sms: int) -> LaunchPlan:
     """The launch of K1 for (batch, M, D) × (batch, N, D) on a card with ``num_sms`` SMs."""
     for name, v in (("batch", batch), ("M", m), ("N", n), ("D", d)):
@@ -93,7 +117,7 @@ def plan_launch(batch: int, m: int, n: int, d: int, num_sms: int) -> LaunchPlan:
     if batch > 65535:
         raise ValueError(f"batch={batch} exceeds the kernel's grid limit of 65535")
     d_pad = -(-d // 4) * 4
-    if m <= STREAMING_MAX_M and m * n <= STREAMING_MAX_MN and m * d_pad * 4 <= STREAMING_MAX_X_BYTES:
+    if _streams(m, n, d_pad):
         return LaunchPlan("streaming", d_pad)
     config = _tiled_config(m, n, num_sms)
     if math.ceil(m / TILE_CONFIGS[config][0]) > 65535:
@@ -129,13 +153,17 @@ def _kernel_fns() -> dict:
         streaming = lib.cosine_streaming_f32
         streaming.argtypes = [p, p, p, i, i, i, i, p]
         streaming.restype = i
-        _FNS.update(tiled=tiled, streaming=streaming)
+        topk = lib.cosine_topk_tiled_f32
+        topk.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        topk.restype = i
+        _FNS.update(tiled=tiled, streaming=streaming, topk=topk)
     return _FNS
 
 
 _ERRORS = {-1: "cuTensorMapEncodeTiled not found in the CUDA driver",
            -2: "the CUDA driver refused a TMA tensor map",
-           -3: "no such kernel configuration, or M too large for the streaming kernel"}
+           -3: "no such kernel configuration, M too large for the streaming kernel, or k or splits out of "
+               "K1b's range"}
 
 
 def _check(err: int, variant: str):
@@ -209,6 +237,98 @@ def cosine_similarity_matrix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and y.device.type == "cpu":
         return cosine_similarity_matrix_plain(x, y)
     return cosine_similarity_matrix_cuda(x, y)
+
+
+# --------------------------------------------------------------------------- #
+# K1b: per-row top-k in the tiled kernel's epilogue
+# --------------------------------------------------------------------------- #
+def takes_k1b(device: torch.device, q: int, n: int, d: int, k: int) -> bool:
+    """Whether a top-k search of (Q, D) queries over (N, D) components runs K1b.
+
+    On a CUDA device, where K1 would take its tiled kernel for (Q, N), for
+    ``1 ≤ k ≤ K1B_MAX_K`` and D ≥ 1; every other search streams the bank
+    through K1 in chunks (``scores.topk_cosine_search``).
+    """
+    return device.type == "cuda" and 1 <= k <= K1B_MAX_K and d >= 1 and not _streams(q, n, -(-d // 4) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def k1b_splits(m: int, n: int, num_sms: int) -> int:
+    """The column splits of K1b's grid for (M, N): the least work on the busiest SM (one block an SM, blocks
+    in waves, each its tiles and ``K1B_SPLIT_TILES``), then the fewest splits (the shorter merge)."""
+    bm, bn = K1B_TILE
+    blocks, tiles = math.ceil(m / bm), math.ceil(n / bn)
+
+    def busiest(s):
+        return math.ceil(blocks * s / num_sms) * (math.ceil(tiles / s) + K1B_SPLIT_TILES)
+
+    return min(range(1, min(tiles, 2 * num_sms) + 1), key=lambda s: (busiest(s), s))
+
+
+def split_bounds(n: int, splits: int, tile: int = K1B_TILE[1]) -> list[int]:
+    """Column boundaries of K1b's splits: split s covers whole tiles [s·T // splits, (s+1)·T // splits) of T."""
+    tiles = math.ceil(n / tile)
+    return [min(s * tiles // splits * tile, n) for s in range(splits + 1)]
+
+
+def topk_candidates_plain(sim: torch.Tensor, k: int, splits: int, tile: int = K1B_TILE[1]):
+    """K1b's output from a (Q, N) score matrix: each split's first k (value, column), ranked, side by side in
+    split order, (Q, splits·k) float32 and int32.
+
+    Ranked as the kernel ranks: the larger value first, NaN above every number, the lower column on equal
+    values (a stable descending sort). A split narrower than k pads with (−inf, INT32_MAX).
+    """
+    q = sim.shape[0]
+    vals, cols = [], []
+    bounds = split_bounds(sim.shape[1], splits, tile)
+    for c0, c1 in zip(bounds, bounds[1:]):
+        v, order = torch.sort(sim[:, c0:c1], dim=1, descending=True, stable=True)
+        v, c = v[:, :k], (order[:, :k] + c0).to(torch.int32)
+        pad = k - v.shape[1]
+        vals += [v, torch.full((q, pad), -torch.inf, dtype=v.dtype, device=v.device)]
+        cols += [c, torch.full((q, pad), _INT32_MAX, dtype=torch.int32, device=v.device)]
+    return torch.cat(vals, dim=1), torch.cat(cols, dim=1)
+
+
+def merge_candidates(cand_v: torch.Tensor, cand_c: torch.Tensor, k: int):
+    """The top-k of K1b's candidates: one stable descending sort by value, cut to k.
+
+    Exact because the splits' columns ascend in split order: among equal values the lower column comes first.
+    """
+    vals, order = torch.sort(cand_v, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(cand_c, 1, order[:, :k])
+
+
+def cosine_topk_plain(x: torch.Tensor, y: torch.Tensor, k: int, splits: int, tile: int = K1B_TILE[1]):
+    """K1b's plain version: the top-k of (Q, D) × (N, D) by splits and merge, ``(values, int32 columns)``."""
+    return merge_candidates(*topk_candidates_plain(cosine_similarity_matrix_plain(x, y), k, splits, tile), k)
+
+
+def cosine_topk_candidates(x: torch.Tensor, y: torch.Tensor, k: int):
+    """Launch K1b on CUDA tensors (Q, D) × (N, D): its (Q, splits·k) candidates, for :func:`merge_candidates`."""
+    if x.device.type != "cuda" or y.device != x.device:
+        raise ValueError(f"K1b needs both operands on one CUDA device, got {x.device} and {y.device}")
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"K1b takes (Q, D) and (N, D), got {tuple(x.shape)} and {tuple(y.shape)}")
+    (q, d), n = x.shape, y.shape[0]
+    if not takes_k1b(x.device, q, n, d, k):
+        raise ValueError(f"K1b does not take Q={q}, N={n}, D={d}, k={k}")
+    num_sms = _num_sms(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    plan = plan_launch(1, q, n, d, num_sms)
+    splits = k1b_splits(q, n, num_sms)
+    xk = _kernel_operand(x, q, plan.d_pad)
+    yk = _kernel_operand(y, n, plan.d_pad)
+    cand_v = torch.empty((q, splits * k), dtype=torch.float32, device=x.device)
+    cand_c = torch.empty((q, splits * k), dtype=torch.int32, device=x.device)
+    bm, bn = K1B_TILE
+    part = (torch.empty((math.ceil(q / bm) * splits, bm, bn), dtype=torch.float32, device=x.device)
+            if plan.d_pad > FLUSH_K else None)
+    err = _kernel_fns()["topk"](xk.data_ptr(), yk.data_ptr(), None if part is None else part.data_ptr(),
+                                cand_v.data_ptr(), cand_c.data_ptr(), q, n, plan.d_pad, k, splits,
+                                torch.cuda.current_stream(x.device).cuda_stream)
+    _check(err, "top-k tiled")
+    count("k1.launches.tiled")
+    return cand_v, cand_c
 
 
 _LAUNCH_COUNTERS = {"streaming": "k1.launches.streaming", "tiled": "k1.launches.tiled"}

@@ -8,8 +8,9 @@ arrays (put on ``device``: the CUDA card unless the caller passes ``"cpu"``).
 Every cosine matrix goes through :func:`_cosine_matrix`, which is the fused
 kernel K1 (:mod:`semanticlens_tpu_torch.ops.cosine`) on the card — the path
 by which probing (``cosine_probe``), ``redundancy_score``,
-``topk_cosine_search`` (labeling, serving), ``soft_wpmi`` and
-``match_components`` reach it.
+``topk_cosine_search``'s chunked path, ``soft_wpmi`` and
+``match_components`` reach it. ``topk_cosine_search`` takes K1b, K1 with the
+top-k in its epilogue, where the card, the shape and k allow.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ import logging
 import numpy as np
 import torch
 
-from semanticlens_tpu_torch.ops.cosine import cosine_similarity_matrix
+from semanticlens_tpu_torch.ops.cosine import (
+    cosine_similarity_matrix,
+    cosine_topk_candidates,
+    merge_candidates,
+    takes_k1b,
+)
 from semanticlens_tpu_torch.core.mesh import ShardedRows, all_gather
 from semanticlens_tpu_torch.ops.kmeans import batched_kmeans
 from semanticlens_tpu_torch.utils.device import as_tensor
@@ -191,13 +197,35 @@ def _merge_topk(best_vals, best_idx, sim, start: int):
     return vals[:, :k], torch.gather(all_idx, 1, order[:, :k])
 
 
+def _chunked_topk(queries, components, k: int, chunk_size: int):
+    """``components`` streamed through K1 ``chunk_size`` rows at a time, each block merged into a running (Q, k)
+    state."""
+    q, n = queries.shape[0], components.shape[0]
+    chunk_size = min(chunk_size, max(n, 1))
+    best_vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=queries.device)
+    best_idx = torch.full((q, k), -1, dtype=torch.int32, device=queries.device)
+    for start in range(0, n, chunk_size):
+        with span("search.k1", queries.device):
+            sim = _cosine_matrix(queries, components[start : start + chunk_size])
+        with span("search.merge", queries.device):
+            best_vals, best_idx = _merge_topk(best_vals, best_idx, sim, start)
+    return best_vals, best_idx
+
+
 def topk_cosine_search(queries, components, k: int, *, chunk_size: int = 65536, device=None):
     """Per-query top-k most similar components without materializing (Q, N).
 
-    ``components`` stream through K1 ``chunk_size`` rows at a time, each
-    block merged into a running (Q, k) state, so peak memory is
-    O(Q·(k + chunk_size)). Exact: equal to a stable descending sort of the
-    dense cosine matrix, cut to k.
+    On the card, where K1 would take its tiled kernel for (Q, N) and
+    ``k ≤ K1B_MAX_K`` (``ops.cosine.takes_k1b``), one launch of K1b keeps
+    each query's k best of each of S column splits in its epilogue (S from
+    ``ops.cosine.k1b_splits``: the blocks fill the card in whole waves) and
+    one stable sort merges the (Q, S·k) candidates: peak memory O(Q·S·k),
+    no host sync. Otherwise (the CPU, a
+    few queries against a small bank, larger k) ``components`` stream
+    through K1 ``chunk_size`` rows at a time, each block merged into a
+    running (Q, k) state, so peak memory is O(Q·(k + chunk_size)). Both are
+    exact: equal to a stable descending sort of the dense cosine matrix, cut
+    to k.
 
     Returns ``(values (Q, k) float32 desc, indices (Q, k) int32)`` with
     global component row numbers.
@@ -209,15 +237,14 @@ def topk_cosine_search(queries, components, k: int, *, chunk_size: int = 65536, 
             q, n = queries.shape[0], components.shape[0]
             if k > n:
                 raise ValueError(f"k={k} exceeds component count {n}")
-            chunk_size = min(chunk_size, max(n, 1))
-            best_vals = torch.full((q, k), -torch.inf, dtype=torch.float32, device=queries.device)
-            best_idx = torch.full((q, k), -1, dtype=torch.int32, device=queries.device)
-        for start in range(0, n, chunk_size):
-            with span("search.k1", queries.device):
-                sim = _cosine_matrix(queries, components[start : start + chunk_size])
-            with span("search.merge", queries.device):
-                best_vals, best_idx = _merge_topk(best_vals, best_idx, sim, start)
-        return best_vals, best_idx
+            fused = takes_k1b(queries.device, q, n, queries.shape[1], k)
+        if not fused:
+            return _chunked_topk(queries, components, k, chunk_size)
+        count("search.k1b")
+        with span("search.k1", queries.device):
+            cand_v, cand_c = cosine_topk_candidates(queries, components, k)
+        with span("search.merge", queries.device):
+            return merge_candidates(cand_v, cand_c, k)
 
 
 def class_composition(sample_ids, labels, n_classes: int | None = None):

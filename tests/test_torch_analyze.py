@@ -22,6 +22,8 @@ from semanticlens_tpu.foundation_models.tokenizer import HashTokenizer as JHash
 from semanticlens_tpu_torch import lens as tlens
 from semanticlens_tpu_torch import scores as tscores
 from semanticlens_tpu_torch.foundation_models import clip as tclip
+from semanticlens_tpu_torch.ops import cosine as k1
+from semanticlens_tpu_torch.utils.profiling import counters, reset
 
 torch.set_num_threads(2)
 
@@ -87,6 +89,39 @@ def test_topk_cosine_search_equals_dense_stable_sort_and_checks_k():
     assert idx[0, :21].tolist() == [5, *range(10, 30)]  # the tied copies, in index order
     with pytest.raises(ValueError, match="exceeds"):
         tscores.topk_cosine_search(queries, bank[:3], 4, device="cpu")
+
+
+@pytest.mark.parametrize("n_queries, k, fused", [
+    (40, 7, True),  # more queries than the streaming kernel takes: the tiled plan
+    (40, 1, True),
+    (40, k1.K1B_MAX_K, True),
+    (40, k1.K1B_MAX_K + 1, False),  # k beyond K1b's list
+    (8, 7, False),  # few queries against a small bank: the streaming plan
+])
+def test_topk_cosine_search_takes_k1b_by_shape_and_k(monkeypatch, n_queries, k, fused):
+    """On a card (emulated here: the rule told the device is CUDA, K1b's launch replaced by its plain version
+    with 64-wide tiles, so the splits are many), the search takes K1b exactly where the rule says, counts it
+    once a call, and gives the dense stable sort's answer on either path, ties included."""
+    calls = []
+
+    def plain_k1b(x, y, kk):
+        calls.append(kk)
+        splits = k1.k1b_splits(x.shape[0], y.shape[0], 132)
+        return k1.topk_candidates_plain(k1.cosine_similarity_matrix_plain(x, y), kk, splits, tile=64)
+
+    monkeypatch.setattr(tscores, "cosine_topk_candidates", plain_k1b)
+    monkeypatch.setattr(tscores, "takes_k1b", lambda device, *shape: k1.takes_k1b(torch.device("cuda"), *shape))
+    bank = _ties_bank()
+    queries = np.concatenate([bank[[5, 45]], _rng(2).normal(size=(n_queries - 2, 16)).astype(np.float32)])
+    reset("search.k1b")
+    vals, idx = tscores.topk_cosine_search(queries, bank, k, chunk_size=64, device="cpu")
+    assert calls == ([k] if fused else [])
+    assert counters().get("search.k1b", 0) == int(fused)
+    dense = tscores.cosine_probe(queries, bank, device="cpu")
+    want = torch.sort(dense, dim=1, descending=True, stable=True)
+    assert idx.dtype == torch.int32 and vals.shape == (n_queries, k)
+    np.testing.assert_array_equal(idx.numpy(), want.indices[:, :k].numpy())
+    torch.testing.assert_close(vals, want.values[:, :k], atol=1e-6, rtol=0)
 
 
 def _sort_merge(best_vals, best_idx, sim, start):

@@ -24,6 +24,9 @@ The launch plan (which kernel, which tile, D padded to a multiple of 4) is
 Python, so it is tested here directly.
 """
 
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -234,3 +237,121 @@ def test_launch_counts_sum_and_reset(monkeypatch):
     k1.cosine_similarity_matrix(x[0], x[0])  # CPU tensors: the plain version, never counted
     k1.reset_launch_counts()
     assert k1.launch_counts() == {"streaming": 0, "tiled": 0, "total": 0}
+
+
+# --------------------------------------------------------------------------- #
+# K1b: the top-k in the tiled kernel's epilogue, by splits and one merge
+# --------------------------------------------------------------------------- #
+def _dense_topk(sim: torch.Tensor, k: int):
+    """The definition: a stable descending sort of the whole score matrix, cut to k."""
+    vals, idx = torch.sort(sim, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k].to(torch.int32)
+
+
+def _k1b_scores(case: str) -> torch.Tensor:
+    """A (Q, N) score matrix for a K1b case, Q and N no multiples of the 128 × 256 tile."""
+    rng = np.random.default_rng(22)
+    if case in ("nan and signed zeros", "few levels"):
+        sim = torch.from_numpy(rng.uniform(-1, 1, size=(37, 531)).astype(np.float32))
+        if case == "few levels":  # the k-th value tied far beyond k
+            return torch.round(sim * 2) / 2
+        sim[:, ::7] = torch.where(torch.arange(531)[::7] % 2 == 0, 0.0, -0.0)  # −0.0 and +0.0 are equal values
+        sim[3, [5, 300, 17]] = torch.nan  # NaN above every number, the lower column first
+        sim[4] = torch.nan
+        return sim
+    x = rng.normal(size=(131, 24)).astype(np.float32)
+    y = rng.normal(size=(777, 24)).astype(np.float32)
+    if case == "dead and duplicated rows":
+        y[10:60] = y[5]  # 51 copies of one direction: tied scores
+        y[300:420] = 0.0  # dead rows all score exactly 0
+        x[7] = y[5]
+        x[8] = 0.0  # a dead query: every score ties at 0
+    return k1.cosine_similarity_matrix_plain(torch.from_numpy(x), torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("case", ["dead and duplicated rows", "ragged", "nan and signed zeros", "few levels"])
+@pytest.mark.parametrize("k, splits, tile", [
+    (1, 3, 256),  # k = 1
+    (k1.K1B_MAX_K, 2, 256),  # k at its largest
+    (7, 3, 64),
+    (k1.K1B_MAX_K, 9, 16),  # splits narrower than k
+    (5, 1, 256),  # one split
+])
+def test_k1b_split_selection_and_merge_equal_a_dense_stable_sort(case, k, splits, tile):
+    sim = _k1b_scores(case)
+    splits = min(splits, math.ceil(sim.shape[1] / tile))
+    got = k1.merge_candidates(*k1.topk_candidates_plain(sim, k, splits, tile), k)
+    want = _dense_topk(sim, k)
+    assert got[1].dtype == torch.int32
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0, equal_nan=True)
+    assert torch.equal(got[1], want[1])
+
+
+def test_k1b_plain_version_is_k1_then_the_dense_sort():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(50, 36)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(600, 36)).astype(np.float32))
+    got = k1.cosine_topk_plain(x, y, 9, splits=3)
+    want = _dense_topk(k1.cosine_similarity_matrix_plain(x, y), 9)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k1b_candidates_are_each_splits_ranked_entries_padded():
+    sim = torch.tensor([[0.5, 0.1, 0.9, 0.1, -0.2, 0.3, 0.9, 0.0, 0.4, 0.6]])
+    vals, cols = k1.topk_candidates_plain(sim, 3, splits=3, tile=3)  # splits [0, 3), [3, 6), [6, 10)
+    assert k1.split_bounds(10, 3, 3) == [0, 3, 6, 10]
+    assert cols.tolist() == [[2, 0, 1, 5, 3, 4, 6, 9, 8]]
+    vals, cols = k1.topk_candidates_plain(sim[:, :7], 3, splits=3, tile=3)  # the last split holds 1 column
+    assert cols[0, 6:].tolist() == [6, 2**31 - 1, 2**31 - 1] and vals[0, 7:].tolist() == [-math.inf] * 2
+
+
+@pytest.mark.parametrize("n, splits, tile", [(1 << 20, 33, 256), (777, 4, 256), (10, 3, 3), (1000, 1, 256)])
+def test_k1b_splits_cover_the_columns_in_whole_tiles(n, splits, tile):
+    bounds = k1.split_bounds(n, splits, tile)
+    assert bounds[0] == 0 and bounds[-1] == n and len(bounds) == splits + 1
+    assert all(b % tile == 0 and a < b for a, b in zip(bounds, bounds[1:-1]))
+    assert bounds[-2] < n
+
+
+@pytest.mark.parametrize("m, n, sms, splits", [
+    (1024, 1 << 20, SMS, 16),  # the audit search: 8 row blocks × 16 splits, one wave (33 splits, two whole
+    #                            waves, lose to the second wave's first tiles)
+    (2048, 1000, SMS, 4),  # labeling a 2048-component layer: 16 row blocks, 4 column tiles
+    (100, 1 << 20, SMS, 128),  # one row block: one wave; 128 splits of 32 tiles end as soon as 132
+    (8192, 8192, SMS, 2),
+])
+def test_k1b_splits_fill_the_card_in_whole_waves(m, n, sms, splits):
+    assert k1.k1b_splits(m, n, sms) == splits
+
+
+@pytest.mark.parametrize("device, q, n, d, k, takes", [
+    ("cuda", 1024, 1 << 20, 512, 32, True),  # the audit search
+    ("cpu", 1024, 1 << 20, 512, 32, False),  # the CPU keeps the chunked path
+    ("cuda", 1024, 1 << 20, 512, k1.K1B_MAX_K + 1, False),  # k beyond the list
+    ("cuda", 2048, 1000, 512, 5, True),  # labeling
+    ("cuda", 8, 2048, 512, 5, False),  # few queries against a small bank: the streaming plan
+    ("cuda", 8, 1 << 20, 512, 5, True),  # few queries against a large bank: the tiled plan
+    ("cuda", 64, 64, 768, 1, True),
+    ("cuda", 64, 64, 0, 1, False),  # no features
+    ("cuda", 64, 64, 512, 0, False),
+])
+def test_k1b_is_chosen_by_device_shape_and_k(device, q, n, d, k, takes):
+    assert k1.takes_k1b(torch.device(device), q, n, d, k) == takes
+    if device == "cuda" and d and 1 <= k <= k1.K1B_MAX_K:
+        assert takes == (k1.plan_launch(1, q, n, d, SMS).variant == "tiled")
+
+
+def test_k1b_constants_match_the_cuda_source():
+    source = (Path(k1.__file__).resolve().parent.parent / "csrc" / "cosine.cu").read_text()
+    bm, bn = k1.K1B_TILE
+    assert f"TOPK_WG = {bm // 64}, TOPK_BN = {bn}, TOPK_STAGES = 4, TOPK_KMAX = {k1.K1B_MAX_K};" in source
+    assert f"constexpr int FLUSH_K = {k1.FLUSH_K};" in source
+    assert f"X(0, {bm // 64}, {bn}, 4)" in source  # config 0's tile, the one K1b shares
+
+
+def test_k1b_refuses_cpu_tensors_and_is_not_counted():
+    k1.reset_launch_counts()
+    x = torch.zeros(40, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.cosine_topk_candidates(x, x, 4)
+    assert k1.launch_counts()["total"] == 0

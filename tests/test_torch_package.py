@@ -204,6 +204,31 @@ def test_cuda_kernel_ragged_batch_and_near_duplicates(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q, n, d, k", [(40, 300, 64, 7), (129, 777, 24, 32), (2048, 1000, 512, 5),
+                                        (200, 3000, 513, 32), (33, 70_001, 512, 1)])
+def test_cuda_k1b_equals_the_chunked_search_bitwise(cuda_device, q, n, d, k):
+    """K1b (the top-k in K1's epilogue) against the chunked path on the same K1 arithmetic: values bitwise,
+    indices equal, with duplicated and dead rows and queries tying; one tiled launch; D past the flush."""
+    from semanticlens_tpu_torch import scores
+    from semanticlens_tpu_torch.ops import cosine as k1
+
+    g = torch.Generator(device=cuda_device).manual_seed(q + n + d + k)
+    bank = torch.randn(n, d, generator=g, device=cuda_device)
+    queries = torch.randn(q, d, generator=g, device=cuda_device)
+    bank[4::3] = bank[1]
+    bank[2::3] = 0.0
+    queries[0], queries[1] = bank[1], 0.0
+    assert k1.takes_k1b(cuda_device, q, n, d, k)
+    k1.reset_launch_counts()
+    vals, idx = scores.topk_cosine_search(queries, bank, k)
+    torch.cuda.synchronize()
+    assert k1.launch_counts() == {"streaming": 0, "tiled": 1, "total": 1}
+    ref_vals, ref_idx = scores._chunked_topk(queries, bank, k, 1024)
+    assert torch.equal(vals, ref_vals) and torch.equal(idx, ref_idx)
+    assert idx[1].tolist() == list(range(k))  # a dead query ties everywhere: the first k columns
+
+
+@pytest.mark.cuda
 def test_cuda_nvjpeg_fixtures_within_bounds(cuda_device):
     """nvJPEG's planes through planes_to_rgb and the float32 resize, against the JAX package's PIL
     arrays of the committed fixtures: mean |Δ| ≤ 1.5 levels and PSNR ≥ 40 dB (chip_smoke's bounds)."""
