@@ -33,6 +33,7 @@ import torch
 from semanticlens_tpu_torch.collect.activation_based import ActivationComponentVisualizer
 from semanticlens_tpu_torch.collect.sae_based import SAEComponentVisualizer
 from semanticlens_tpu_torch.ops import aggregators
+from semanticlens_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -174,10 +175,12 @@ class TextActivationComponentVisualizer(ActivationComponentVisualizer):
         bad = next((t for t in texts if not isinstance(t, str)), None)
         if bad is not None:
             raise TypeError(f"dataset_fm must yield raw strings for the text Embed stage, got {type(bad)}")
-        chunks = []
+        chunks, device = [], getattr(fm, "device", None)
         with torch.inference_mode():
             for start in range(0, len(texts), batch_size):
-                chunks.append(fm.encode_text(fm.tokenize(texts[start : start + batch_size])).float())
+                tokens = fm.tokenize(texts[start : start + batch_size])
+                with span("embed.encode_text", device):
+                    chunks.append(fm.encode_text(tokens).float())
         embeds = torch.cat(chunks).cpu().numpy() if chunks else np.zeros((0, 1), np.float32)
         if embeds.shape[0] != len(texts):
             raise RuntimeError("Number of embeddings does not match number of ids!")

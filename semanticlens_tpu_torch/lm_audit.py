@@ -47,7 +47,7 @@ def parse_args(argv=None):
     ap.add_argument("--evidence", type=int, default=5)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: the CUDA card)")
-    ap.add_argument("--family", default="gpt2", choices=["gpt2", "llama", "gemma2"],
+    ap.add_argument("--family", default="gpt2", choices=["gpt2", "llama", "gemma2", "deepseek_v2"],
                     help="subject architecture (HF naming conventions)")
     return ap.parse_args(argv)
 
@@ -62,11 +62,23 @@ def corpus(n: int, seq_len: int):
 
 
 def build_subject(args, device):
-    """``(model, default layer)``: the float32 subject of ``--family`` at the tool's sizes, pad-aware."""
-    from semanticlens_tpu_torch.models import GPT2, Gemma2, Llama
+    """``(model, default layer)``: the float32 subject of ``--family`` at the tool's sizes, pad-aware.
+
+    ``deepseek_v2``: latent attention (nope 16, rope 8, value 16, kv rank 32,
+    YaRN over an original 8 positions) and 8 experts (top-2) of width 32
+    beside one shared, after one dense layer; the default layer is the last
+    layer's experts' neurons.
+    """
+    from semanticlens_tpu_torch.models import GPT2, DeepseekV2, Gemma2, Llama
 
     common = dict(vocab_size=VOCAB, n_positions=args.seq_len, width=args.width, depth=args.depth,
                   heads=args.heads, dtype=torch.float32, pad_id=PAD_ID, device=device)
+    if args.family == "deepseek_v2":
+        yarn = {"type": "yarn", "factor": 4, "original_max_position_embeddings": 8, "beta_fast": 32, "beta_slow": 1,
+                "mscale": 0.707, "mscale_all_dim": 0.707}
+        return (DeepseekV2(**common, moe_intermediate=32, n_routed_experts=8, n_shared_experts=1, experts_per_token=2,
+                           kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16, rope_scaling=yarn),
+                f"model.layers.{args.depth - 1}.mlp.experts.act_fn")
     if args.family == "llama":
         return Llama(**common, kv_heads=max(1, args.heads // 2)), f"model.layers.{args.depth - 1}.mlp.act_fn"
     if args.family == "gemma2":
@@ -122,11 +134,13 @@ def main(argv=None) -> list[dict]:
 
     ev = cv.get_max_reference(layer)[best]
     ev = ev[ev >= 0]
-    ctl = rng.choice(args.samples, size=ev.size, replace=False)
-    ratio = causal.necessity_ratio(lm, lm.params, layer, [best], tokens[ev], tokens[ctl])
-    rel = token_relevance(lm, lm.params, tokens[ev[:1]], layer, best)
-    peak = int(torch.argmax(torch.abs(rel[0])))
-    emit("validate", round(float(ratio[0]), 3), peak, round(time.perf_counter() - t0, 2),
+    ratio, peak = None, None  # DeepSeek-V2 refuses ablation and LRP through its MoE layers: reported as null
+    if args.family != "deepseek_v2":
+        ctl = rng.choice(args.samples, size=ev.size, replace=False)
+        ratio = round(float(causal.necessity_ratio(lm, lm.params, layer, [best], tokens[ev], tokens[ctl])[0]), 3)
+        rel = token_relevance(lm, lm.params, tokens[ev[:1]], layer, best)
+        peak = int(torch.argmax(torch.abs(rel[0])))
+    emit("validate", ratio, peak, round(time.perf_counter() - t0, 2),
          torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     return reports
 

@@ -11,6 +11,7 @@ from semanticlens_tpu_torch.models.base import (
 )
 from semanticlens_tpu_torch.models.classic import AlexNet, SqueezeNet
 from semanticlens_tpu_torch.models.convnext import ConvNeXt
+from semanticlens_tpu_torch.models.deepseek import DeepseekV2
 from semanticlens_tpu_torch.models.densenet import DenseNet
 from semanticlens_tpu_torch.models.efficientnet import EfficientNet, EfficientNetV2
 from semanticlens_tpu_torch.models.gemma import Gemma, Gemma2
@@ -29,8 +30,8 @@ from semanticlens_tpu_torch.models.torch_adapter import TorchSubjectModel
 from semanticlens_tpu_torch.models.vgg import VGG
 from semanticlens_tpu_torch.models.vit import VisionTransformer
 
-__all__ = ["AlexNet", "ConvNeXt", "DenseNet", "EfficientNet", "EfficientNetV2", "GPT2", "Gemma", "Gemma2", "GoogLeNet",
-           "InceptionV3", "Llama", "MNASNet", "MaxViT", "MobileNetV2", "MobileNetV3", "Phi3", "Qwen2", "RegNet", "ResNet",
-           "ShuffleNetV2", "SqueezeNet", "SubjectModel", "SwinTransformer", "SwinTransformerV2", "TapCollector",
-           "TorchSubjectModel", "VGG", "VisionTransformer", "apply_interventions", "has_intervention",
+__all__ = ["AlexNet", "ConvNeXt", "DeepseekV2", "DenseNet", "EfficientNet", "EfficientNetV2", "GPT2", "Gemma", "Gemma2",
+           "GoogLeNet", "InceptionV3", "Llama", "MNASNet", "MaxViT", "MobileNetV2", "MobileNetV3", "Phi3", "Qwen2",
+           "RegNet", "ResNet", "ShuffleNetV2", "SqueezeNet", "SubjectModel", "SwinTransformer", "SwinTransformerV2",
+           "TapCollector", "TorchSubjectModel", "VGG", "VisionTransformer", "apply_interventions", "has_intervention",
            "interventions", "interventions_fingerprint", "validate_layers"]

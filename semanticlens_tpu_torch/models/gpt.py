@@ -107,7 +107,7 @@ class TokenLM(SubjectModel):
         params = {}
         for name, shape, kind in self._param_specs():
             shape = self._torch_shape(name, shape)
-            dtype = self.dtype if len(shape) == 2 else torch.float32
+            dtype = self.dtype if len(shape) >= 2 else torch.float32
             if kind == "ones":
                 params[name] = torch.ones(shape, dtype=dtype, device=self.device)
             elif kind == "zeros":
@@ -121,17 +121,20 @@ class TokenLM(SubjectModel):
         """Weights in the JAX package's layout → the port's, placed for the forward."""
         return self._place(convert.lm_params_from_jax(params))
 
-    def _place(self, state_dict: Mapping) -> dict[str, torch.Tensor]:
-        """Port-layout weights, shape-checked; matrices to the compute dtype, vectors float32."""
+    def _place(self, state_dict: Mapping, *, partial: bool = False) -> dict[str, torch.Tensor]:
+        """Port-layout weights, shape-checked; matrices (and stacked experts' matrices) to the compute dtype,
+        vectors float32. ``partial``: only the tensors given (a load in parts)."""
         out = {}
         for name, shape, _ in self._param_specs():
             if name not in state_dict:
+                if partial:
+                    continue
                 raise KeyError(f"{name} missing from state dict")
             t = torch.as_tensor(state_dict[name])
             expected = self._torch_shape(name, shape)
             if tuple(t.shape) != expected:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != expected {expected}")
-            out[name] = t.to(self.device, self.dtype if t.ndim == 2 else torch.float32)
+            out[name] = t.to(self.device, self.dtype if t.ndim >= 2 else torch.float32)
         return out
 
     def _ids(self, x) -> torch.Tensor:

@@ -439,7 +439,10 @@ def multi_head_attention(x, params, prefix, n_heads, *, mask=None, kv=None):
 
 def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None, scale=None, logit_cap=None,
                                  float32_mask=False):
-    """Batched MHA core: (B, T, H·hd) q / (B, S, KV·hd) k, v → (B, T, H·hd).
+    """Batched MHA core: (B, T, H·hd) q / (B, S, KV·hd) k, (B, S, KV·vd) v → (B, T, H·vd).
+
+    The value head size ``vd`` may differ from the query/key one (latent
+    attention: 192 against 128); it is read from ``v``.
 
     ``mask`` is additive (−inf blocks): (T, S), (H, T, S) per-head
     biases, or (B, 1, T, S) / (B, H, T, S) per row (pad-aware LMs, Swin's
@@ -482,7 +485,7 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
     kv_heads = n_kv_heads or n_heads
 
     def split(z, length, heads=n_heads):
-        return z.reshape(b, length, heads, head_dim).transpose(1, 2)
+        return z.reshape(b, length, heads, z.shape[-1] // heads).transpose(1, 2)
 
     def split_kv(z):  # (B, S, KV·hd) → (B, H, S, hd), HF grouping order
         z = split(z, s, kv_heads)
@@ -504,7 +507,7 @@ def scaled_dot_product_attention(q, k, v, n_heads, *, mask=None, n_kv_heads=None
         return torch.softmax(logits, dim=-1)
 
     def merge(out, dtype):
-        return out.transpose(1, 2).reshape(b, t, d).to(dtype)
+        return out.transpose(1, 2).reshape(b, t, -1).to(dtype)
 
     if _lrp_active():
         with torch.no_grad():

@@ -19,8 +19,9 @@ from semanticlens_tpu_torch.utils.profiling import (
     reset,
     snapshot,
     span,
+    tally,
 )
 
 __all__ = ["get_denormalization_transform", "get_fallback_name", "make_preprocess_fn", "resolve_device",
            "to_transforms_compose", "setup_colored_logging", "StageTimer", "device_trace", "force_materialize",
-           "span", "count", "counters", "enable", "enabled", "snapshot", "reset"]
+           "span", "count", "counters", "enable", "enabled", "snapshot", "reset", "tally"]

@@ -26,9 +26,12 @@ time inside it). The events resolve when a host span opens, or past
 not wait for the card (unless it runs 2 × ``KEEP`` spans behind). Under
 an active ``torch.profiler`` each enabled span is a
 ``record_function("semanticlens.<name>")`` annotation, on the clock of the
-kernels and operators it encloses. Counters are always on.
-:func:`snapshot` synchronizes once and returns both, :func:`counters` the
-counters alone without a wait; :func:`reset` clears them.
+kernels and operators it encloses. Counters are always on, and so are
+tallies: :func:`tally` keeps a reference to a small tensor of counts that
+the work made where it runs (an MoE layer's tokens per expert, on the card),
+without reading it. :func:`snapshot` synchronizes once and returns the
+spans, the counters and the tallies' values, :func:`counters` the counters
+alone without a wait; :func:`reset` clears them.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ _lock = threading.Lock()
 _stats: dict[str, "_Stat"] = {}
 _counts: dict[str, int] = {}
 _pending: deque = deque()  # (stat, start event, stop event), oldest first
+_tallies: dict[str, deque] = {}  # name → the last KEEP tensors of counts, unread
 
 
 class _Stat:
@@ -146,6 +150,33 @@ def count(name: str, n: int = 1) -> None:
         _counts[name] = _counts.get(name, 0) + n
 
 
+def tally(name: str, values: torch.Tensor) -> None:
+    """Keep ``values``, a 1-D tensor of counts on any device, as one call of tally ``name`` (always on).
+
+    Nothing is read or copied here: :func:`snapshot` reads the last ``KEEP``
+    calls of every tally after its one wait. The caller hands over a tensor
+    it no longer writes.
+    """
+    with _lock:
+        kept = _tallies.get(name)
+        if kept is None:
+            kept = _tallies[name] = deque(maxlen=KEEP)
+        kept.append(values)
+
+
+def _read_tallies() -> dict[str, list[list[int]]]:
+    """Every kept tally call's values on the host, in one copy (caller holds the lock)."""
+    calls = [(name, t.reshape(-1)) for name, kept in _tallies.items() for t in kept]
+    device = calls[0][1].device
+    flat = torch.cat([t.to(device, torch.int64) for _, t in calls]).tolist()
+    out: dict[str, list[list[int]]] = {}
+    start = 0
+    for name, t in calls:
+        out.setdefault(name, []).append(flat[start : start + t.numel()])
+        start += t.numel()
+    return out
+
+
 def counters() -> dict:
     """Every counter since the last :func:`reset`, without waiting for the card or copying a span."""
     with _lock:
@@ -163,32 +194,38 @@ def enabled() -> bool:
 
 
 def snapshot() -> dict:
-    """Every span and counter since the last :func:`reset`; waits once for the card.
+    """Every span, counter and tally since the last :func:`reset`; waits once for the card.
 
     ``{"spans": {name: {"calls", "host_ms", "device_ms", "recent_host_ms",
     "recent_device_ms"}}, "counters": {name: int}}``: totals over every call
     (``device_ms`` is None for a span that recorded no CUDA events) and the
-    per-call values of the last ``KEEP`` calls, oldest first.
+    per-call values of the last ``KEEP`` calls, oldest first; with
+    ``"tallies": {name: [[int, ...], ...]}`` too once a tally was kept.
     """
     with _lock:
         _resolve(wait=True)
         spans = {name: {"calls": s.calls, "host_ms": s.host_ms, "device_ms": s.device_ms,
                         "recent_host_ms": list(s.recent_host_ms), "recent_device_ms": list(s.recent_device_ms)}
                  for name, s in _stats.items()}
-        return {"spans": spans, "counters": dict(_counts)}
+        snap = {"spans": spans, "counters": dict(_counts)}
+        if _tallies:
+            snap["tallies"] = _read_tallies()
+        return snap
 
 
 def reset(*names: str) -> None:
-    """Clear the spans and counters named, or all of them when none is named."""
+    """Clear the spans, counters and tallies named, or all of them when none is named."""
     with _lock:
         if not names:
             _stats.clear()
             _counts.clear()
             _pending.clear()
+            _tallies.clear()
             return
         for name in names:  # a pending pair of a cleared span resolves into a stat no longer listed
             _counts.pop(name, None)
             _stats.pop(name, None)
+            _tallies.pop(name, None)
 
 
 class StageTimer:

@@ -75,3 +75,16 @@ def test_main_in_process_for_the_other_families(family, layer, capsys):
     printed = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
     assert printed == reports
     _check(reports, layer)
+
+
+def test_main_in_process_for_deepseek_v2(capsys):
+    """The MoE subject's experts' neurons through the tool; its validate stage reports null (no ablation or
+    LRP through an MoE layer)."""
+    reports = lm_audit.main(["--cpu", "--family", "deepseek_v2", "--samples", "40"])
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    assert printed == reports
+    assert [r["stage"] for r in reports] == list(lm_audit.REPORT_KEYS)
+    assert all(tuple(r) == lm_audit.REPORT_KEYS[r["stage"]] for r in reports)
+    assert reports[0]["layer"] == "model.layers.1.mlp.experts.act_fn" and reports[0]["components"] == 8 * 32
+    assert reports[2]["necessity_ratio"] is None and reports[2]["top_relevant_token_index"] is None
+    assert reports[2]["device"] == "cpu"

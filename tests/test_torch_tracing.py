@@ -1,13 +1,18 @@
-"""The port's tracer (``utils/profiling.py``: ``span``, ``count``, ``snapshot``) and the spans the program opens.
+"""The port's tracer (``utils/profiling.py``: ``span``, ``count``, ``tally``, ``snapshot``) and the spans the
+program opens.
 
 Off, a span is one shared no-op context and records nothing; on, a tiny
 fused sweep records every Collect, Embed and concept-DB span, a chunked
-search one K1 and one merge span a chunk, and under ``torch.profiler`` each
-span is a ``semanticlens.<name>`` annotation around the operators of its
-work. Counters (the K1 launches, the search's stable-sort fallbacks) count
-whether spans are on or off, and are read without waiting for the card.
+search one K1 and one merge span a chunk, a DeepSeek-V2 forward its MLA
+and MoE spans, a text sweep its text-tower span, and under
+``torch.profiler`` each span is a ``semanticlens.<name>`` annotation around
+the operators of its work. Counters (the K1 launches, the search's
+stable-sort fallbacks, the routed pairs) count whether spans are on or off,
+and are read without waiting for the card; tallies (the MoE layers' tokens
+per expert) are kept unread and resolved by ``snapshot``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -250,3 +255,72 @@ def test_device_spans_time_the_card_and_stay_bounded(tracer, cuda_device, monkey
     assert not profiling._pending
     assert s["calls"] == 40 and len(s["recent_device_ms"]) == 8 and min(s["recent_device_ms"]) > 0
     assert 0.5 < s["device_ms"] / start.elapsed_time(stop) < 2.0  # the spans hold the same work, timed alike
+
+
+def _tiny_deepseek():
+    from test_torch_deepseek_v2 import hf_weights, port_model
+
+    model = port_model()
+    return model, model.load_torch_state_dict(hf_weights())
+
+
+EXPERTS_TAP = "model.layers.2.mlp.experts.act_fn"
+
+
+def test_mla_and_moe_spans_open_under_enable(tracer):
+    model, params = _tiny_deepseek()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 160, size=(2, 12)))
+    with torch.no_grad():
+        model.apply(params, toks)
+        model.apply(params, toks, [EXPERTS_TAP])
+    spans = snapshot()["spans"]
+    calls = {name: spans[name]["calls"] for name in spans}
+    # two forwards of three layers: MLA in each layer, the MoE spans in layers 1 and 2, the tap's once
+    assert calls == {"mla.attention": 6, "moe.route": 4, "moe.experts": 4, "moe.combine": 4, "moe.tap": 1}
+
+
+def test_routed_pairs_count_b_t_k_per_moe_layer(tracer_off):
+    model, params = _tiny_deepseek()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 160, size=(3, 12)))
+    with torch.no_grad():
+        model.apply(params, toks)
+    assert counters() == {"moe.routed_pairs": 2 * 3 * 12 * 2}  # two MoE layers, B·T tokens, top-2
+
+
+def test_expert_load_resolves_in_snapshot_and_the_layer_reads_nothing_back(tracer_off, monkeypatch):
+    from semanticlens_tpu_torch.ops import moe
+
+    model, params = _tiny_deepseek()
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 160, size=(2, 12)))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the MoE layer read a tensor back or waited for the card")
+
+    with torch.no_grad(), monkeypatch.context() as m:
+        m.setattr(moe, "expert_ffn", functools.partial(moe.expert_ffn, grouped=True))  # the card's path
+        for name in ("item", "cpu", "tolist", "numpy"):
+            m.setattr(torch.Tensor, name, refuse)
+        m.setattr(torch.cuda, "synchronize", refuse)
+        m.setattr(profiling, "_resolve", refuse)
+        _, taps = model.apply(params, toks, [EXPERTS_TAP])
+    snap = snapshot()
+    assert set(snap["tallies"]) == {"moe.expert_load.1", "moe.expert_load.2"}
+    routed = taps[EXPERTS_TAP].view(2, 12, 8, 16).ne(0).any(dim=-1)
+    assert snap["tallies"]["moe.expert_load.2"] == [routed.sum(dim=(0, 1)).tolist()]
+    assert all(sum(call) == 2 * 12 * 2 for calls in snap["tallies"].values() for call in calls)
+    reset("moe.expert_load.1")
+    assert set(snapshot()["tallies"]) == {"moe.expert_load.2"}
+
+
+def test_the_text_embed_opens_its_span_per_batch(tracer):
+    from semanticlens_tpu_torch.collect import TextActivationComponentVisualizer, TokenTextDataset
+
+    model, params = _tiny_deepseek()
+    model.params, model.name = params, "tiny-deepseek"
+    toks = np.random.default_rng(3).integers(0, 160, size=(10, 12)).astype(np.int32)
+    ds = TokenTextDataset(toks, [f"text number {i}" for i in range(10)], name="toy-texts")
+    fm = tclip.OpenClip("ViT-B-32", jax_params=tclip.init_clip_params_jax_layout(1, TINY_CLIP),
+                        dtype=torch.float32, device="cpu", cfg=TINY_CLIP)
+    cv = TextActivationComponentVisualizer(model, ds, ds.texts_view(), ["model.layers.1.mlp.gate"], 2)
+    Lens(fm).compute_concept_db(cv, batch_size=4)
+    assert snapshot()["spans"]["embed.encode_text"]["calls"] == 3
