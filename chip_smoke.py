@@ -28,6 +28,16 @@ Phases (any failing check raises; the exit code is then non-zero):
    call's host time beside the chunked path, the plain version, one
    PyTorch formulation (cuBLAS fp32 matmul + ``torch.topk``) and the
    3×TF32 bound;
+2c. moe — the MoE combine kernel (``csrc/moe.cu``) through ``ops/moe.combine`` at
+   ``MOE``'s shapes (DeepSeek-V2-Lite's 8,192 tokens × top-6 of 64 × 2,048;
+   37 tokens × top-2 × 5,120; every pair on one expert): within one bf16
+   step of the float32 slot-ordered sum, one ``moe.combine.kernel`` a call;
+   at the first shape its device time warm and cold (CUDA-graph replay), the
+   host time, the byte bound and its share, the plain version and the
+   operator chain it replaced (float32 cast, weighting, ``index_add_``) as
+   ``library_ms``; then one forward of DeepSeek-V2-Lite at full width cut to
+   ``MOE_FORWARD``'s depth on 16 × 512 tokens, one ``moe.combine.kernel`` per
+   MoE layer (the count the ``kernels`` line gives the kernel);
 3. reference — the slice at full model width on 16 images in float32 on the
    card, held against the same code on the CPU (plain kernel versions);
 4. quickstart — the README quickstart through the port's entry points at
@@ -329,6 +339,12 @@ AUDIT = {"queries": 1024, "components": 1 << 20, "k": 32, "chunk": 65536}
 # K1's 512-wide flush in D (SigLIP's width) with no dimension a multiple of the 128 × 256 tile; the last two with
 # planted ties.
 K1B = {"audit": (1024, 1 << 20, 512, 32), "labels": (2048, 1000, 512, 5), "d768": (300, 70_001, 768, 32)}
+# [moe] shapes (tokens N, top-k, experts E, width H, routing): DeepSeek-V2-Lite's combine at the text sweep's 16 × 512
+# tokens, a ragged N with a wide row, and one expert taking every pair.
+MOE = {"textsweep": (8192, 6, 64, 2048, "top-k"), "ragged": (37, 2, 8, 5120, "top-k"),
+       "one_expert": (512, 6, 64, 2048, "one expert")}
+# [moe]'s model forward: DeepSeek-V2-Lite at full width cut to one dense and three MoE layers, on (B, T) tokens
+MOE_FORWARD = {"depth": 4, "tokens": (16, 512)}
 # SHA-256 of K1's output bytes for x = default_rng(0).standard_normal((2048, 512), float32) against itself,
 # as the tree before K1b computed it (NVIDIA H100 80GB HBM3): K1b left the tiled kernel's output unchanged.
 K1_REDUNDANCY_SHA256 = "314c7cb8770192c1b5339236dc7f903c6fc2fa18235f52b308fddcd2a638c6c1"
@@ -1010,6 +1026,112 @@ def phase_k1b(dev) -> dict:
         log(f"[k1b] {name}: {json.dumps(row)}")
         del queries, bank, cold
         torch.cuda.empty_cache()
+    return out
+
+
+def moe_inputs(dev, n, k, e, h, one_expert: bool, seed: int = 24):
+    """(y_sorted (N·k, H) bf16, weights (N, k) float32, dispatch) of N tokens routed top-k over E experts by a
+    softmax of random scores, as DeepSeek-V2's router weights them; ``one_expert``: every pair to expert 0."""
+    from semanticlens_tpu_torch.ops import moe
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    weights, experts = torch.topk(torch.randn(n, e, generator=gen, device=dev).softmax(-1), k, dim=-1)
+    d = moe.dispatch(torch.zeros_like(experts) if one_expert else experts, e)
+    return torch.randn(n * k, h, generator=gen, device=dev).bfloat16(), weights, d
+
+
+def library_combine(y_sorted, w_sorted, d, n):
+    """The combine as PyTorch operators, as the port ran it before its kernel (float32 cast, broadcast
+    weighting, atomic ``index_add_``, cast back), ``w_sorted`` (P,) the weights in the sorted order; timed, never
+    used."""
+    out = torch.zeros(n, y_sorted.shape[1], dtype=torch.float32, device=y_sorted.device)
+    return out.index_add_(0, d.token, y_sorted.float() * w_sorted[:, None]).to(y_sorted.dtype)
+
+
+def moe_forward_launches(dev) -> dict:
+    """One forward of DeepSeek-V2-Lite at full width, cut to ``MOE_FORWARD``'s depth, on the text sweep's
+    16 × 512 tokens: one ``moe.combine.kernel`` launch per MoE layer, read from the forward's own run."""
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    model = lm_subject("deepseek-v2-lite", "DeepseekV2", dev, torch.bfloat16, depth=MOE_FORWARD["depth"])
+    params = model.init(0, device_draw=True)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    toks = torch.randint(0, model.vocab_size - 1, MOE_FORWARD["tokens"], generator=gen, device=dev,
+                         dtype=torch.int32)  # no pad id
+    moe_layers = sum(model.is_moe(i) for i in range(model.depth))
+    with torch.no_grad():
+        model.apply(params, toks)  # the build and the first launches
+        reset("moe.combine.kernel")
+        logits, _ = model.apply(params, toks)
+        torch.cuda.synchronize()
+    launches = counters().get("moe.combine.kernel", 0)
+    row = {"depth": model.depth, "tokens": list(MOE_FORWARD["tokens"]), "moe_layers": moe_layers,
+           "launches": launches, "logits_finite": bool(torch.isfinite(logits).all())}
+    del model, params, logits
+    torch.cuda.empty_cache()
+    if launches != moe_layers or moe_layers < 2 or not row["logits_finite"]:
+        raise AssertionError(f"[moe] forward: {json.dumps(row)}: not one combine kernel per MoE layer")
+    return row
+
+
+def moe_kernel_entry(rows: dict) -> dict:
+    """The combine kernel's row of the ``kernels`` line from :func:`phase_moe`'s rows: the launches of the model
+    forward (the only path of this script that runs an MoE layer) and the times at the text sweep's shape."""
+    return {"name": "moe_combine", "route": "cuda", "source": "semanticlens_tpu_torch/csrc/moe.cu", "replaces": None,
+            "launches": rows["forward"]["launches"],
+            "launches_by_path": {"deepseek_v2_forward": rows["forward"]["launches"]},
+            **{key: rows["textsweep"][key] for key in (
+                "shape", "max_abs_err", "max_bf16_steps", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "library_device_ms", "device_ms_cold_l2", "share_of_bound_cold_l2")}}
+
+
+def phase_moe(dev) -> dict:
+    """The MoE combine kernel against its plain version at ``MOE``'s shapes: one bf16 step of agreement, one
+    ``moe.combine.kernel`` a call; at the text sweep's shape its device time warm and cold (CUDA-graph replay),
+    the host time, the byte bound, the plain version and the operator chain it replaced (``library_ms``)."""
+    from semanticlens_tpu_torch.ops import moe
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    out = {}
+    for name, (n, k, e, h, routing) in MOE.items():
+        y, weights, d = moe_inputs(dev, n, k, e, h, routing == "one expert")
+        combine = functools.partial(moe.combine, y, weights, d, n)
+        combine()  # the build and the first launch
+        reset("moe.combine.kernel")
+        got = combine()
+        torch.cuda.synchronize()
+        if counters().get("moe.combine.kernel") != 1:
+            raise AssertionError(f"[moe] {name}: {counters().get('moe.combine.kernel')} kernel launches for one call")
+        exact = moe.combine_plain(y.float(), weights, d, n)
+        scale = float(y.float().abs().max() * weights.sum(dim=1).max())
+        err = (got.float() - exact).abs()
+        steps = float((err / (exact.abs() * 2.0**-7 + scale * 2.0**-20)).max())  # bf16 steps from the float32 sum
+        if not steps <= 1.0:
+            raise AssertionError(f"[moe] {name}: {steps:.3f} bf16 steps from the float32 sum")
+        plain_equal = float((got == moe.combine_plain(y, weights, d, n)).float().mean())
+        row = {"shape": [n, k, e, h], "routing": routing, "max_bf16_steps": steps, "max_abs_err": float(err.max()),
+               "share_equal_to_plain": plain_equal}
+        if name == "textsweep":
+            bytes_moved = y.numel() * y.element_size() + n * h * y.element_size() + 2 * 4 * n * k
+            cold = [(y, weights, d), (y.clone(), weights, d)]  # each copy past the L2: the rows come from HBM
+            w_sorted = weights.reshape(-1)[torch.argsort(d.pos)]  # what the replaced chain gathered in dispatch
+            row.update({
+                "device_ms": graph_ms(lambda a, b, c: moe.combine(a, b, c, n), [(y, weights, d)]),
+                "device_ms_cold_l2": graph_ms(lambda a, b, c: moe.combine(a, b, c, n), cold),
+                "ms": time_ms(combine),
+                "plain_ms": time_ms(functools.partial(moe.combine_plain, y, weights, d, n), iters=5, warmup=1),
+                "library_device_ms": graph_ms(lambda a, b, c: library_combine(a, b, c, n), [(y, w_sorted, d)]),
+                "library_ms": time_ms(functools.partial(library_combine, y, w_sorted, d, n), iters=5, warmup=1),
+                "bytes": bytes_moved, "bound_ms": 1e3 * bytes_moved / PEAK_BYTES_PER_S, "bound_by": "bytes",
+            })
+            row["share_of_bound_cold_l2"] = row["bound_ms"] / row["device_ms_cold_l2"]
+            del cold, w_sorted
+        out[name] = row
+        log(f"[moe] {name}: {json.dumps(row)}")
+        del y, weights, d, got, exact
+        torch.cuda.empty_cache()
+    out["forward"] = moe_forward_launches(dev)
+    log(f"[moe] forward: {json.dumps(out['forward'])}")
     return out
 
 
@@ -5409,6 +5531,8 @@ def main():
     done("kernels")
     phase_k1b(dev)
     done("k1b")
+    moe_rows = phase_moe(dev)
+    done("moe")
     phase_reference(dev)
     done("reference")
     shapes = set()
@@ -5491,7 +5615,8 @@ def main():
                                                       "at_zoo2_832": at_shape("redundancy 832x832x512")},
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
                                                   "at_d768": at_shape("probe 8x3072x768"),
-                                                  "at_sae": at_shape("probe 8x8192x512")}]}
+                                                  "at_sae": at_shape("probe 8x8192x512")},
+        moe_kernel_entry(moe_rows)]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

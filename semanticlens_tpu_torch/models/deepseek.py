@@ -41,8 +41,10 @@ routed sum), ``mlp.shared_experts.*`` and ``mlp``.
 Spans (``utils/profiling``): ``mla.attention`` per layer; per MoE layer
 ``moe.route`` (router, top-k, sort, the pairs' gather), ``moe.experts``
 (the grouped GEMMs), ``moe.combine`` (the weighted sum and the shared
-experts) and ``moe.tap`` (the tap's scatter, when asked for). Counter
-``moe.routed_pairs`` (B·T·k per MoE layer, known on the host); tally
+experts; inside it ``moe.weighted_sum``, the routed experts' sum alone) and
+``moe.tap`` (the tap's scatter, when asked for). Counters
+``moe.routed_pairs`` (B·T·k per MoE layer, known on the host) and
+``moe.combine.kernel`` (the combine kernel's launches, on the card); tally
 ``moe.expert_load.<layer>`` (the layer's tokens per expert, left on the
 device). Nothing in the layer reads the card back.
 
@@ -314,7 +316,9 @@ class DeepseekV2(Llama):
             with span("moe.tap", dev):
                 tap(f"{m}.experts.act_fn", moe.scatter_tap(act, d, n, e).view(b, t, -1))
         with span("moe.combine", dev):
-            routed = tap(f"{m}.experts", moe.combine(y_sorted, weights, d, n).to(x.dtype).view(b, t, w))
+            with span("moe.weighted_sum", dev):
+                summed = moe.combine(y_sorted, weights, d, n)
+            routed = tap(f"{m}.experts", summed.view(b, t, w))
             return tap(m, routed + self._swiglu(tap, params, f"{m}.shared_experts", x))
 
     def _swiglu(self, tap, params, prefix, x):

@@ -220,7 +220,8 @@ def test_grouped_and_plain_expert_paths_agree():
     experts = torch.where(experts == 5, 6, experts)  # an expert that no pair goes to: an empty group
     d = moe.dispatch(experts, 8)
     assert int(d.counts[5]) == 0 and int(d.counts.sum()) == 80
-    assert torch.equal(d.expert, experts.reshape(-1)[d.order]) and bool((d.expert[1:] >= d.expert[:-1]).all())
+    order = torch.argsort(experts.reshape(-1), stable=True)
+    assert torch.equal(d.expert, experts.reshape(-1)[order]) and bool((d.expert[1:] >= d.expert[:-1]).all())
     xs = x.index_select(0, d.token)
     act_g, y_g = moe.expert_ffn(xs, gate_up, down, d, grouped=True)
     act_p, y_p = moe.expert_ffn(xs, gate_up, down, d, grouped=False)
@@ -234,6 +235,64 @@ def test_grouped_and_plain_expert_paths_agree():
             dense[t] += weights[t, slot] * (down[e] @ h)
     torch.testing.assert_close(moe.combine(y_p, weights, d, 40), dense, rtol=1e-5, atol=1e-5)
 
+
+
+def routed_pairs(n, k, e, h, *, dtype=torch.float32, device="cpu", one_expert=None, seed=5):
+    """(y_sorted (N·k, H), weights (N, k) float32, dispatch) of N tokens routed top-k over e experts; with
+    ``one_expert``, every pair goes to that expert."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scores = torch.randn(n, e, generator=gen, device=device).softmax(dim=-1)
+    weights, experts = torch.topk(scores, k, dim=-1)
+    if one_expert is not None:
+        experts = torch.full_like(experts, one_expert)
+    d = moe.dispatch(experts, e)
+    return torch.randn(n * k, h, generator=gen, device=device).to(dtype), weights, d
+
+
+@pytest.mark.parametrize("n, k, e", [(40, 2, 8), (37, 6, 64), (5, 1, 3), (16, 4, 4)])
+def test_dispatch_positions_invert_the_order(n, k, e):
+    gen = torch.Generator().manual_seed(n)
+    experts = torch.topk(torch.randn(n, e, generator=gen), k, dim=-1)[1]
+    d = moe.dispatch(experts, e)
+    order = torch.argsort(experts.reshape(-1), stable=True)  # the sort dispatch makes
+    assert d.pos.dtype == torch.int32 and d.pos.shape == (n * k,)
+    assert torch.equal(d.pos[order], torch.arange(n * k, dtype=torch.int32))
+    assert torch.equal(order[d.pos.long()], torch.arange(n * k))
+    # token t's slot s sits at d.pos[t·k + s]: its expert and token read back from the sorted order
+    assert torch.equal(d.expert[d.pos.long()].view(n, k), experts)
+    assert torch.equal(d.token[d.pos.long()].view(n, k), torch.arange(n)[:, None].expand(n, k))
+
+
+def test_slot_ordered_combine_equals_the_dense_per_slot_sum_with_an_empty_expert():
+    y, weights, d = routed_pairs(40, 3, 8, 24)
+    y2, w2, d2 = routed_pairs(40, 3, 8, 24, one_expert=2)  # seven experts with no pairs
+    for yy, ww, dd in ((y, weights, d), (y2, w2, d2)):
+        dense = torch.zeros(40, 24)
+        for t in range(40):
+            for slot in range(3):
+                dense[t] += ww[t, slot] * yy[int(dd.pos[t * 3 + slot])]
+        torch.testing.assert_close(moe.combine_plain(yy, ww, dd, 40), dense, rtol=0, atol=0)
+        torch.testing.assert_close(moe.combine(yy, ww, dd, 40), dense, rtol=0, atol=0)
+    assert int((d2.counts == 0).sum()) == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slot_ordered_combine_equals_the_index_add_form(dtype):
+    y, weights, d = routed_pairs(64, 6, 16, 32, dtype=dtype)
+    w = weights.reshape(-1)[torch.argsort(d.pos)]  # each sorted pair's weight: pos inverted
+    old = torch.zeros(64, 32).index_add_(0, d.token, y.float() * w[:, None])  # the combine it replaced
+    new = moe.combine_plain(y.float(), weights, d, 64)
+    torch.testing.assert_close(new, old, rtol=1e-6, atol=1e-6)  # float32 sums of six terms in two orders
+
+
+@pytest.mark.parametrize("rows", [torch.float32, torch.bfloat16])
+def test_combine_returns_the_requested_dtype(rows):
+    y, weights, d = routed_pairs(12, 2, 4, 16, dtype=rows)
+    got = moe.combine_plain(y, weights, d, 12)
+    assert got.dtype == rows and got.shape == (12, 16)  # the outputs' dtype
+    exact = moe.combine_plain(y.float(), weights, d, 12)
+    assert torch.equal(got, exact.to(rows))  # one rounding, from the float32 sum
+    assert torch.equal(moe.combine(y, weights, d, 12), got)
 
 def test_from_name_holds_the_published_config():
     m = DeepseekV2.from_name("deepseek-v2-lite", device="cpu")
@@ -328,3 +387,53 @@ def test_cuda_grouped_experts_match_the_plain_loop(cuda_device, pair):
     routed = on_card["model.layers.2.mlp.experts.act_fn"].view(*toks.shape, 8, 16).ne(0).any(dim=-1).cpu()
     want = on_cpu["model.layers.2.mlp.experts.act_fn"].view(*toks.shape, 8, 16).ne(0).any(dim=-1)
     assert (routed == want).all(dim=-1).float().mean() >= 0.9  # two layers on: bf16 may flip a near-tie
+
+
+
+def within_one_step(got, want32, scale):
+    """Whether ``got`` lies within one rounding step of its dtype from the float32 sum ``want32`` (plus a float32
+    rounding of the summands' ``scale``, which a cancelling sum leaves)."""
+    step = want32.abs() * torch.finfo(got.dtype).eps + scale * 2.0**-20
+    return bool(((got.float() - want32).abs() <= step).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, k, e, h, dtype, one_expert", [
+    (8192, 6, 64, 2048, torch.bfloat16, None),  # DeepSeek-V2-Lite at 16 × 512 tokens
+    (37, 2, 8, 5120, torch.bfloat16, None),  # ragged N, a wide row: 640 chunks over 256 lanes
+    (512, 6, 64, 2048, torch.bfloat16, 9),  # one expert takes every pair
+    (64, 11, 16, 72, torch.bfloat16, None),  # k above the unrolled instances, a row of 9 chunks
+    (300, 6, 64, 64, torch.float32, None),  # a float32 model on the card (lm_audit's)
+])
+def test_cuda_combine_kernel_matches_the_plain_version(cuda_device, n, k, e, h, dtype, one_expert):
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    y, weights, d = routed_pairs(n, k, e, h, dtype=dtype, device=cuda_device, one_expert=one_expert)
+    reset("moe.combine.kernel")
+    got = moe.combine(y, weights, d, n)
+    assert counters().get("moe.combine.kernel") == 1
+    assert got.dtype == dtype and got.shape == (n, h)
+    exact = moe.combine_plain(y.float(), weights, d, n)
+    plain = moe.combine_plain(y, weights, d, n)
+    scale = float(y.float().abs().max() * weights.sum(dim=1).max())
+    assert within_one_step(got, exact, scale) and within_one_step(got, plain.float(), scale)
+
+
+@pytest.mark.cuda
+def test_cuda_combine_never_reaches_the_plain_version(cuda_device, monkeypatch):
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain combine")
+
+    monkeypatch.setattr(moe, "combine_plain", refuse)
+    y, weights, d = routed_pairs(100, 6, 64, 256, dtype=torch.bfloat16, device=cuda_device)
+    reset("moe.combine.kernel")
+    for calls in range(1, 4):
+        moe.combine(y, weights, d, 100)
+        assert counters().get("moe.combine.kernel") == calls  # one launch a call
+    with pytest.raises(ValueError, match="multiples of 8"):
+        moe.combine(y[:, :20].contiguous(), weights, d, 100)
+    with pytest.raises(ValueError, match="float32 weights"):
+        moe.combine(y, weights.double(), d, 100)
+    assert counters().get("moe.combine.kernel") == 3

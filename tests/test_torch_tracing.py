@@ -276,7 +276,8 @@ def test_mla_and_moe_spans_open_under_enable(tracer):
     spans = snapshot()["spans"]
     calls = {name: spans[name]["calls"] for name in spans}
     # two forwards of three layers: MLA in each layer, the MoE spans in layers 1 and 2, the tap's once
-    assert calls == {"mla.attention": 6, "moe.route": 4, "moe.experts": 4, "moe.combine": 4, "moe.tap": 1}
+    assert calls == {"mla.attention": 6, "moe.route": 4, "moe.experts": 4, "moe.combine": 4, "moe.weighted_sum": 4,
+                     "moe.tap": 1}
 
 
 def test_routed_pairs_count_b_t_k_per_moe_layer(tracer_off):
