@@ -23,7 +23,6 @@ nor PIL, so panels carry no titles.
 
 from __future__ import annotations
 
-import json
 import logging
 import math
 import struct
@@ -36,9 +35,9 @@ import torch
 
 from semanticlens_tpu_torch.collect.activation_caching import ActMaxCache
 from semanticlens_tpu_torch.collect.base import AbstractComponentVisualizer
-from semanticlens_tpu_torch.collect.engine import CollectEngine, EmbedSink
-from semanticlens_tpu_torch.core.mesh import all_gather, barrier, check_mesh, is_writer
-from semanticlens_tpu_torch.data.dataset import _extract_image, device_prefetch_batches, iter_batches, prefetch_batches
+from semanticlens_tpu_torch.collect.engine import CollectEngine
+from semanticlens_tpu_torch.core.mesh import barrier, check_mesh, is_writer
+from semanticlens_tpu_torch.data.dataset import _extract_image
 from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
 from semanticlens_tpu_torch.ops import aggregators
 from semanticlens_tpu_torch.utils.helper import get_fallback_name
@@ -255,17 +254,9 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         is stored (clearing first would reopen the crash window). The batch
         is already this rank's rows, so the FM's unsplit encode embeds it.
         """
-        encode = _local_encoder(fm)
-
-        def embed_fn(raw_device_batch):
-            with span("embed.preprocess", raw_device_batch.device):
-                x = fm.preprocess(raw_device_batch)
-            with span("embed.encode", raw_device_batch.device):
-                return encode(x)
-
         ckpt_dir = self._checkpoint_dir("fused", checkpoint)
         states, embeds, n_seen = self.engine.run_fused(
-            self.params, self.dataset, batch_size, embed_fn, checkpoint_dir=ckpt_dir,
+            self.params, self.dataset, batch_size, _embed_fn(fm), checkpoint_dir=ckpt_dir,
             checkpoint_every=self._every(ckpt_dir, checkpoint, batch_size),
         )
         with span("concept_db.ingest"):
@@ -276,46 +267,17 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         return embeds
 
     def _embed_vision_dataset(self, fm, batch_size: int, checkpoint: int = 512, **kwargs) -> np.ndarray:
-        """Embed every sample of ``dataset_fm`` once → (N, D) float32.
+        """Embed every sample of ``dataset_fm`` once → (N, D) float32 (``CollectEngine.run_embed``).
 
-        Rows stay on the device and drain to the host every
-        ``EMBED_FLUSH_BYTES``, as in the fused pass. With a cache root,
-        finished rows persist every ``checkpoint`` samples under
-        ``storage_dir/_checkpoint-embed`` (the fused sweep's chunk format,
-        ``progress.json`` holding ``next_start`` only) and an interrupted
-        embed resumes from there. Under a mesh each rank embeds its rows of
-        every batch and the rows are all-gathered in order, as in the fused
-        pass.
+        With a cache root, finished rows persist every ``checkpoint`` samples
+        under ``storage_dir/_checkpoint-embed`` and an interrupted embed
+        resumes from there; the directory is cleared once the table is whole.
         """
         n = len(self.dataset_fm)
         ckpt_dir = self._checkpoint_dir("embed", checkpoint)
-        every = self._every(ckpt_dir, checkpoint, batch_size)
-        shard, n_shards, encode = self.engine.shard, self.engine.n_shards, _local_encoder(fm)
-        self.engine._check_batch(batch_size)
-        resume_start, sink = 0, EmbedSink()
-        if ckpt_dir is not None and (ckpt_dir / "progress.json").exists():
-            resume_start = int(json.loads((ckpt_dir / "progress.json").read_text())["next_start"])
-            sink = EmbedSink(self.engine._load_embed_chunks(ckpt_dir, resume_start), resume_start)
-            logger.info("Resuming FM embedding sweep from sample %d", resume_start)
-        batches_done = 0
-        with torch.inference_mode():
-            for images, start, _ in device_prefetch_batches(
-                prefetch_batches(iter_batches(self.dataset_fm, batch_size, start_index=resume_start,
-                                              part=(shard, n_shards))), fm.device
-            ):
-                emb = encode(fm.preprocess(images))
-                sink.add(emb if n_shards == 1 else all_gather(emb, self.engine.group).flatten(0, 1))
-                batches_done += 1
-                if self.engine._due(ckpt_dir, every, batches_done):
-                    next_start = self.engine._next_start(start, batch_size)
-                    if is_writer(self.mesh):
-                        sink.commit(ckpt_dir, next_start)
-                        (ckpt_dir / "progress.json").write_text(json.dumps({"next_start": int(next_start)}))
-                    else:
-                        sink.drain()
-                    if self.mesh is not None:
-                        barrier()
-        embeds = sink.table(n)
+        embeds = self.engine.run_embed(self.dataset_fm, batch_size, _embed_fn(fm), device=fm.device,
+                                       checkpoint_dir=ckpt_dir,
+                                       checkpoint_every=self._every(ckpt_dir, checkpoint, batch_size))
         self._clear_checkpoint(ckpt_dir)
         if embeds.shape[0] != n:
             raise RuntimeError("Number of embeddings does not match number of ids!")
@@ -395,10 +357,19 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
             raise ValueError(f"Layer '{layer_name}' not found in model layers: {self.layer_names}")
 
 
-def _local_encoder(fm):
-    """The FM's encode of the rows it is given: ``encode_image_local`` where the tower splits
-    ``encode_image`` over a data mesh, else ``encode_image``."""
-    return getattr(fm, "encode_image_local", fm.encode_image)
+def _embed_fn(fm):
+    """``raw device batch → (B, D)`` of the FM: its preprocess, then its encode of the rows it is
+    given (``encode_image_local`` where the tower splits ``encode_image`` over a data mesh, since
+    the engine hands it this rank's rows, else ``encode_image``)."""
+    encode = getattr(fm, "encode_image_local", fm.encode_image)
+
+    def embed_fn(raw_device_batch):
+        with span("embed.preprocess", raw_device_batch.device):
+            x = fm.preprocess(raw_device_batch)
+        with span("embed.encode", raw_device_batch.device):
+            return encode(x)
+
+    return embed_fn
 
 
 def _make_grid(imgs: list[np.ndarray], nrow: int = 3) -> np.ndarray:

@@ -7,17 +7,18 @@ subject model, each tap is aggregated to (B, C), padded rows are set to −inf
 and the batch is merged into the per-layer :class:`TopKState`. Sample ids
 derive from the batch start and the dataset length, as in the JAX package.
 
-``run_fused`` also embeds every uploaded batch with a foundation model, so
-Collect and Embed share one upload per image.
+``run`` (Collect), ``run_fused`` (Collect + Embed on one upload per image)
+and ``run_embed`` (Embed alone) are one batch loop, ``_sweep``; the states
+are sized from its first batch, so a sweep runs one forward a batch.
 
 With ``checkpoint_dir`` and ``checkpoint_every`` (batches) a sweep persists
-its running top-k state, and ``run_fused`` its embedding rows, and resumes
-from the last commit after a crash with the same result as an uninterrupted
-sweep. The files are the JAX package's, key for key, so a sweep
-checkpointed by either package resumes in the other:
-``state-{layer}.safetensors`` (``values`` bf16, ``ids`` int32),
-``embeds-{first row:012d}.safetensors`` (``embeds`` f32) and
-``progress.json`` (``next_start``, ``layers``).
+its running top-k states and its embedding rows, and resumes from the last
+commit after a crash with the same result as an uninterrupted sweep. The
+files are the JAX package's, key for key, so a sweep checkpointed by either
+package resumes in the other: ``state-{layer}.safetensors`` (``values``
+bf16, ``ids`` int32), ``embeds-{first row:012d}.safetensors`` (``embeds``
+f32) and ``progress.json`` (``next_start``, and ``layers`` where the sweep
+collects).
 
 With ``mesh=`` (a ``DeviceMesh`` from :mod:`semanticlens_tpu_torch.core`,
 one process per card) the sweep is data-parallel as the JAX engine's
@@ -26,8 +27,8 @@ rows ``[r·B/W, (r+1)·B/W)`` of every global batch of ``B`` (the sample ids
 the JAX engine gives shard ``r``), keeps its own (C, k) state, and the
 final states are all-gathered to (W, C, k) and merged by
 ``ops.topk.topk_merge``: every rank returns the same states, whose ids are
-the JAX meshed run's. ``run_fused`` all-gathers each batch's embedding rows
-in global order, so every rank holds the (N, D) table. Checkpoints under a
+the JAX meshed run's. A sweep that embeds all-gathers each batch's rows in
+global order, so every rank holds the (N, D) table. Checkpoints under a
 data mesh keep the JAX meshed layout: ``state-{layer}`` holds (W, C, k)
 values and ids, written by global rank 0 after a gather, followed by a
 barrier, so a sweep checkpointed by either package at ``W`` shards resumes
@@ -64,7 +65,7 @@ from semanticlens_tpu_torch.core.mesh import (
     mesh_axis,
     tensor_parallel_region,
 )
-from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, get_image, iter_batches
+from semanticlens_tpu_torch.data.dataset import device_prefetch_batches, get_image, iter_batches, prefetch_batches
 from semanticlens_tpu_torch.models.base import SubjectModel
 from semanticlens_tpu_torch.ops.topk import TopKState, init_topk, topk_merge, topk_update
 from semanticlens_tpu_torch.utils import safetensors_io
@@ -81,9 +82,9 @@ class EmbedSink:
     """The embedding rows of a sweep, in order, from the device to host memory and disk.
 
     Rows stay on the device until ``EMBED_FLUSH_BYTES`` of them are pending,
-    then drain to host memory in one copy. :meth:`commit` drains, writes the
-    rows since the last commit as one checkpoint chunk and starts the next;
-    :meth:`table` returns every row, each exactly once.
+    then drain to host memory in one copy. :meth:`commit` drains and returns
+    the rows since the last commit, the next checkpoint chunk, and starts
+    the next; :meth:`table` returns every row, each exactly once.
     """
 
     def __init__(self, host_chunks: list[np.ndarray] | None = None, flushed_rows: int = 0):
@@ -105,14 +106,14 @@ class EmbedSink:
                 self.since_commit.append(torch.cat(self.pending).to("cpu", torch.float32).numpy())
             self.pending, self.pending_bytes = [], 0
 
-    def commit(self, directory, next_start: int):
-        """Persist the rows since the last commit; ``next_start`` is the row after them."""
+    def commit(self, next_start: int) -> tuple[int, np.ndarray]:
+        """``(first row, rows)`` since the last commit; ``next_start`` is the row after them."""
         self.drain()
-        chunk = np.concatenate(self.since_commit, axis=0)
-        CollectEngine._store_embed_chunk(directory, self.flushed_rows, chunk)
+        first, chunk = self.flushed_rows, np.concatenate(self.since_commit, axis=0)
         self.host_chunks.append(chunk)
         self.since_commit = []
         self.flushed_rows = next_start
+        return first, chunk
 
     def table(self, n: int) -> np.ndarray:
         self.drain()
@@ -168,18 +169,20 @@ class CollectEngine:
         return {name: self.aggregation_fn(taps[name]).to(torch.float32) for name in self.layer_names}
 
     def infer_n_latents(self, params, dataset) -> dict[str, int]:
-        """Per-layer component counts from a one-image forward."""
+        """Per-layer component counts from a one-image forward (:meth:`sentinel_states`)."""
         probe = torch.from_numpy(np.ascontiguousarray(get_image(dataset, 0)[None])).to(self.device)
         with torch.inference_mode():
             aggs = self._aggregate(params, probe)
         return {name: int(a.shape[-1]) for name, a in aggs.items()}
 
     def _step(self, states, params, images, start: int, n_total: int):
-        """Forward, aggregate, mask padding to −inf, merge into the top-k."""
+        """Forward, aggregate, mask padding to −inf, merge into the top-k (``states`` None: sized from this batch)."""
         b = images.shape[0]
         sample_ids = start + torch.arange(b, dtype=torch.int32, device=self.device)
         valid = (sample_ids < n_total)[:, None]
         aggs = self._aggregate(params, images)
+        if states is None:
+            states = self._init_states({name: int(a.shape[-1]) for name, a in aggs.items()})
         with span("collect.topk", self.device):
             return {
                 name: topk_update(states[name], torch.where(valid, aggs[name], -torch.inf), sample_ids)
@@ -196,14 +199,18 @@ class CollectEngine:
                 "sweep into sub-2^31 shards (id_offset keeps ids global)"
             )
 
-    def _check_batch(self, batch_size: int):
-        if batch_size % self.n_shards:
-            raise ValueError(f"batch_size {batch_size} must be divisible by data-parallel degree {self.n_shards}")
-
-    def _init_states(self, params, dataset):
+    def _init_states(self, n_latents: dict[str, int]):
         with span("collect.init"):
-            n_latents = self.infer_n_latents(params, dataset)
             return {name: init_topk(c, self.n_collect, self.device) for name, c in n_latents.items()}
+
+    def sentinel_states(self, params, dataset) -> dict[str, TopKState]:
+        """Full-shape (C, k) states of sentinels, sized by a one-image forward of ``dataset``.
+
+        For a process of a multi-process sweep whose shard is empty: it
+        sweeps nothing, yet contributes states of every other process's
+        shape to the all-gather.
+        """
+        return self._init_states(self.infer_n_latents(params, dataset))
 
     def _gather_states(self, states):
         """Every data rank's states stacked to (W, C, k) values and ids."""
@@ -216,44 +223,46 @@ class CollectEngine:
             return states
         return {name: topk_merge(st) for name, st in self._gather_states(states).items()}
 
-    def _batches(self, dataset, batch_size: int, start_index: int):
-        return device_prefetch_batches(
-            iter_batches(dataset, batch_size, start_index=start_index, part=(self.shard, self.n_shards)), self.device
-        )
-
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, directory, states, next_start: int):
         """Persist the running top-k states; a resumed sweep starts at ``next_start``.
 
-        ``progress.json`` is written last: it commits the state files. Under
-        a data mesh every rank calls this: the states are gathered to
-        (W, C, k), global rank 0 writes, and all ranks meet at a barrier.
+        ``progress.json`` is written last: it commits the state files and
+        any embedding chunk written before it. ``states`` None (an embed-only
+        sweep): ``progress.json`` holds ``next_start`` alone. Under a data
+        mesh every rank calls this: the states are gathered to (W, C, k),
+        global rank 0 writes, and all ranks meet at a barrier.
         """
-        if self.n_shards > 1:
+        if states is not None and self.n_shards > 1:
             states = self._gather_states(states)
         if is_writer(self.mesh):
             directory = Path(directory)
             directory.mkdir(parents=True, exist_ok=True)
-            for name, st in states.items():
-                safetensors_io.save_file({"values": st.values.to(torch.bfloat16), "ids": st.ids.to(torch.int32)},
-                                         directory / f"state-{name}.safetensors")
-            (directory / "progress.json").write_text(
-                json.dumps({"next_start": int(next_start), "layers": list(states)})
-            )
+            progress = {"next_start": int(next_start)}
+            if states is not None:
+                for name, st in states.items():
+                    safetensors_io.save_file({"values": st.values.to(torch.bfloat16), "ids": st.ids.to(torch.int32)},
+                                             directory / f"state-{name}.safetensors")
+                progress["layers"] = list(states)
+            (directory / "progress.json").write_text(json.dumps(progress))
         if self.mesh is not None:
             barrier()
 
     def load_checkpoint(self, directory):
         """``(states on the engine's device, next_start)``, or None without a checkpoint.
 
-        Under a data mesh of ``W`` ranks the files hold (W, C, k) states
-        (either package's meshed layout) and each rank takes its own.
+        The states are None where ``progress.json`` names no layers (an
+        embed-only sweep's). Under a data mesh of ``W`` ranks the files hold
+        (W, C, k) states (either package's meshed layout) and each rank
+        takes its own.
         """
         directory = Path(directory)
         progress = directory / "progress.json"
         if not progress.exists():
             return None
         meta = json.loads(progress.read_text())
+        if "layers" not in meta:
+            return None, int(meta["next_start"])
         states = {}
         for name in meta["layers"]:
             t = safetensors_io.load_file(directory / f"state-{name}.safetensors")
@@ -323,11 +332,49 @@ class CollectEngine:
         except OSError:
             pass  # other files are there: leave the directory
 
-    @staticmethod
-    def _due(checkpoint_dir, checkpoint_every: int, batches_done: int) -> bool:
-        return checkpoint_dir is not None and checkpoint_every > 0 and batches_done % checkpoint_every == 0
-
     # -------------------------------------------------------------------- run
+    def _sweep(self, dataset, batch_size: int, device, *, host_thread: bool = False, collect: bool = True,
+               params=None, embed_fn: Callable | None = None, id_offset: int = 0, checkpoint_dir=None,
+               checkpoint_every: int = 0):
+        """The batch loop of every sweep; returns ``(final states or None, EmbedSink or None)``.
+
+        This rank's rows of each batch go to ``device`` (read on a host thread
+        with ``host_thread``), step the top-k states with ``collect`` and feed
+        ``embed_fn``'s rows (all-gathered under a data mesh) to an
+        :class:`EmbedSink`; every ``checkpoint_every`` batches both commit.
+        """
+        n = len(dataset)
+        if collect:
+            self._check_id_range(n, id_offset)
+        loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
+        states, resume_start = loaded if loaded is not None else (None, 0)
+        if loaded is not None:
+            if collect and states is None:
+                raise ValueError(f"checkpoint {checkpoint_dir} holds no top-k states to resume a Collect sweep")
+            logger.info("Resuming sweep from sample %d", resume_start)
+        sink = None
+        if embed_fn is not None:
+            sink = EmbedSink(self._load_embed_chunks(checkpoint_dir, resume_start) if loaded else [], resume_start)
+        # iter_batches refuses a batch size the data-parallel degree does not divide
+        rows = iter_batches(dataset, batch_size, start_index=resume_start, part=(self.shard, self.n_shards))
+        batches_done = 0
+        with torch.inference_mode():
+            for images, start, _ in device_prefetch_batches(prefetch_batches(rows) if host_thread else rows, device):
+                if collect:
+                    states = self._step(states, params, images, start + id_offset, n + id_offset)
+                if sink is not None:
+                    emb = embed_fn(images)
+                    sink.add(emb if self.n_shards == 1 else all_gather(emb, self.group).flatten(0, 1))
+                batches_done += 1
+                if checkpoint_dir is not None and checkpoint_every > 0 and batches_done % checkpoint_every == 0:
+                    next_start = start - self.shard * (batch_size // self.n_shards) + batch_size  # the next batch
+                    if sink is not None:
+                        first, chunk = sink.commit(next_start)
+                        if is_writer(self.mesh):
+                            self._store_embed_chunk(checkpoint_dir, first, chunk)
+                    self.save_checkpoint(checkpoint_dir, states, next_start)
+            return (self._finalize(states) if collect else None), sink
+
     def run(self, params, dataset, batch_size: int, *, checkpoint_dir=None, checkpoint_every: int = 0,
             id_offset: int = 0):
         """Stream the dataset; returns ``({layer: TopKState}, n_samples)``.
@@ -339,26 +386,9 @@ class CollectEngine:
         n = len(dataset)
         if n == 0:
             return {name: init_topk(1, self.n_collect, self.device) for name in self.layer_names}, 0
-        self._check_batch(batch_size)
-        self._check_id_range(n, id_offset)
-        loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
-        if loaded is not None:
-            states, resume_start = loaded
-            logger.info("Resuming collect sweep from sample %d", resume_start)
-        else:
-            states, resume_start = self._init_states(params, dataset), 0
-        batches_done = 0
-        with torch.inference_mode():
-            for images, start, _ in self._batches(dataset, batch_size, resume_start):
-                states = self._step(states, params, images, start + id_offset, n + id_offset)
-                batches_done += 1
-                if self._due(checkpoint_dir, checkpoint_every, batches_done):
-                    self.save_checkpoint(checkpoint_dir, states, self._next_start(start, batch_size))
-            return self._finalize(states), n
-
-    def _next_start(self, start: int, batch_size: int) -> int:
-        """The global batch after the one whose rank-local first row is ``start``."""
-        return start - self.shard * (batch_size // self.n_shards) + batch_size
+        states, _ = self._sweep(dataset, batch_size, self.device, params=params, id_offset=id_offset,
+                                checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+        return states, n
 
     def run_fused(
         self,
@@ -390,30 +420,23 @@ class CollectEngine:
         if n == 0:
             states = {name: init_topk(1, self.n_collect, self.device) for name in self.layer_names}
             return states, np.zeros((0, 1), np.float32), 0
-        self._check_batch(batch_size)
-        self._check_id_range(n, id_offset)
-        loaded = self.load_checkpoint(checkpoint_dir) if checkpoint_dir is not None else None
-        if loaded is not None:
-            states, resume_start = loaded
-            sink = EmbedSink(self._load_embed_chunks(checkpoint_dir, resume_start), resume_start)
-            logger.info("Resuming fused sweep from sample %d", resume_start)
-        else:
-            states, resume_start, sink = self._init_states(params, dataset), 0, EmbedSink()
-        batches_done = 0
-        with torch.inference_mode():
-            for images, start, _ in self._batches(dataset, batch_size, resume_start):
-                states = self._step(states, params, images, start + id_offset, n + id_offset)
-                emb = embed_fn(images)
-                sink.add(emb if self.n_shards == 1 else all_gather(emb, self.group).flatten(0, 1))
-                batches_done += 1
-                if self._due(checkpoint_dir, checkpoint_every, batches_done):
-                    next_start = self._next_start(start, batch_size)
-                    if is_writer(self.mesh):
-                        sink.commit(checkpoint_dir, next_start)
-                    else:
-                        sink.drain()
-                    self.save_checkpoint(checkpoint_dir, states, next_start)
-            return self._finalize(states), sink.table(n), n
+        states, sink = self._sweep(dataset, batch_size, self.device, params=params, embed_fn=embed_fn,
+                                   id_offset=id_offset, checkpoint_dir=checkpoint_dir,
+                                   checkpoint_every=checkpoint_every)
+        return states, sink.table(n), n
+
+    def run_embed(self, dataset, batch_size: int, embed_fn: Callable, *, device, checkpoint_dir=None,
+                  checkpoint_every: int = 0) -> np.ndarray:
+        """Embed-only sweep: every sample of ``dataset`` once → (N, D) float32 numpy.
+
+        ``embed_fn(raw_device_batch) -> (B, D)`` runs on ``device`` (the
+        foundation model's), batches read on a host thread ahead of the
+        upload. Rows drain, checkpoint (``progress.json`` holding
+        ``next_start`` alone) and all-gather under a mesh as in :meth:`run_fused`.
+        """
+        _, sink = self._sweep(dataset, batch_size, device, host_thread=True, collect=False, embed_fn=embed_fn,
+                              checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+        return sink.table(len(dataset))
 
 
 __all__ = ["CollectEngine", "TopKState"]

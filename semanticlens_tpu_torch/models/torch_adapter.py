@@ -32,9 +32,9 @@ raises ``NotImplementedError`` naming the targeted modules, as the JAX
 adapter does: its host callback cannot feed rewrites back. Here a forward
 hook that returns a modified output could rewrite the activation, but the
 JAX package refuses instead, and the port adds no capability the JAX
-package lacks. The engine sizes its states from a one-image forward
-(``CollectEngine.infer_n_latents``), so the JAX adapter's shape probe
-``_result_shapes`` has no counterpart.
+package lacks. The engine sizes its states from the first batch's
+aggregates, so the JAX adapter's shape probe ``_result_shapes`` has no
+counterpart.
 """
 
 from __future__ import annotations

@@ -68,8 +68,8 @@ def local_shard_sweep(engine, params, dataset, batch_size: int, start: int, stop
     shaped tensors to the all-gather, and ``engine.run``'s empty-dataset
     early return is a (1, k) placeholder.
     """
-    if stop == start:  # sentinel states, the components counted on one real image of the dataset
-        return engine._init_states(params, dataset), 0
+    if stop == start:
+        return engine.sentinel_states(params, dataset), 0
     states, seen = engine.run(params, Subset(dataset, start, stop), batch_size, id_offset=start, **run_kwargs)
     if seen != stop - start:
         raise RuntimeError(f"process swept {seen} samples, its shard holds {stop - start}")
@@ -135,7 +135,7 @@ def fused_multihost(engine, params, dataset, batch_size: int, embed_fn, **run_kw
     rank, world = _world()
     logger.info("process %d/%d fused sweep over shard [%d, %d) of %d", rank, world, start, stop, n)
     if stop == start:
-        states = engine._init_states(params, dataset)
+        states = engine.sentinel_states(params, dataset)
         with torch.inference_mode():
             probe = torch.from_numpy(np.ascontiguousarray(get_image(dataset, 0)[None])).to(engine.device)
             width = int(embed_fn(probe).shape[-1])

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from semanticlens_tpu_torch import Lens
-from semanticlens_tpu_torch.collect import ActivationComponentVisualizer
+from semanticlens_tpu_torch.collect import ActivationComponentVisualizer, CollectEngine
 from semanticlens_tpu_torch.data import ArrayDataset
 from semanticlens_tpu_torch.foundation_models import clip as tclip
 from semanticlens_tpu_torch.models import ResNet
@@ -132,7 +132,7 @@ def test_a_sweep_records_its_spans_and_batches(tracer, path):
     assert spans["fm.load"]["calls"] == 1
     assert spans["collect.init"]["calls"] == 1
     assert spans["collect.upload"]["calls"] == spans["collect.topk"]["calls"] == batches
-    assert spans["collect.forward"]["calls"] == spans["collect.preprocess"]["calls"] == batches + 1  # + the probe
+    assert spans["collect.forward"]["calls"] == spans["collect.preprocess"]["calls"] == batches
     if path == "fused":
         assert SWEEP_SPANS <= set(spans)
         assert spans["embed.encode"]["calls"] == spans["embed.preprocess"]["calls"] == batches
@@ -142,6 +142,29 @@ def test_a_sweep_records_its_spans_and_batches(tracer, path):
     for name, s in spans.items():
         assert s["host_ms"] > 0 and len(s["recent_host_ms"]) == s["calls"], name
         assert s["device_ms"] is None and s["recent_device_ms"] == [], name  # no CUDA events on the CPU
+
+
+@pytest.mark.parametrize("sweep", ["collect", "fused", "embed"])
+def test_each_sweep_is_the_engine_loop_with_one_forward_a_batch(tracer, monkeypatch, sweep):
+    """The Collect, fused and embed-only sweeps all run ``CollectEngine._sweep``, and each runs its subject
+    and/or FM forward once a batch and no other: the top-k states are sized from the first batch."""
+    images = np.random.default_rng(3).integers(0, 256, size=(N_IMAGES, 40, 48, 3), dtype=np.uint8)
+    cv, lens = _sweep_objects(images)
+    loops, loop = [], CollectEngine._sweep
+    monkeypatch.setattr(CollectEngine, "_sweep", lambda self, *a, **k: loops.append(self) or loop(self, *a, **k))
+    if sweep == "collect":
+        cv.run(batch_size=BATCH)
+    elif sweep == "fused":
+        lens.compute_concept_db(cv, batch_size=BATCH)
+    else:
+        assert cv._embed_vision_dataset(lens.fm, BATCH, checkpoint=0).shape == (N_IMAGES, TINY_CLIP.embed_dim)
+    batches, subject, fm = -(-N_IMAGES // BATCH), sweep != "embed", sweep != "collect"
+    spans = snapshot()["spans"]
+    calls = {name: spans.get(name, {}).get("calls", 0)
+             for name in ("collect.upload", "collect.init", "collect.forward", "embed.encode")}
+    assert calls == {"collect.upload": batches, "collect.init": int(subject), "collect.forward": batches * subject,
+                     "embed.encode": batches * fm}
+    assert loops == [cv.engine]
 
 
 def test_a_chunked_search_records_each_chunk(tracer):
