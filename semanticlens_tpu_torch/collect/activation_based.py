@@ -41,13 +41,34 @@ from semanticlens_tpu_torch.data.dataset import _extract_image
 from semanticlens_tpu_torch.models.base import SubjectModel, validate_layers
 from semanticlens_tpu_torch.ops import aggregators
 from semanticlens_tpu_torch.utils.helper import get_fallback_name
-from semanticlens_tpu_torch.utils.profiling import span
+from semanticlens_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
 
 class MissingNameWarning(UserWarning):
     """Raised when a model/dataset lacks the ``.name`` needed for stable caching."""
+
+
+def gather_concept_db(table: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """The concept DB of one layer: (C, k, D) rows of the (N, D) embedding ``table`` at the (C, k) ``ids``.
+
+    Equal to ``table[ids]`` with the rows of the sentinel slots (``ids < 0``)
+    zero, in one pass: the table gains one zero row, the sentinels point at
+    it, and ``torch.index_select`` copies every (component, sample) row once,
+    split over torch's intra-op threads, into an array numpy allocated and
+    the caller owns. An id at or past N raises numpy's IndexError, as does
+    any slot over an empty table (an empty dataset leaves only sentinels).
+    """
+    n, d = table.shape
+    if ids.size and max(int(ids.max()), 0) >= n:
+        raise IndexError(f"index {int(ids.max())} is out of bounds for axis 0 with size {n}")
+    padded = torch.from_numpy(table)
+    padded = torch.cat([padded, padded.new_zeros(1, d)])
+    rows = torch.as_tensor(ids.reshape(-1), dtype=torch.int64)
+    out = np.empty((*ids.shape, d), table.dtype)
+    torch.index_select(padded, 0, rows.masked_fill(rows < 0, n), out=torch.from_numpy(out).view(ids.size, d))
+    return out
 
 
 class ActivationComponentVisualizer(AbstractComponentVisualizer):
@@ -232,9 +253,8 @@ class ActivationComponentVisualizer(AbstractComponentVisualizer):
         concept_db = {}
         with span("concept_db.gather"):
             for layer_name in self.layer_names:
-                ids = self.get_max_reference(layer_name)
-                db = embeds[ids]
-                db[ids < 0] = 0.0
+                db = gather_concept_db(embeds, self.get_max_reference(layer_name))
+                count("concept_db.bytes", db.nbytes)
                 concept_db[layer_name] = db
         return concept_db
 

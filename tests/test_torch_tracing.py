@@ -125,7 +125,8 @@ def test_a_sweep_records_its_spans_and_batches(tracer, path):
     cv, lens = _sweep_objects(images)
     batches = -(-N_IMAGES // BATCH)
     if path == "fused":
-        lens.compute_concept_db(cv, batch_size=BATCH)
+        db = lens.compute_concept_db(cv, batch_size=BATCH)
+        assert counters()["concept_db.bytes"] == sum(v.nbytes for v in db.values())
     else:
         cv.run(batch_size=BATCH)
     spans = snapshot()["spans"]
