@@ -38,6 +38,19 @@ Phases (any failing check raises; the exit code is then non-zero):
    ``library_ms``; then one forward of DeepSeek-V2-Lite at full width cut to
    ``MOE_FORWARD``'s depth on 16 × 512 tokens, one ``moe.combine.kernel`` per
    MoE layer (the count the ``kernels`` line gives the kernel);
+2d. kda — the KDA recurrence kernel (``csrc/kda.cu``) through
+   ``ops/kda.recurrence`` at ``KDA``'s shapes (Kimi Linear's text sweep, 4 ×
+   2,048 tokens × 32 heads of 128; one (sequence, head) of 37 tokens; a
+   float32 case of 301 tokens): the largest error against the plain
+   float32 token loop over every token of each case, in units of the
+   output's scale, one ``kda.kernel`` a
+   call; at the first shape its device time warm and cold (CUDA-graph
+   replay), the host time, the plain loop's time, and the least time
+   (7·d² operations a token-head at the bf16 peak, or 2·(5·d + 1) bytes at
+   the HBM rate) with its share; then one forward of Kimi Linear at full
+   width, cut to ``KDA_FORWARD``'s depth (three KDA layers and one MLA, 128
+   of 256 experts held) on 4 × 2,048 tokens, one ``kda.kernel`` per KDA
+   layer and one ``moe.combine.kernel`` per MoE layer;
 3. reference — the slice at full model width on 16 images in float32 on the
    card, held against the same code on the CPU (plain kernel versions);
 4. quickstart — the README quickstart through the port's entry points at
@@ -326,6 +339,7 @@ from semanticlens_tpu_torch.utils.flops import H100_SXM  # noqa: E402
 
 # H100 SXM data-sheet rates (dense, utils/flops.py): fp32 outside the tensor
 # cores, TF32 and int8 on the tensor cores, HBM3.
+PEAK_BF16_FLOPS = H100_SXM["bf16"]
 PEAK_FP32_FLOPS = H100_SXM["fp32"]
 PEAK_TF32_FLOPS = H100_SXM["tf32"]
 PEAK_INT8_OPS = H100_SXM["int8"]
@@ -345,6 +359,13 @@ MOE = {"textsweep": (8192, 6, 64, 2048, "top-k"), "ragged": (37, 2, 8, 5120, "to
        "one_expert": (512, 6, 64, 2048, "one expert")}
 # [moe]'s model forward: DeepSeek-V2-Lite at full width cut to one dense and three MoE layers, on (B, T) tokens
 MOE_FORWARD = {"depth": 4, "tokens": (16, 512)}
+# [kda] shapes (B, T, heads, head size, dtype): Kimi Linear's text sweep, one (sequence, head) of a length that is
+# not a multiple of the kernel's 16-token stage, and float32 operands (the kernel's arithmetic unrounded).
+KDA = {"textsweep": (4, 2048, 32, 128, torch.bfloat16), "one_chain": (1, 37, 1, 128, torch.bfloat16),
+       "float32": (3, 301, 5, 128, torch.float32)}
+# [kda]'s model forward: Kimi Linear at full width cut to three KDA layers and one MLA (the published period), 128 of
+# 256 experts held, on (B, T) tokens
+KDA_FORWARD = {"depth": 4, "full_attn_layers": (4,), "held_experts": range(128), "tokens": (4, 2048)}
 # SHA-256 of K1's output bytes for x = default_rng(0).standard_normal((2048, 512), float32) against itself,
 # as the tree before K1b computed it (NVIDIA H100 80GB HBM3): K1b left the tiled kernel's output unchanged.
 K1_REDUNDANCY_SHA256 = "314c7cb8770192c1b5339236dc7f903c6fc2fa18235f52b308fddcd2a638c6c1"
@@ -1132,6 +1153,111 @@ def phase_moe(dev) -> dict:
         torch.cuda.empty_cache()
     out["forward"] = moe_forward_launches(dev)
     log(f"[moe] forward: {json.dumps(out['forward'])}")
+    return out
+
+
+def kda_inputs(dev, b, t, h, d, dtype, seed: int = 27):
+    """(q, k, v, g, beta) as Kimi Linear's KDA layer hands them over: q and k unit-normed (q scaled by d^-½), v
+    random, the log decays −A · softplus(f − 4.6) (softplus about 0.01, HF's initial range), beta in (0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def unit(z):
+        return z * torch.rsqrt(z.square().sum(-1, keepdim=True))
+
+    q = (unit(torch.randn(b, t, h, d, generator=gen, device=dev)) * d**-0.5).to(dtype)
+    k = unit(torch.randn(b, t, h, d, generator=gen, device=dev)).to(dtype)
+    v = torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+    g = -3.0 * torch.nn.functional.softplus(torch.randn(b, t, h, d, generator=gen, device=dev) - 4.6)
+    return q, k, v, g, torch.rand(b, t, h, generator=gen, device=dev)
+
+
+def kda_forward_launches(dev) -> dict:
+    """One forward of Kimi Linear at full width, cut to ``KDA_FORWARD``'s depth, holding its experts, on the text
+    sweep's 4 × 2,048 tokens: one ``kda.kernel`` launch per KDA layer and one ``moe.combine.kernel`` per MoE layer,
+    read from the forward's own run."""
+    from semanticlens_tpu_torch.models import KimiLinear
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    kw = dict(KimiLinear._HF_VARIANTS["kimi-linear-48b-a3b"], depth=KDA_FORWARD["depth"],
+              full_attn_layers=KDA_FORWARD["full_attn_layers"])
+    model = KimiLinear(**kw, held_experts=KDA_FORWARD["held_experts"], dtype=torch.bfloat16, device=dev)
+    params = model.init(0, device_draw=True)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    toks = torch.randint(0, model.vocab_size, KDA_FORWARD["tokens"], generator=gen, device=dev, dtype=torch.int32)
+    kda_layers = sum(not model.is_mla(i) for i in range(model.depth))
+    moe_layers = sum(model.is_moe(i) for i in range(model.depth))
+    with torch.no_grad():
+        model.apply(params, toks)  # the build and the first launches
+        reset("kda.kernel", "moe.combine.kernel")
+        logits, _ = model.apply(params, toks)
+        torch.cuda.synchronize()
+    got = counters()
+    row = {"depth": model.depth, "tokens": list(KDA_FORWARD["tokens"]), "kda_layers": kda_layers,
+           "kda_launches": got.get("kda.kernel", 0), "moe_layers": moe_layers,
+           "combine_launches": got.get("moe.combine.kernel", 0), "logits_finite": bool(torch.isfinite(logits).all())}
+    del model, params, logits
+    torch.cuda.empty_cache()
+    if (row["kda_launches"], row["combine_launches"]) != (kda_layers, moe_layers) or not row["logits_finite"]:
+        raise AssertionError(f"[kda] forward: {json.dumps(row)}: not one kernel per KDA and per MoE layer")
+    return row
+
+
+def kda_kernel_entry(rows: dict) -> dict:
+    """The recurrence kernel's row of the ``kernels`` line from :func:`phase_kda`'s rows: the launches of the model
+    forward and the times at the text sweep's shape."""
+    return {"name": "kda_recurrence", "route": "cuda", "source": "semanticlens_tpu_torch/csrc/kda.cu",
+            "replaces": None, "launches": rows["forward"]["kda_launches"],
+            "launches_by_path": {"kimi_linear_forward": rows["forward"]["kda_launches"]},
+            **{key: rows["textsweep"][key] for key in (
+                "shape", "max_err_over_scale", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                "device_ms_cold_l2", "share_of_bound_cold_l2")}}
+
+
+def phase_kda(dev) -> dict:
+    """The KDA recurrence kernel against its plain version at ``KDA``'s shapes, one ``kda.kernel`` a call; at the
+    text sweep's shape its device time warm and cold (CUDA-graph replay), the host time, the plain loop's time and
+    the least time; then the cut model's forward."""
+    from semanticlens_tpu_torch.ops import kda
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    out = {}
+    for name, (b, t, h, d, dtype) in KDA.items():
+        inputs = kda_inputs(dev, b, t, h, d, dtype)
+        call = functools.partial(kda.recurrence, *inputs)
+        call()  # the build and the first launch
+        reset("kda.kernel")
+        got = call()
+        torch.cuda.synchronize()
+        if counters().get("kda.kernel") != 1:
+            raise AssertionError(f"[kda] {name}: {counters().get('kda.kernel')} kernel launches for one call")
+        t0 = time.perf_counter()
+        want = kda.recurrence_plain(*inputs).float()  # every token: the state carried over the whole sequence
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = float((got.float() - want).abs().max() / want.abs().max())
+        tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5  # one bf16 rounding of the output; float32 sums
+        if not err <= tol:
+            raise AssertionError(f"[kda] {name}: error {err:.3g} of the output's scale, above {tol:.3g}")
+        row = {"shape": [b, t, h, d], "dtype": str(dtype).removeprefix("torch."), "max_err_over_scale": err}
+        if name == "textsweep":
+            token_heads = b * t * h
+            ops_s, bytes_s = 7 * d * d * token_heads / PEAK_BF16_FLOPS, 2 * (5 * d + 1) * token_heads / PEAK_BYTES_PER_S
+            cold = [inputs, tuple(x.clone() for x in inputs)]  # each copy past the L2
+            row.update({
+                "device_ms": graph_ms(lambda *x: kda.recurrence(*x), [inputs]),
+                "device_ms_cold_l2": graph_ms(lambda *x: kda.recurrence(*x), cold),
+                "ms": time_ms(call, iters=5, warmup=1),
+                "plain_ms": 1e3 * plain_s,
+                "bound_ms": 1e3 * max(ops_s, bytes_s), "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            })
+            row["share_of_bound_cold_l2"] = row["bound_ms"] / row["device_ms_cold_l2"]
+            del cold
+        out[name] = row
+        log(f"[kda] {name}: {json.dumps(row)}")
+        del inputs, got, want
+        torch.cuda.empty_cache()
+    out["forward"] = kda_forward_launches(dev)
+    log(f"[kda] forward: {json.dumps(out['forward'])}")
     return out
 
 
@@ -5533,6 +5659,8 @@ def main():
     done("k1b")
     moe_rows = phase_moe(dev)
     done("moe")
+    kda_rows = phase_kda(dev)
+    done("kda")
     phase_reference(dev)
     done("reference")
     shapes = set()
@@ -5616,7 +5744,7 @@ def main():
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
                                                   "at_d768": at_shape("probe 8x3072x768"),
                                                   "at_sae": at_shape("probe 8x8192x512")},
-        moe_kernel_entry(moe_rows)]}
+        moe_kernel_entry(moe_rows), kda_kernel_entry(kda_rows)]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -11,7 +11,10 @@
 //     out[t, :] = round(sum_{s = 0..k-1} w[t*k + s] * float(y[pos[t*k + s], :]))
 // summed in float32 in slot order (each product rounded, then added: no FMA
 // contraction), rounded once to the output type, as HF's moe_infer does
-// (.type(float32).mul_(w).sum(dim=1).type(bf16)).
+// (.type(float32).mul_(w).sum(dim=1).type(bf16)). Where the layer holds only
+// some experts (expert parallelism), the absent experts' pairs sit at sorted
+// rows from *limit on, never computed: such a slot adds nothing (its weight
+// and row taken as 0, its row not read).
 //
 // What bounds it: bytes. At 8,192 tokens, k = 6, h = 2,048 (bf16) it reads
 // each of the P = 49,152 rows once (201 MB), the positions and weights (0.4
@@ -87,12 +90,14 @@ struct Chunk<float> {
 // K > 0: k == K, the slots unrolled; K == 0: any k, in groups of kGroup.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) moe_combine_kernel(const T* __restrict__ y, const int* __restrict__ pos,
-                                                               const float* __restrict__ w, T* __restrict__ out,
+                                                               const float* __restrict__ w,
+                                                               const int* __restrict__ limit, T* __restrict__ out,
                                                                int n, int k, int h) {
   using C = Chunk<T>;
   constexpr int G = K > 0 ? K : kGroup;
   const int slots = K > 0 ? K : k;
   const int chunks = h / C::kVec;
+  const int held = __ldg(limit);  // rows from it on: absent experts' pairs
   const uint4* rows = reinterpret_cast<const uint4*>(y);
   for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y; t < n;
        t += static_cast<int64_t>(gridDim.x) * blockDim.y) {
@@ -109,8 +114,10 @@ __global__ void __launch_bounds__(kThreads) moe_combine_kernel(const T* __restri
 #pragma unroll
         for (int j = 0; j < G; ++j) {
           if (K > 0 || s0 + j < slots) {
-            ws[j] = __ldg(tw + s0 + j);
-            v[j] = __ldg(rows + static_cast<int64_t>(__ldg(tp + s0 + j)) * chunks + c);
+            const int p = __ldg(tp + s0 + j);
+            const bool kept = p < held;
+            ws[j] = kept ? __ldg(tw + s0 + j) : 0.0f;
+            v[j] = kept ? __ldg(rows + static_cast<int64_t>(p) * chunks + c) : make_uint4(0, 0, 0, 0);
           }
         }
 #pragma unroll
@@ -129,7 +136,8 @@ __global__ void __launch_bounds__(kThreads) moe_combine_kernel(const T* __restri
 }
 
 template <typename T, int K>
-int launch(const void* y, const int* pos, const float* w, void* out, int n, int k, int h, cudaStream_t stream) {
+int launch(const void* y, const int* pos, const float* w, const int* limit, void* out, int n, int k, int h,
+           cudaStream_t stream) {
   static int blocks_per_sm = 0;
   if (blocks_per_sm == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, moe_combine_kernel<T, K>,
@@ -146,18 +154,19 @@ int launch(const void* y, const int* pos, const float* w, void* out, int n, int 
   const int grid = static_cast<int>(
       std::min<int64_t>((static_cast<int64_t>(n) + tokens - 1) / tokens, static_cast<int64_t>(sms) * blocks_per_sm));
   moe_combine_kernel<T, K><<<grid, dim3(lanes, tokens), 0, stream>>>(
-      static_cast<const T*>(y), pos, w, static_cast<T*>(out), n, k, h);
+      static_cast<const T*>(y), pos, w, limit, static_cast<T*>(out), n, k, h);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_k(const void* y, const int* pos, const float* w, void* out, int n, int k, int h, cudaStream_t stream) {
+int launch_k(const void* y, const int* pos, const float* w, const int* limit, void* out, int n, int k, int h,
+             cudaStream_t stream) {
   switch (k) {
 #define MOE_K(KK) \
-  case KK: return launch<T, KK>(y, pos, w, out, n, k, h, stream);
+  case KK: return launch<T, KK>(y, pos, w, limit, out, n, k, h, stream);
     MOE_K(1) MOE_K(2) MOE_K(3) MOE_K(4) MOE_K(5) MOE_K(6) MOE_K(7) MOE_K(8)
 #undef MOE_K
-    default: return launch<T, 0>(y, pos, w, out, n, k, h, stream);
+    default: return launch<T, 0>(y, pos, w, limit, out, n, k, h, stream);
   }
 }
 
@@ -166,16 +175,19 @@ int launch_k(const void* y, const int* pos, const float* w, void* out, int n, in
 // y (n * k, h) and out (n, h) of one element type (dtype 0: bf16, the
 // model's; 1: float32, lm_audit's float32 subject), contiguous and 16-byte
 // aligned, h a multiple of 8; pos (n * k)
-// int32, each in [0, n * k); w (n, k) float32, contiguous. Launches on
-// `stream` and returns 0, a cudaError_t, or a negative code of this file.
-extern "C" int moe_combine(const void* y, const int* pos, const float* w, void* out, int n, int k, int h, int dtype,
-                           cudaStream_t stream) {
+// int32, each in [0, n * k); w (n, k) float32, contiguous; limit one int32
+// on the device (n * k where every expert is held): slots whose pos is at or
+// past it add nothing.
+// Launches on `stream` and returns 0, a cudaError_t, or a negative code of
+// this file.
+extern "C" int moe_combine(const void* y, const int* pos, const float* w, const int* limit, void* out, int n, int k,
+                           int h, int dtype, cudaStream_t stream) {
   if (n < 0 || k < 1 || h < 0 || h % 8 != 0) return kErrShape;
   if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) return kErrAlign;
   if (n == 0 || h == 0) return 0;
   switch (dtype) {
-    case 0: return launch_k<__nv_bfloat16>(y, pos, w, out, n, k, h, stream);
-    case 1: return launch_k<float>(y, pos, w, out, n, k, h, stream);
+    case 0: return launch_k<__nv_bfloat16>(y, pos, w, limit, out, n, k, h, stream);
+    case 1: return launch_k<float>(y, pos, w, limit, out, n, k, h, stream);
     default: return kErrDtype;
   }
 }

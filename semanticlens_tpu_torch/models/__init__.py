@@ -17,6 +17,7 @@ from semanticlens_tpu_torch.models.efficientnet import EfficientNet, EfficientNe
 from semanticlens_tpu_torch.models.gemma import Gemma, Gemma2
 from semanticlens_tpu_torch.models.gpt import GPT2
 from semanticlens_tpu_torch.models.inception import GoogLeNet, InceptionV3
+from semanticlens_tpu_torch.models.kimi_linear import KimiLinear
 from semanticlens_tpu_torch.models.llama import Llama, Qwen2
 from semanticlens_tpu_torch.models.maxvit import MaxViT
 from semanticlens_tpu_torch.models.mnasnet import MNASNet
@@ -31,7 +32,7 @@ from semanticlens_tpu_torch.models.vgg import VGG
 from semanticlens_tpu_torch.models.vit import VisionTransformer
 
 __all__ = ["AlexNet", "ConvNeXt", "DeepseekV2", "DenseNet", "EfficientNet", "EfficientNetV2", "GPT2", "Gemma", "Gemma2",
-           "GoogLeNet", "InceptionV3", "Llama", "MNASNet", "MaxViT", "MobileNetV2", "MobileNetV3", "Phi3", "Qwen2",
-           "RegNet", "ResNet", "ShuffleNetV2", "SqueezeNet", "SubjectModel", "SwinTransformer", "SwinTransformerV2",
-           "TapCollector", "TorchSubjectModel", "VGG", "VisionTransformer", "apply_interventions", "has_intervention",
-           "interventions", "interventions_fingerprint", "validate_layers"]
+           "GoogLeNet", "InceptionV3", "KimiLinear", "Llama", "MNASNet", "MaxViT", "MobileNetV2", "MobileNetV3", "Phi3",
+           "Qwen2", "RegNet", "ResNet", "ShuffleNetV2", "SqueezeNet", "SubjectModel", "SwinTransformer",
+           "SwinTransformerV2", "TapCollector", "TorchSubjectModel", "VGG", "VisionTransformer", "apply_interventions",
+           "has_intervention", "interventions", "interventions_fingerprint", "validate_layers"]

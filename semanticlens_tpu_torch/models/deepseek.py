@@ -14,6 +14,9 @@ blocks, RMSNorm, the causal mask, the head):
   head size ``v_head_dim`` (the SDPA wrapper takes them unequal), scale
   ``(nope + rope)^-0.5 · m²`` with YaRN's ``m = 0.1 · mscale_all_dim ·
   ln(factor) + 1``; then ``o_proj``.
+- **NoPE** (``mla_use_nope``, Kimi Linear's MLA): the rope channels of q
+  and the shared k_pe stay in the projections and the logits, unrotated;
+  no RoPE tables are made.
 - **YaRN** (``rope_scaling`` of type ``yarn``): the inverse frequencies
   blend ``1/(factor · θ^(2j/d))`` and ``1/θ^(2j/d)`` through HF's linear
   ramp between ``yarn_find_correction_range``'s bounds; the tables are
@@ -23,7 +26,14 @@ blocks, RMSNorm, the causal mask, the head):
   ops.moe`): a float32 softmax router over ``n_routed_experts``, the greedy
   top-``experts_per_token``, the routed experts' SwiGLUs as grouped GEMMs,
   their weighted sum, plus ``n_shared_experts`` shared experts as one
-  SwiGLU of width ``n_shared_experts · moe_intermediate``.
+  SwiGLU of width ``n_shared_experts · moe_intermediate``. The router is the
+  :meth:`_route` hook (Kimi Linear's sigmoid rule, ``models/kimi_linear.py``).
+- **Held experts** (``held_experts``, a range of expert ids; all by
+  default): a device of an expert-parallel deployment holds its share of
+  each MoE layer's experts. The layer routes over all
+  ``n_routed_experts`` and computes the held experts' pairs only; the
+  absent experts' part of the sum is left out (what goes on to the next
+  layer is this device's partial result), and nothing stands in for them.
 
 Names follow HF (``model.layers.3.self_attn.kv_b_proj``,
 ``model.layers.3.mlp.experts.5.up_proj`` …): :meth:`load_torch_state_dict`
@@ -33,7 +43,7 @@ takes an HF state dict and stacks each MoE layer's experts into
 them. Taps, named after the module whose output they are: the Llama ones
 where they still mean something (norms, projections, ``self_attn.heads``,
 the dense MLP's), and in MoE layers ``mlp.gate`` (the (B, T, E) router
-scores), ``mlp.experts.act_fn`` ((B, T, E·I), expert-major: ``silu(gate_e
+scores), ``mlp.experts.act_fn`` ((B, T, E·I) over the E held experts, expert-major: ``silu(gate_e
 x)`` of each routed (token, expert) pair, 0 elsewhere, since an expert not
 routed a token computes nothing for it), ``mlp.experts`` (the weighted
 routed sum), ``mlp.shared_experts.*`` and ``mlp``.
@@ -115,8 +125,11 @@ class DeepseekV2(Llama):
     layers), ``moe_layer_freq``, ``kv_lora_rank``, ``qk_nope_head_dim``,
     ``qk_rope_head_dim``, ``v_head_dim``, ``norm_topk_prob`` and
     ``routed_scaling_factor``; ``rope_scaling`` is YaRN's dict (or None for
-    plain RoPE over the rope channels). ``q_lora_rank`` must be None (the
-    query's low-rank path of the larger DeepSeek-V2 is not built).
+    plain RoPE over the rope channels); ``mla_use_nope`` leaves the rope
+    channels unrotated; ``held_experts`` (a range of ids, step 1) names the
+    routed experts this device holds, all by default. ``q_lora_rank`` must
+    be None (the query's low-rank path of the larger DeepSeek-V2 is not
+    built).
     """
 
     _YARN = {"type": "yarn", "factor": 40, "original_max_position_embeddings": 4096, "beta_fast": 32,
@@ -137,11 +150,18 @@ class DeepseekV2(Llama):
                  qk_rope_head_dim: int, v_head_dim: int, first_k_dense: int = 1, moe_layer_freq: int = 1,
                  q_lora_rank: int | None = None, norm_topk_prob: bool = False, routed_scaling_factor: float = 1.0,
                  rope_theta: float = 10000.0, rope_scaling: Mapping | None = None, rms_eps: float = 1e-6,
-                 tie_word_embeddings: bool = False, dtype=torch.bfloat16, pad_id: int | None = None, device=None):
+                 mla_use_nope: bool = False, held_experts: range | None = None, tie_word_embeddings: bool = False,
+                 dtype=torch.bfloat16, pad_id: int | None = None, device=None):
         if q_lora_rank is not None:
             raise NotImplementedError("the query's low-rank path (q_lora_rank) is not built")
         if experts_per_token > n_routed_experts:
             raise ValueError(f"experts_per_token={experts_per_token} exceeds n_routed_experts={n_routed_experts}")
+        held = range(n_routed_experts) if held_experts is None else held_experts
+        if not isinstance(held, range) or held.step != 1 or not held or held.start < 0 or held.stop > n_routed_experts:
+            raise ValueError(f"held_experts must be a non-empty range of step 1 within 0 … {n_routed_experts}, got "
+                             f"{held_experts!r}")
+        self.held_experts = held
+        self.mla_use_nope = mla_use_nope
         self.moe_intermediate = moe_intermediate
         self.n_routed_experts = n_routed_experts
         self.n_shared_experts = n_shared_experts
@@ -173,48 +193,64 @@ class DeepseekV2(Llama):
 
     # ------------------------------------------------------------ names, weights
     def _block_module_names(self, p: str) -> list[str]:
+        return self._attn_module_names(p) + self._mlp_module_names(p)
+
+    def _attn_module_names(self, p: str) -> list[str]:
         a = f"{p}.self_attn"
-        names = [a, f"{a}.q_proj", f"{a}.kv_a_proj_with_mqa", f"{a}.kv_a_layernorm", f"{a}.kv_b_proj",
-                 f"{a}.heads", f"{a}.o_proj", f"{p}.mlp"]
+        return [a, f"{a}.q_proj", f"{a}.kv_a_proj_with_mqa", f"{a}.kv_a_layernorm", f"{a}.kv_b_proj", f"{a}.heads",
+                f"{a}.o_proj"]
+
+    def _mlp_module_names(self, p: str) -> list[str]:
         if not self.is_moe(self._index(p)):
-            return names + [f"{p}.mlp.{n}" for n in ("gate_proj", "up_proj", "act_fn", "down_proj")]
+            return [f"{p}.mlp"] + [f"{p}.mlp.{n}" for n in ("gate_proj", "up_proj", "act_fn", "down_proj")]
         s = f"{p}.mlp.shared_experts"
-        return names + [f"{p}.mlp.gate", f"{p}.mlp.experts", f"{p}.mlp.experts.act_fn", s] + [
+        return [f"{p}.mlp", f"{p}.mlp.gate", f"{p}.mlp.experts", f"{p}.mlp.experts.act_fn", s] + [
             f"{s}.{n}" for n in ("gate_proj", "up_proj", "act_fn", "down_proj")]
 
     def _block_param_specs(self, p: str) -> list:
         """(name, shape, kind): linears in the JAX layout (in, out), the stacked experts in the port's."""
+        return self._attn_param_specs(p) + self._mlp_param_specs(p)
+
+    def _attn_param_specs(self, p: str) -> list:
         w, h = self.width, self.heads
         a = f"{p}.self_attn"
-        specs = [
+        return [
             (f"{a}.q_proj.weight", (w, h * self.head_dim), "linear"),
             (f"{a}.kv_a_proj_with_mqa.weight", (w, self.kv_lora_rank + self.qk_rope_head_dim), "linear"),
             (f"{a}.kv_a_layernorm.weight", (self.kv_lora_rank,), self._norm_init),
             (f"{a}.kv_b_proj.weight", (self.kv_lora_rank, h * (self.qk_nope_head_dim + self.v_head_dim)), "linear"),
             (f"{a}.o_proj.weight", (h * self.v_head_dim, w), "linear"),
         ]
+
+    def _mlp_param_specs(self, p: str) -> list:
+        w = self.width
         if not self.is_moe(self._index(p)):
-            return specs + _swiglu_specs(f"{p}.mlp", w, self.intermediate)
-        e, i = self.n_routed_experts, self.moe_intermediate
-        return specs + [
-            (f"{p}.mlp.gate.weight", (w, e), "linear"),
+            return _swiglu_specs(f"{p}.mlp", w, self.intermediate)
+        e, i = len(self.held_experts), self.moe_intermediate
+        return [
+            (f"{p}.mlp.gate.weight", (w, self.n_routed_experts), "linear"),
             (f"{p}.mlp.experts.gate_up_proj.weight", (e, 2 * i, w), "linear"),
             (f"{p}.mlp.experts.down_proj.weight", (e, w, i), "linear"),
         ] + _swiglu_specs(f"{p}.mlp.shared_experts", w, i * self.n_shared_experts)
 
     def load_torch_state_dict(self, state_dict: Mapping, *, partial: bool = False) -> dict[str, torch.Tensor]:
-        """An HF ``DeepseekV2ForCausalLM``-named state dict, each MoE layer's experts stacked, placed.
+        """An HF ``DeepseekV2ForCausalLM``-named state dict, each MoE layer's held experts stacked, placed.
 
         ``partial=True`` places the tensors of the layers present and checks
-        nothing is missing within them (a layer-by-layer load).
+        nothing is missing within them (a layer-by-layer load). Experts this
+        model does not hold are dropped.
         """
         sd = dict(state_dict)
+        held = self.held_experts
         for i in range(self.depth):
             prefix = f"model.layers.{i}.mlp.experts"
-            if not self.is_moe(i) or f"{prefix}.0.gate_proj.weight" not in sd:
+            if not self.is_moe(i) or f"{prefix}.{held.start}.gate_proj.weight" not in sd:
                 continue
+            for e in set(range(self.n_routed_experts)) - set(held):
+                for n in ("gate_proj", "up_proj", "down_proj"):
+                    sd.pop(f"{prefix}.{e}.{n}.weight", None)
             gate_up, down = [], []
-            for e in range(self.n_routed_experts):
+            for e in held:
                 gate_up.append(torch.cat([torch.as_tensor(sd.pop(f"{prefix}.{e}.gate_proj.weight")),
                                           torch.as_tensor(sd.pop(f"{prefix}.{e}.up_proj.weight"))]))
                 down.append(torch.as_tensor(sd.pop(f"{prefix}.{e}.down_proj.weight")))
@@ -224,24 +260,28 @@ class DeepseekV2(Llama):
         return self._place(sd, partial=partial)
 
     def hf_state_dict(self, params: Mapping) -> dict[str, torch.Tensor]:
-        """The port's parameters under HF's names: each MoE layer's experts unstacked (views)."""
+        """The port's parameters under HF's names: each MoE layer's held experts unstacked (views)."""
         out = {}
-        inter = self.moe_intermediate
+        inter, first = self.moe_intermediate, self.held_experts.start
         for name, t in params.items():
             if name.endswith(".mlp.experts.gate_up_proj.weight"):
                 prefix = name[: -len("gate_up_proj.weight")]
                 for e in range(t.shape[0]):
-                    out[f"{prefix}{e}.gate_proj.weight"] = t[e, :inter]
-                    out[f"{prefix}{e}.up_proj.weight"] = t[e, inter:]
+                    out[f"{prefix}{first + e}.gate_proj.weight"] = t[e, :inter]
+                    out[f"{prefix}{first + e}.up_proj.weight"] = t[e, inter:]
             elif name.endswith(".mlp.experts.down_proj.weight"):
                 prefix = name[: -len("down_proj.weight")]
                 for e in range(t.shape[0]):
-                    out[f"{prefix}{e}.down_proj.weight"] = t[e]
+                    out[f"{prefix}{first + e}.down_proj.weight"] = t[e]
             else:
                 out[name] = t
         return out
 
     # ------------------------------------------------------------------ rope
+    def _rope(self, ids, t: int):
+        """RoPE tables of the rope channels, or (None, None) under NoPE (no rotation)."""
+        return (None, None) if self.mla_use_nope else super()._rope(ids, t)
+
     def _rope_tables(self, t: int):
         """cos/sin (T, rope dim), float32, HF half-rotation layout, over the decoupled rope channels only."""
         d = self.qk_rope_head_dim
@@ -278,10 +318,12 @@ class DeepseekV2(Llama):
             c = self._norm_tapped(tap, params, f"{a}.kv_a_layernorm", c)
             kv = tap(f"{a}.kv_b_proj", linear(c, params[f"{a}.kv_b_proj.weight"])).view(b, t, h, dn + dv)
             k_nope, v = kv.split([dn, dv], dim=-1)
-            q_nope, q_pe = q.split([dn, dr], dim=-1)
-            q = torch.cat([q_nope, self._rotate(q_pe, cos, sin)], dim=-1)
-            k_pe = self._rotate(k_pe.reshape(b, t, 1, dr), cos, sin).expand(b, t, h, dr)
-            k = torch.cat([k_nope, k_pe], dim=-1)
+            k_pe = k_pe.reshape(b, t, 1, dr)
+            if cos is not None:  # NoPE leaves the rope channels as projected
+                q_nope, q_pe = q.split([dn, dr], dim=-1)
+                q = torch.cat([q_nope, self._rotate(q_pe, cos, sin)], dim=-1)
+                k_pe = self._rotate(k_pe, cos, sin)
+            k = torch.cat([k_nope, k_pe.expand(b, t, h, dr)], dim=-1)
             out = scaled_dot_product_attention(q.reshape(b, t, -1), k.reshape(b, t, -1), v.reshape(b, t, -1), h,
                                                mask=mask, scale=self.softmax_scale)
             out = attn_out_projection(tap, f"{a}.heads", f"{a}.o_proj", out, params[f"{a}.o_proj.weight"], None, h)
@@ -302,9 +344,8 @@ class DeepseekV2(Llama):
         n, e, k, dev = b * t, self.n_routed_experts, self.experts_per_token, x.device
         x2 = x.reshape(n, w)
         with span("moe.route", dev):
-            scores, weights, experts = moe.route(x2, params[f"{m}.gate.weight"], k, norm_topk_prob=self.norm_topk_prob,
-                                                 scaling_factor=self.routed_scaling_factor)
-            d = moe.dispatch(experts, e)
+            scores, weights, experts = self._route(params, m, x2)
+            d = moe.dispatch(experts, e, self.held_experts)
             x_sorted = x2.index_select(0, d.token)
         count("moe.routed_pairs", n * k)
         tally(f"moe.expert_load.{i}", d.counts)
@@ -314,12 +355,17 @@ class DeepseekV2(Llama):
                                            params[f"{m}.experts.down_proj.weight"], d)
         if f"{m}.experts.act_fn" in tap.requested:
             with span("moe.tap", dev):
-                tap(f"{m}.experts.act_fn", moe.scatter_tap(act, d, n, e).view(b, t, -1))
+                tap(f"{m}.experts.act_fn", moe.scatter_tap(act, d, n, len(self.held_experts)).view(b, t, -1))
         with span("moe.combine", dev):
             with span("moe.weighted_sum", dev):
                 summed = moe.combine(y_sorted, weights, d, n)
             routed = tap(f"{m}.experts", summed.view(b, t, w))
             return tap(m, routed + self._swiglu(tap, params, f"{m}.shared_experts", x))
+
+    def _route(self, params, m, x2):
+        """(scores, weights, experts) of the (N, H) tokens: DeepSeek-V2's softmax router."""
+        return moe.route(x2, params[f"{m}.gate.weight"], self.experts_per_token, norm_topk_prob=self.norm_topk_prob,
+                         scaling_factor=self.routed_scaling_factor)
 
     def _swiglu(self, tap, params, prefix, x):
         g = tap(f"{prefix}.gate_proj", linear(x, params[f"{prefix}.gate_proj.weight"]))
@@ -327,13 +373,14 @@ class DeepseekV2(Llama):
         act = tap(f"{prefix}.act_fn", silu(g))
         return tap(f"{prefix}.down_proj", linear(gate_scale(u, act), params[f"{prefix}.down_proj.weight"]))
 
-    def _refuse_unsupported(self, m: str) -> None:
-        """LRP and interventions through an MoE layer are not built: raise rather than answer wrongly."""
+    def _refuse_unsupported(self, m: str, what: str = "mixture-of-experts") -> None:
+        """LRP and interventions through module ``m`` (an MoE layer, or ``what`` it is) are not built: raise rather
+        than answer wrongly."""
         if _lrp_active():
-            raise NotImplementedError(f"{m}: LRP through a mixture-of-experts layer is not supported")
+            raise NotImplementedError(f"{m}: LRP through a {what} layer is not supported")
         live = [n for n in self._block_module_names(m.rsplit(".", 1)[0]) if n.startswith(m) and has_intervention(n)]
         if live:
-            raise NotImplementedError(f"interventions on mixture-of-experts taps are not supported: {live}")
+            raise NotImplementedError(f"interventions on {what} taps are not supported: {live}")
 
     def __repr__(self):
         return (f"{type(self).__name__}(vocab_size={self.vocab_size}, width={self.width}, depth={self.depth}, "

@@ -337,6 +337,51 @@ def test_expert_load_resolves_in_snapshot_and_the_layer_reads_nothing_back(trace
     assert set(snapshot()["tallies"]) == {"moe.expert_load.2"}
 
 
+def _tiny_kimi():
+    from test_torch_kimi_linear import hf_weights, port_model
+
+    model = port_model()
+    return model, model.load_torch_state_dict(hf_weights())
+
+
+def test_kda_spans_and_counters_open_under_enable(tracer):
+    model, params = _tiny_kimi()
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 160, size=(2, 12)))
+    with torch.no_grad():
+        model.apply(params, toks)
+    snap = snapshot()
+    calls = {name: snap["spans"][name]["calls"] for name in snap["spans"]}
+    # one forward of eight layers: KDA in six (the recurrence inside each), MLA in two, MoE in seven
+    assert calls == {"kda.attention": 6, "kda.recurrence": 6, "mla.attention": 2, "moe.route": 7, "moe.experts": 7,
+                     "moe.combine": 7, "moe.weighted_sum": 7}
+    assert snap["counters"] == {"kda.token_heads": 6 * 2 * 12 * 2, "moe.routed_pairs": 7 * 2 * 12 * 4}
+
+
+def test_held_expert_layer_tallies_every_expert_and_reads_nothing_back(tracer_off, monkeypatch):
+    from semanticlens_tpu_torch.ops import moe
+
+    model, params = _tiny_kimi()  # 8 of 16 experts held
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 160, size=(2, 12)))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a KDA or MoE layer read a tensor back or waited for the card")
+
+    with torch.no_grad(), monkeypatch.context() as m:
+        m.setattr(moe, "expert_ffn", functools.partial(moe.expert_ffn, grouped=True))  # the card's path
+        for name in ("item", "cpu", "tolist", "numpy"):
+            m.setattr(torch.Tensor, name, refuse)
+        m.setattr(torch.cuda, "synchronize", refuse)
+        m.setattr(profiling, "_resolve", refuse)
+        logits, taps = model.apply(params, toks, ["model.layers.5.mlp.experts.act_fn"])
+    assert torch.isfinite(logits).all()
+    snap = snapshot()
+    assert set(snap["tallies"]) == {f"moe.expert_load.{i}" for i in range(1, 8)}
+    # the routing over all 16 experts, held or not: B·T·k pairs a call
+    assert all(len(call) == 16 and sum(call) == 2 * 12 * 4 for calls in snap["tallies"].values() for call in calls)
+    routed = taps["model.layers.5.mlp.experts.act_fn"].view(2, 12, 8, 16).ne(0).any(dim=-1)
+    assert snap["tallies"]["moe.expert_load.5"][0][:8] == routed.sum(dim=(0, 1)).tolist()
+
+
 def test_the_text_embed_opens_its_span_per_batch(tracer):
     from semanticlens_tpu_torch.collect import TextActivationComponentVisualizer, TokenTextDataset
 
