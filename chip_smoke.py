@@ -47,10 +47,17 @@ Phases (any failing check raises; the exit code is then non-zero):
    call; at the first shape its device time warm and cold (CUDA-graph
    replay), the host time, the plain loop's time, and the least time
    (7·d² operations a token-head at the bf16 peak, or 2·(5·d + 1) bytes at
-   the HBM rate) with its share; then one forward of Kimi Linear at full
-   width, cut to ``KDA_FORWARD``'s depth (three KDA layers and one MLA, 128
-   of 256 experts held) on 4 × 2,048 tokens, one ``kda.kernel`` per KDA
-   layer and one ``moe.combine.kernel`` per MoE layer;
+   the HBM rate) with its share; the short-convolution kernel through
+   ``ops/kda.short_conv`` at ``KDA_CONV`` (the same layer's three 4 × 2,048
+   × 4,096 projections): its error against the plain version in float32
+   with the norms on and off, one ``kda.conv.kernel`` a call, device time
+   warm and cold, host time, the byte bound (403 MB) and its share, and the
+   PyTorch chain it replaced (``short_conv_plain`` on the card: strided
+   copies, ``F.conv1d``, SiLU, the float32 norms) as ``library_ms``; then
+   one forward of Kimi Linear at full width, cut to ``KDA_FORWARD``'s depth
+   (three KDA layers and one MLA, 128 of 256 experts held) on 4 × 2,048
+   tokens, one ``kda.conv.kernel`` and one ``kda.kernel`` per KDA layer and
+   one ``moe.combine.kernel`` per MoE layer;
 3. reference — the slice at full model width on 16 images in float32 on the
    card, held against the same code on the CPU (plain kernel versions);
 4. quickstart — the README quickstart through the port's entry points at
@@ -363,6 +370,8 @@ MOE_FORWARD = {"depth": 4, "tokens": (16, 512)}
 # not a multiple of the kernel's 16-token stage, and float32 operands (the kernel's arithmetic unrounded).
 KDA = {"textsweep": (4, 2048, 32, 128, torch.bfloat16), "one_chain": (1, 37, 1, 128, torch.bfloat16),
        "float32": (3, 301, 5, 128, torch.float32)}
+# [kda]'s short convolutions (B, T, heads, head size): the text sweep's layer, bf16
+KDA_CONV = (4, 2048, 32, 128)
 # [kda]'s model forward: Kimi Linear at full width cut to three KDA layers and one MLA (the published period), 128 of
 # 256 experts held, on (B, T) tokens
 KDA_FORWARD = {"depth": 4, "full_attn_layers": (4,), "held_experts": range(128), "tokens": (4, 2048)}
@@ -1173,8 +1182,8 @@ def kda_inputs(dev, b, t, h, d, dtype, seed: int = 27):
 
 def kda_forward_launches(dev) -> dict:
     """One forward of Kimi Linear at full width, cut to ``KDA_FORWARD``'s depth, holding its experts, on the text
-    sweep's 4 × 2,048 tokens: one ``kda.kernel`` launch per KDA layer and one ``moe.combine.kernel`` per MoE layer,
-    read from the forward's own run."""
+    sweep's 4 × 2,048 tokens: one ``kda.conv.kernel`` and one ``kda.kernel`` launch per KDA layer and one
+    ``moe.combine.kernel`` per MoE layer, read from the forward's own run."""
     from semanticlens_tpu_torch.models import KimiLinear
     from semanticlens_tpu_torch.utils.profiling import counters, reset
 
@@ -1188,16 +1197,18 @@ def kda_forward_launches(dev) -> dict:
     moe_layers = sum(model.is_moe(i) for i in range(model.depth))
     with torch.no_grad():
         model.apply(params, toks)  # the build and the first launches
-        reset("kda.kernel", "moe.combine.kernel")
+        reset("kda.conv.kernel", "kda.kernel", "moe.combine.kernel")
         logits, _ = model.apply(params, toks)
         torch.cuda.synchronize()
     got = counters()
     row = {"depth": model.depth, "tokens": list(KDA_FORWARD["tokens"]), "kda_layers": kda_layers,
-           "kda_launches": got.get("kda.kernel", 0), "moe_layers": moe_layers,
+           "conv_launches": got.get("kda.conv.kernel", 0), "kda_launches": got.get("kda.kernel", 0),
+           "moe_layers": moe_layers,
            "combine_launches": got.get("moe.combine.kernel", 0), "logits_finite": bool(torch.isfinite(logits).all())}
     del model, params, logits
     torch.cuda.empty_cache()
-    if (row["kda_launches"], row["combine_launches"]) != (kda_layers, moe_layers) or not row["logits_finite"]:
+    launches = (row["conv_launches"], row["kda_launches"], row["combine_launches"])
+    if launches != (kda_layers, kda_layers, moe_layers) or not row["logits_finite"]:
         raise AssertionError(f"[kda] forward: {json.dumps(row)}: not one kernel per KDA and per MoE layer")
     return row
 
@@ -1213,10 +1224,67 @@ def kda_kernel_entry(rows: dict) -> dict:
                 "device_ms_cold_l2", "share_of_bound_cold_l2")}}
 
 
+def kda_conv_kernel_entry(rows: dict) -> dict:
+    """The short-convolution kernel's row of the ``kernels`` line from :func:`phase_kda`'s rows: the launches of the
+    model forward and the times at the text sweep's shape."""
+    return {"name": "kda_short_conv", "route": "cuda", "source": "semanticlens_tpu_torch/csrc/kda.cu",
+            "replaces": None, "launches": rows["forward"]["conv_launches"],
+            "launches_by_path": {"kimi_linear_forward": rows["forward"]["conv_launches"]},
+            **{key: rows["short_conv"][key] for key in (
+                "shape", "max_err_over_scale", "ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                "library_device_ms", "device_ms_cold_l2", "share_of_bound_cold_l2")}}
+
+
+def kda_conv_row(dev) -> dict:
+    """The short-convolution kernel at ``KDA_CONV``: its error against the plain version in float32 with the norms
+    on and off (one bf16 rounding of the output's scale at most), one ``kda.conv.kernel`` a call; its device time
+    warm and cold (CUDA-graph replay), the host time, the byte bound and its share; the PyTorch chain it replaced
+    (``short_conv_plain`` in bf16 on the card) as ``library_ms``."""
+    from semanticlens_tpu_torch.ops import kda
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    b, t, h, d = KDA_CONV
+    gen = torch.Generator(device=dev).manual_seed(28)
+    ys = [torch.randn(b, t, h * d, generator=gen, device=dev).bfloat16() for _ in range(3)]
+    ws = [(torch.randn(h * d, 1, 4, generator=gen, device=dev) / 2).bfloat16() for _ in range(3)]
+    call = functools.partial(kda.short_conv, *ys, *ws, head_dim=d)
+    call()  # the first launch
+    reset("kda.conv.kernel")
+    call()
+    torch.cuda.synchronize()
+    if counters().get("kda.conv.kernel") != 1:
+        raise AssertionError(f"[kda] short_conv: {counters().get('kda.conv.kernel')} kernel launches for one call")
+    errs = {}
+    for norm in (True, False):
+        got = kda.short_conv(*ys, *ws, head_dim=d, norm=norm)
+        with torch.backends.cudnn.flags(enabled=False):  # float32 without TF32
+            want = kda.short_conv_plain(*(y.float() for y in ys), *(w.float() for w in ws), head_dim=d, norm=norm)
+        errs[norm] = max(float((g.float() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        del got, want
+    tol = 2.0**-8 + 1e-5  # one bf16 rounding of the output, float32 sums and expf in another order
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"[kda] short_conv: errors {errs} of the outputs' scale, above {tol:.3g}")
+    nbytes = sum(2 * y.numel() * y.element_size() + w.numel() * w.element_size() for y, w in zip(ys, ws))
+    warm = [tuple(ys + ws)]
+    cold = warm + [tuple([y.clone() for y in ys] + ws)]  # each copy past the L2: the rows come from HBM
+    row = {"shape": [b, t, h, d], "dtype": "bfloat16", "max_err_over_scale": errs[True],
+           "max_err_over_scale_unnormed": errs[False],
+           "device_ms": graph_ms(lambda *a: kda.short_conv(*a, head_dim=d), warm),
+           "device_ms_cold_l2": graph_ms(lambda *a: kda.short_conv(*a, head_dim=d), cold),
+           "ms": time_ms(call),
+           "library_device_ms": graph_ms(lambda *a: kda.short_conv_plain(*a, head_dim=d), warm),
+           "library_ms": time_ms(functools.partial(kda.short_conv_plain, *ys, *ws, head_dim=d), iters=5, warmup=1),
+           "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes"}
+    row["share_of_bound_cold_l2"] = row["bound_ms"] / row["device_ms_cold_l2"]
+    del ys, ws, warm, cold
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kda(dev) -> dict:
     """The KDA recurrence kernel against its plain version at ``KDA``'s shapes, one ``kda.kernel`` a call; at the
     text sweep's shape its device time warm and cold (CUDA-graph replay), the host time, the plain loop's time and
-    the least time; then the cut model's forward."""
+    the least time; the short-convolution kernel (:func:`kda_conv_row`); then the cut model's forward."""
     from semanticlens_tpu_torch.ops import kda
     from semanticlens_tpu_torch.utils.profiling import counters, reset
 
@@ -1256,6 +1324,8 @@ def phase_kda(dev) -> dict:
         log(f"[kda] {name}: {json.dumps(row)}")
         del inputs, got, want
         torch.cuda.empty_cache()
+    out["short_conv"] = kda_conv_row(dev)
+    log(f"[kda] short_conv: {json.dumps(out['short_conv'])}")
     out["forward"] = kda_forward_launches(dev)
     log(f"[kda] forward: {json.dumps(out['forward'])}")
     return out
@@ -5744,7 +5814,7 @@ def main():
         entry("streaming", "probe 8x2048x512") | {"at_d1024": at_shape("probe 8x2048x1024"),
                                                   "at_d768": at_shape("probe 8x3072x768"),
                                                   "at_sae": at_shape("probe 8x8192x512")},
-        moe_kernel_entry(moe_rows), kda_kernel_entry(kda_rows)]}
+        moe_kernel_entry(moe_rows), kda_kernel_entry(kda_rows), kda_conv_kernel_entry(kda_rows)]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -1,9 +1,11 @@
-// The KDA recurrence for Hopper (sm_90a): Kimi Delta Attention's gated delta rule, one launch a layer.
+// Kimi Delta Attention for Hopper (sm_90a): the recurrence and the short convolutions, one launch each a layer.
 //
-// Replaces no TPU kernel: the JAX package has no linear-attention layer. It was added for ops/kda.py's
-// recurrence, the token-to-token part of Kimi Linear's KDA layers (arXiv:2510.26692; fla-org's
-// fla/layers/kda.py). No PyTorch call computes it, and a loop of PyTorch calls over the tokens launches some
-// ten thousand kernels a layer at 2,048 tokens.
+// Neither replaces a TPU kernel: the JAX package has no linear-attention layer. Both were added for ops/kda.py,
+// the KDA layers of Kimi Linear (arXiv:2510.26692; fla-org's fla/layers/kda.py). The short convolutions' design
+// is noted at kda_short_conv_kernel below.
+//
+// The recurrence, the token-to-token part of the layer. No PyTorch call computes it, and a loop of PyTorch calls
+// over the tokens launches some ten thousand kernels a layer at 2,048 tokens.
 //
 // For each (sequence b, head h) a float32 d x d state S (key rows i, value columns j), 0 at the sequence's
 // start. At every token t, with a = exp(g_t) (the decay, one per key channel), k_t and q_t as the caller
@@ -33,7 +35,7 @@
 namespace {
 
 constexpr int kTokens = 16;   // tokens staged in shared memory at a time
-constexpr int kErrShape = -1;  // d not 128, or a negative size
+constexpr int kErrShape = -1;  // d not 128, a convolution width not 4, or a bad size
 constexpr int kErrDtype = -2;  // no such element type
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -143,6 +145,177 @@ int launch(const void* q, const void* k, const void* v, const float* g, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
+// The short convolutions. For each of a layer's three projections x (b, t, C), C = h d, with its weights
+// w (C, 1, 4), at every token t and channel c:
+//     y = sum_j w[c, j] x[t - 3 + j, c]   (zeros before the sequence's start; no row of another sequence)
+//     s = SiLU(y);   for q and k, when `norm`: s * rsqrt(sum over the head's d channels of s^2 + 1e-6), q also * scale
+// in float32, rounded once to the output's type. The outputs q, k, v (b, t, h, d) are the bytes of (b, t, C): the
+// layout the recurrence takes. Without `norm` (a tap of the convolutions' output) all three stop after the SiLU.
+//
+// What bounds it: bytes. Each element is read once and written once, 4 bytes in bf16 against some 15 operations,
+// far below the card's ratio. At the text sweep's shape (4 x 2,048 tokens, C = 4,096, three tensors) 403 MB: 0.120
+// ms at 3.35 TB/s. PyTorch took two strided copies a tensor around a generic depthwise kernel in the (b, C, t)
+// layout, a SiLU pass and a float32 chain for each norm.
+//
+// Design: the (b, t, C) rows are read as they lie, with no transpose. A thread owns 8 consecutive channels (16 bytes
+// in bf16, a warp 512 contiguous bytes of a row) over a run of kConvRun tokens of one sequence and walks the run with
+// the three previous rows in registers: each row is read once, the 3-row halo before a run a second time (from L2,
+// where the run before it read it). The loads run kConvAhead rows ahead of the stores, in a ring of registers: the
+// compiler cannot move a load above a store that may alias it, and with one row in flight a thread the kernel waited
+// on latency (58 % of the bound on an H100). A head's 128 channels are 16 neighbouring lanes, so its sum of squares
+// is four shuffles. blockIdx.z picks q, k or v. Lanes past the end run the arithmetic on zeros and store nothing, so
+// every lane of a warp takes part in the shuffles.
+constexpr int kConvWidth = 4;       // Kimi Linear's short_conv_kernel_size
+constexpr int kConvRun = 16;        // tokens a thread walks: 4 x 2,048 x 4,096 / 8 / 16 x 3 = 786,432 lanes
+constexpr int kConvAhead = 4;       // rows a thread has in flight
+constexpr int kConvVec = 8;         // channels a thread owns
+constexpr int kConvThreads = 256;
+constexpr float kL2Eps = 1e-6f;     // fla's l2norm
+
+// kConvVec elements of T as raw 16-byte words: loaded now, converted when their row's turn comes
+template <typename T>
+struct Row {
+  uint4 u[kConvVec * sizeof(T) / 16];
+};
+
+template <typename T>
+__device__ __forceinline__ Row<T> load_row(const T* p, bool valid) {
+  Row<T> r;
+#pragma unroll
+  for (int i = 0; i < kConvVec * static_cast<int>(sizeof(T)) / 16; ++i)
+    r.u[i] = valid ? reinterpret_cast<const uint4*>(p)[i] : make_uint4(0u, 0u, 0u, 0u);
+  return r;
+}
+__device__ __forceinline__ void to_floats(const Row<__nv_bfloat16>& r, float (&f)[kConvVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(r.u);
+#pragma unroll
+  for (int i = 0; i < kConvVec / 2; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void to_floats(const Row<float>& r, float (&f)[kConvVec]) {
+  const float* x = reinterpret_cast<const float*>(r.u);
+#pragma unroll
+  for (int i = 0; i < kConvVec; ++i) f[i] = x[i];
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[kConvVec]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < kConvVec / 2; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float (&f)[kConvVec]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+template <typename T>
+struct ConvOperands {
+  const T* x[3];  // the projections of q, k, v, (b, t, C)
+  const T* w[3];  // their weights, (C, 1, kConvWidth)
+  T* y[3];        // q, k, v, (b, t, C)
+};
+
+// ops.*[which] by selection, not by a run-time index (which would copy the operands to local memory)
+template <typename P>
+__device__ __forceinline__ P pick(const P (&p)[3], int which) {
+  return which == 0 ? p[0] : which == 1 ? p[1] : p[2];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kConvThreads, 2) kda_short_conv_kernel(ConvOperands<T> ops, int t_len, int runs,
+                                                                         int chunks, int64_t lanes, int norm,
+                                                                         float q_scale) {
+  const int which = blockIdx.z;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kConvThreads + threadIdx.x;
+  const bool live = lane < lanes;
+  const int chunk = static_cast<int>(lane % chunks);
+  const int64_t seq_run = lane / chunks;
+  const int t0 = static_cast<int>(seq_run % runs) * kConvRun;
+  const int64_t row = static_cast<int64_t>(chunks) * kConvVec;
+  const int64_t base = (seq_run / runs) * t_len * row + static_cast<int64_t>(chunk) * kConvVec;
+  const T* __restrict__ x = pick(ops.x, which) + base;
+  T* __restrict__ y = pick(ops.y, which) + base;
+  const T* __restrict__ wp = pick(ops.w, which) + static_cast<int64_t>(chunk) * kConvVec * kConvWidth;
+  auto has = [&](int t) { return live && t >= 0 && t < t_len; };
+
+  // every load before the first store: the halo, the first kConvAhead rows and the weights
+  Row<T> halo[kConvWidth - 1], ring[kConvAhead], wr[kConvWidth];
+#pragma unroll
+  for (int j = 0; j < kConvWidth - 1; ++j) halo[j] = load_row(x + (t0 - (kConvWidth - 1) + j) * row,
+                                                              has(t0 - (kConvWidth - 1) + j));
+#pragma unroll
+  for (int j = 0; j < kConvAhead; ++j) ring[j] = load_row(x + (t0 + j) * row, has(t0 + j));
+#pragma unroll
+  for (int i = 0; i < kConvWidth; ++i) wr[i] = load_row(wp + i * kConvVec, true);  // chunk < chunks on every lane
+
+  float w[kConvVec][kConvWidth];
+#pragma unroll
+  for (int i = 0; i < kConvWidth; ++i) {
+    float f[kConvVec];
+    to_floats(wr[i], f);
+#pragma unroll
+    for (int e = 0; e < kConvVec; ++e) w[(i * kConvVec + e) / kConvWidth][(i * kConvVec + e) % kConvWidth] = f[e];
+  }
+  float win[kConvWidth - 1][kConvVec];  // rows t - 3, t - 2, t - 1
+#pragma unroll
+  for (int j = 0; j < kConvWidth - 1; ++j) to_floats(halo[j], win[j]);
+  const bool l2 = norm && which < 2;  // one value a block: every lane of a warp shuffles or none
+  const float scale = norm && which == 0 ? q_scale : 1.0f;
+
+#pragma unroll
+  for (int i = 0; i < kConvRun; ++i) {
+    const int t = t0 + i;
+    float cur[kConvVec];
+    to_floats(ring[i % kConvAhead], cur);
+    if (i + kConvAhead < kConvRun) ring[i % kConvAhead] = load_row(x + (t + kConvAhead) * row, has(t + kConvAhead));
+    float s[kConvVec], sq = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kConvVec; ++e) {
+      float acc = w[e][kConvWidth - 1] * cur[e];
+#pragma unroll
+      for (int j = 0; j < kConvWidth - 1; ++j) acc = fmaf(w[e][j], win[j][e], acc);
+      s[e] = __fdividef(acc, 1.0f + __expf(-acc));
+      sq = fmaf(s[e], s[e], sq);
+    }
+    if (l2) {
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      const float r = rsqrtf(sq + kL2Eps) * scale;
+#pragma unroll
+      for (int e = 0; e < kConvVec; ++e) s[e] *= r;
+    }
+    if (has(t)) store8(y + t * row, s);
+#pragma unroll
+    for (int e = 0; e < kConvVec; ++e) {
+      win[0][e] = win[1][e];
+      win[1][e] = win[2][e];
+      win[2][e] = cur[e];
+    }
+  }
+}
+
+template <typename T>
+int launch_short_conv(const void* const* x, const void* const* w, void* const* y, int b, int t, int c, int norm,
+                      float q_scale, cudaStream_t stream) {
+  ConvOperands<T> ops;
+  for (int i = 0; i < 3; ++i) {
+    ops.x[i] = static_cast<const T*>(x[i]);
+    ops.w[i] = static_cast<const T*>(w[i]);
+    ops.y[i] = static_cast<T*>(y[i]);
+  }
+  const int runs = (t + kConvRun - 1) / kConvRun, chunks = c / kConvVec;
+  const int64_t lanes = static_cast<int64_t>(b) * runs * chunks;
+  const int64_t blocks = (lanes + kConvThreads - 1) / kConvThreads;
+  if (blocks > 0x7fffffff) return kErrShape;
+  kda_short_conv_kernel<T><<<dim3(static_cast<unsigned>(blocks), 1, 3), kConvThreads, 0, stream>>>(
+      ops, t, runs, chunks, lanes, norm, q_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o (b, t, h, d) of one element type (dtype 0: bf16, the model's; 1: float32), contiguous; g (b, t, h, d)
@@ -155,6 +328,25 @@ extern "C" int kda_recurrence(const void* q, const void* k, const void* v, const
   switch (dtype) {
     case 0: return launch<__nv_bfloat16>(q, k, v, g, beta, o, b, t, h, stream);
     case 1: return launch<float>(q, k, v, g, beta, o, b, t, h, stream);
+    default: return kErrDtype;
+  }
+}
+
+// The three short convolutions of a KDA layer. xq, xk, xv, q, k, v (b, t, c) and wq, wk, wv (c, 1, width) of one
+// element type (dtype 0: bf16, 1: float32), contiguous, 16-byte aligned; c a multiple of d = 128, width 4. `norm`
+// 1: q and k unit-normed per head and q times q_scale; 0: all three after the SiLU. Launches on `stream` and returns
+// 0, a cudaError_t, or a negative code of this file.
+extern "C" int kda_short_conv(const void* xq, const void* xk, const void* xv, const void* wq, const void* wk,
+                              const void* wv, void* q, void* k, void* v, int b, int t, int c, int d, int width,
+                              int norm, float q_scale, int dtype, cudaStream_t stream) {
+  if (b < 0 || t < 0 || c < 0 || d != kHeadDim || c % d != 0 || width != kConvWidth) return kErrShape;
+  if (b == 0 || t == 0 || c == 0) return 0;
+  const void* x[3] = {xq, xk, xv};
+  const void* w[3] = {wq, wk, wv};
+  void* y[3] = {q, k, v};
+  switch (dtype) {
+    case 0: return launch_short_conv<__nv_bfloat16>(x, w, y, b, t, c, norm, q_scale, stream);
+    case 1: return launch_short_conv<float>(x, w, y, b, t, c, norm, q_scale, stream);
     default: return kErrDtype;
   }
 }

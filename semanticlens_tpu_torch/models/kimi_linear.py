@@ -11,7 +11,9 @@ MLA where i + 1 is in ``full_attn_layers`` (1-based, as the config's
   ``q = SiLU(conv_q(W_q x))``, ``k = SiLU(conv_k(W_k x))``,
   ``v = SiLU(conv_v(W_v x))``, each conv causal, depthwise, of width
   ``conv_size``, without bias, zero-padded at the sequence's start; q and k
-  L2-normed per head (ε 1e-6, fla's ``l2norm``), q times d^-½; the decay
+  L2-normed per head (ε 1e-6, fla's ``l2norm``), q times d^-½ (the three
+  convolutions, SiLUs and norms one hand-written kernel on the card,
+  :func:`~semanticlens_tpu_torch.ops.kda.short_conv`); the decay
   per head and key channel in log space, in float32,
   ``g = −exp(A_log[head]) · softplus(W_fb W_fa x + dt_bias)``; the write
   strength ``β = sigmoid(W_b x)``, one a head; the gated delta rule
@@ -41,11 +43,16 @@ own neurons), ``self_attn.o_proj`` and ``self_attn``; MLA, MoE and Llama
 taps as in DeepSeek-V2 (``mlp.gate``: the (B, T, E) sigmoid scores;
 ``mlp.experts.act_fn`` over the held experts).
 
+A layer whose ``{q, k, v}_conv1d`` taps are requested runs the
+convolutions without the norms, taps their SiLU outputs and norms q and k
+after; every other layer runs them with the norms in one pass.
+
 Spans (``utils/profiling``): ``kda.attention`` per KDA layer and, inside it,
-``kda.recurrence`` (the kernel alone); ``mla.attention`` and the ``moe.*``
-spans as in DeepSeek-V2. Counters ``kda.token_heads`` (B·T·h a KDA layer
-call, known on the host) and ``kda.kernel`` (the recurrence kernel's
-launches). Nothing in a layer reads the card back.
+``kda.short_conv`` and ``kda.recurrence`` (each its kernel alone);
+``mla.attention`` and the ``moe.*`` spans as in DeepSeek-V2. Counters
+``kda.token_heads`` (B·T·h a KDA layer call, known on the host),
+``kda.conv.kernel`` and ``kda.kernel`` (the two kernels' launches). Nothing
+in a layer reads the card back.
 
 Out of scope, refused with an error rather than answered wrongly: LRP
 through a KDA or MoE layer, interventions on their taps, and edge-padded
@@ -58,17 +65,9 @@ import torch
 import torch.nn.functional as F
 
 from semanticlens_tpu_torch.models.deepseek import DeepseekV2
-from semanticlens_tpu_torch.models.layers import linear, rms_norm, silu
+from semanticlens_tpu_torch.models.layers import linear, rms_norm
 from semanticlens_tpu_torch.ops import kda, moe
 from semanticlens_tpu_torch.utils.profiling import count, span
-
-L2_EPS = 1e-6  # fla's l2norm, applied to q and k inside its KDA kernels
-
-
-def l2_normalize(x: torch.Tensor, eps: float = L2_EPS) -> torch.Tensor:
-    """``x · rsqrt(Σ x² + eps)`` over the last axis, in float32."""
-    xf = x.float()
-    return xf * torch.rsqrt(xf.square().sum(dim=-1, keepdim=True) + eps)
 
 
 class KimiLinear(DeepseekV2):
@@ -159,29 +158,40 @@ class KimiLinear(DeepseekV2):
         b, t, _ = x.shape
         h, d = self.kda_heads, self.kda_head_dim
         with span("kda.attention", x.device):
-            q, k, v = (self._short_conv(tap, params, a, n, x) for n in "qkv")
+            q, k, v = self._short_conv(tap, params, a, x)
             f = linear(linear(x, params[f"{a}.f_a_proj.weight"]), params[f"{a}.f_b_proj.weight"]).float()
             g = -params[f"{a}.A_log"].float().exp()[:, None] * F.softplus(
                 (f + params[f"{a}.dt_bias"].float()).view(b, t, h, d))
             beta = torch.sigmoid(linear(x, params[f"{a}.b_proj.weight"]).float())
-            q = (l2_normalize(q.view(b, t, h, d)) * d**-0.5).to(x.dtype)
-            k = l2_normalize(k.view(b, t, h, d)).to(x.dtype)
             count("kda.token_heads", b * t * h)
             with span("kda.recurrence", x.device):
-                o = kda.recurrence(q, k, v.view(b, t, h, d), g, beta)
+                o = kda.recurrence(q, k, v, g, beta)
             gate = linear(linear(x, params[f"{a}.g_a_proj.weight"]), params[f"{a}.g_b_proj.weight"],
                           params[f"{a}.g_b_proj.bias"])
             o = tap(f"{a}.o_norm", self._gated_norm(o, params[f"{a}.o_norm.weight"], gate.view(b, t, h, d))
                     .reshape(b, t, h * d))
             return tap(a, tap(f"{a}.o_proj", linear(o, params[f"{a}.o_proj.weight"])))
 
-    def _short_conv(self, tap, params, a, which, x):
-        """``SiLU(conv(W x))``: the projection, then a causal depthwise convolution over T, zero-padded at the
-        start, without bias (fla's ``ShortConvolution``); (B, T, H) → (B, T, h·d), both tapped."""
-        y = tap(f"{a}.{which}_proj", linear(x, params[f"{a}.{which}_proj.weight"]))
-        w = params[f"{a}.{which}_conv1d.weight"].to(y.dtype)
-        conv = F.conv1d(y.transpose(1, 2), w, padding=w.shape[-1] - 1, groups=w.shape[0])[..., : y.shape[1]]
-        return tap(f"{a}.{which}_conv1d", silu(conv.transpose(1, 2).contiguous()))
+    def _short_conv(self, tap, params, a, x):
+        """q, k, v (B, T, h, d) from the normed input (B, T, H): the three projections (tapped), then
+        ``SiLU(conv(W x))`` each, a causal depthwise convolution over T, zero-padded at the start, without bias
+        (fla's ``ShortConvolution``), and q and k L2-normed per head, q scaled by d^-½.
+
+        One :func:`kda.short_conv` with the norms, unless a ``{q, k, v}_conv1d`` tap is requested: then without
+        them, the SiLU outputs tapped as (B, T, h·d), and q and k normed here. (Interventions on KDA taps are
+        refused before this.)"""
+        h, d = self.kda_heads, self.kda_head_dim
+        ys = [tap(f"{a}.{n}_proj", linear(x, params[f"{a}.{n}_proj.weight"])) for n in "qkv"]
+        ws = [params[f"{a}.{n}_conv1d.weight"] for n in "qkv"]
+        names = [f"{a}.{n}_conv1d" for n in "qkv"]
+        fused = tap.requested.isdisjoint(names)
+        with span("kda.short_conv", x.device):
+            q, k, v = kda.short_conv(*ys, *ws, head_dim=d, norm=fused)
+        if fused:
+            return q, k, v
+        b, t, _ = x.shape
+        q, k, v = (tap(n, y.reshape(b, t, h * d)).view(b, t, h, d) for n, y in zip(names, (q, k, v)))
+        return (*kda.norm_qk(q, k), v)
 
     def _gated_norm(self, o, weight, gate):
         """``RMSNorm_d(o) · weight ⊙ sigmoid(gate)`` per head, in float32, back to ``o``'s dtype."""

@@ -12,9 +12,11 @@ make the uncut layer), the sigmoid router's rule, DeepSeek-V2's router
 unchanged, the held experts through dispatch, the grouped GEMMs, the
 combine and the tap, the HF state dict's round trip, ``from_name`` against
 the benchmark's configuration, the refusals, the untapped forward and the
-text Collect+Embed path. On the card (``cuda``): the recurrence kernel
-against its plain version, the combine's skip of absent experts, and the
-model (with 128-wide KDA heads) against the CPU.
+text Collect+Embed path, the short convolutions' plain version against the
+model's former path and the convolution taps' unnormed path. On the card
+(``cuda``): the recurrence and short-convolution kernels against their plain
+versions, the combine's skip of absent experts, and the model (with 128-wide
+KDA heads) against the CPU, with and without a convolution tap.
 """
 
 import json
@@ -24,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from plain import kimi_linear as plain
 from semanticlens_tpu_torch import Lens
@@ -417,6 +420,68 @@ def test_text_collect_and_embed_rank_as_the_reference(pair):
     assert db[layer].shape == (32, k, 16)
 
 
+def former_short_conv(ys, ws, d, norm):
+    """The model's q, k, v before its convolutions moved into ``kda.short_conv``: each ``F.conv1d`` in the (B, C, T)
+    layout and SiLU, then (the taps' values) q and k L2-normed in float32, q scaled, cast back."""
+    b, t, c = ys[0].shape
+    out = []
+    for y, w in zip(ys, ws):
+        w = w.to(y.dtype)
+        conv = F.conv1d(y.transpose(1, 2), w, padding=w.shape[-1] - 1, groups=w.shape[0])[..., : y.shape[1]]
+        out.append(F.silu(conv.transpose(1, 2).contiguous()).view(b, t, c // d, d))
+    if norm:
+        q, k = (z.float() for z in out[:2])
+        out[0] = (q * torch.rsqrt(q.square().sum(dim=-1, keepdim=True) + 1e-6) * d**-0.5).to(ys[0].dtype)
+        out[1] = (k * torch.rsqrt(k.square().sum(dim=-1, keepdim=True) + 1e-6)).to(ys[0].dtype)
+    return out
+
+
+def conv_inputs(b, t, h, d, dtype, device="cpu", seed=5):
+    """Three (B, T, h·d) projections N(0, 1) and three (h·d, 1, 4) weights N(0, 1/4) in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ys = [torch.randn(b, t, h * d, generator=gen, device=device).to(dtype) for _ in range(3)]
+    ws = [(torch.randn(h * d, 1, 4, generator=gen, device=device) / 2).to(dtype) for _ in range(3)]
+    return ys, ws
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", [True, False])
+def test_plain_short_conv_equals_the_former_path(norm, dtype):
+    ys, ws = conv_inputs(2, 19, 3, 16, dtype)
+    got = kda.short_conv(*ys, *ws, head_dim=16, norm=norm)  # the CPU takes the plain version
+    want = former_short_conv(ys, ws, 16, norm)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (2, 19, 3, 16) and torch.equal(g, w)
+    # causal and per sequence: a later token or another sequence changes nothing before it
+    ys[0][0, 9:] += 1.0
+    again = kda.short_conv_plain(*ys, *ws, head_dim=16, norm=norm)
+    assert torch.equal(again[0][0, :9], got[0][0, :9]) and torch.equal(again[0][1], got[0][1])
+    assert not torch.equal(again[0][0, 9:], got[0][0, 9:])
+
+
+def test_conv_taps_take_the_unnormed_path_and_change_nothing(pair, monkeypatch):
+    model, params, _, toks, _ = pair
+    norms = []
+    short_conv = kda.short_conv
+
+    def recording(*args, norm, **kw):
+        norms.append(norm)
+        return short_conv(*args, norm=norm, **kw)
+
+    monkeypatch.setattr(kda, "short_conv", recording)
+    a = "model.layers.2.self_attn"
+    with torch.no_grad():
+        untapped, _ = model.apply(params, toks, [f"{a}.o_norm"])
+        assert norms == [True] * 6  # six KDA layers, each one pass with the norms
+        norms.clear()
+        tapped, taps = model.apply(params, toks, [f"{a}.{n}" for n in ("q_proj", "k_proj", "v_proj", "k_conv1d")])
+    assert norms == [True, True, False, True, True, True]  # the tapped layer (the third KDA layer) without
+    assert torch.equal(tapped, untapped)  # the same arithmetic in either order on the CPU
+    want = kda.short_conv_plain(*(taps[f"{a}.{n}_proj"] for n in "qkv"),
+                                *(params[f"{a}.{n}_conv1d.weight"] for n in "qkv"), head_dim=16, norm=False)
+    assert torch.equal(taps[f"{a}.k_conv1d"], want[1].reshape(taps[f"{a}.k_conv1d"].shape))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -510,3 +575,111 @@ def test_cuda_model_matches_the_cpu(cuda_device, pair):
         _, on_cpu = cpu.apply(cpu.load_torch_state_dict(sd), toks, names)
     for name in names:  # bf16 projections, convolutions and state inputs against float32: a few bf16 steps
         assert scale_err(on_card[name].float().cpu(), on_cpu[name]) < 3e-2, name
+
+
+def bf16_rounding(dtype) -> float:
+    """The largest error a kernel that computes in float32 and rounds once may show, over the output's scale: one
+    bf16 rounding (half a step) in bf16, float32 sums and ``expf`` in other orders in float32."""
+    return 2**-8 + 1e-5 if dtype == torch.bfloat16 else 1e-5
+
+
+def plain_conv_float32(ys, ws, **kw):
+    """:func:`kda.short_conv_plain` on float32 copies, with cuDNN off (no TF32)."""
+    with torch.backends.cudnn.flags(enabled=False):
+        return kda.short_conv_plain(*(y.float() for y in ys), *(w.float() for w in ws), head_dim=128, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b, t, h", [
+    (4, 2048, 32),  # the text sweep's layer
+    (2, 1, 3),  # a single token: only the last tap reads a row
+    (2, 3, 2),  # shorter than the window
+    (3, 5, 2),  # one whole window and a partial one
+    (2, 37, 3),  # T not a multiple of the 16-token run
+    (1, 37, 1),  # B·h = 1
+])
+def test_cuda_short_conv_matches_the_plain_version(cuda_device, b, t, h, dtype):
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    ys, ws = conv_inputs(b, t, h, 128, dtype, cuda_device)
+    reset("kda.conv.kernel")
+    for norm in (True, False):
+        got = kda.short_conv(*ys, *ws, head_dim=128, norm=norm)
+        want = plain_conv_float32(ys, ws, norm=norm)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == dtype and g.shape == (b, t, h, 128) and g.is_contiguous(), name
+            err = float((g.float() - w).abs().max() / w.abs().max())
+            assert err <= bf16_rounding(dtype), (norm, name, err)
+    assert counters().get("kda.conv.kernel") == 2
+
+
+@pytest.mark.cuda
+def test_cuda_short_conv_reads_no_row_of_another_sequence(cuda_device):
+    ys, ws = conv_inputs(3, 37, 2, 128, torch.bfloat16, cuda_device)
+    for y in ys:
+        y[0, -3:] = 1e3  # the rows right before sequence 1's first in memory
+    got = kda.short_conv(*ys, *ws, head_dim=128)
+    alone = kda.short_conv(*(y[1:2] for y in ys), *ws, head_dim=128)
+    for g, a in zip(got, alone):
+        assert torch.equal(g[1, :3], a[0, :3]) and torch.equal(g[1:2], a)
+
+
+def tiny_card_model(cfg, device):
+    """A tiny Kimi Linear of ``cfg`` in bf16 on ``device`` and its params from bf16-valued weights."""
+    model = port_model(cfg)
+    model.device, model.dtype = device, torch.bfloat16
+    sd = {name: t.bfloat16().float() for name, t in hf_weights(cfg).items()}
+    return model, model.load_torch_state_dict(sd)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_tap_changes_the_forward_within_bf16(cuda_device):
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    cfg = {**CFG, "linear_attn_config": {**CFG["linear_attn_config"], "head_dim": 128}}
+    model, params = tiny_card_model(cfg, cuda_device)
+    toks = tokens(2, 40)
+    a = "model.layers.2.self_attn"
+    outs = [f"{a}.o_norm", a]  # the layer's own outputs: the MoE layers after it route discontinuously
+    with torch.no_grad():
+        reset("kda.conv.kernel")
+        _, plain_taps = model.apply(params, toks, outs)
+        _, taps = model.apply(params, toks, outs + [f"{a}.q_conv1d"] + [f"{a}.{n}_proj" for n in "qkv"])
+    assert counters().get("kda.conv.kernel") == 12  # both forwards: one launch a KDA layer, the tapped one unnormed
+    # the tapped layer rounds q and k to bf16 after the SiLU and again after the norm: a few bf16 steps downstream
+    for name in outs:
+        assert scale_err(taps[name].float(), plain_taps[name].float()) < 3e-2, name
+    want = plain_conv_float32([taps[f"{a}.{n}_proj"] for n in "qkv"],
+                              [params[f"{a}.{n}_conv1d.weight"] for n in "qkv"], norm=False)[0]
+    got = taps[f"{a}.q_conv1d"]
+    assert got.shape == (2, 40, 2 * 128)
+    assert scale_err(got.float(), want.reshape(got.shape)) <= bf16_rounding(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_short_conv_never_reaches_the_plain_version(cuda_device, monkeypatch):
+    from semanticlens_tpu_torch.utils.profiling import counters, reset
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain short convolutions")
+
+    monkeypatch.setattr(kda, "short_conv_plain", refuse)
+    ys, ws = conv_inputs(2, 40, 2, 128, torch.bfloat16, cuda_device)
+    reset("kda.conv.kernel")
+    for calls in range(1, 3):
+        kda.short_conv(*ys, *ws, head_dim=128)
+        assert counters().get("kda.conv.kernel") == calls
+    with pytest.raises(ValueError, match="head size"):
+        kda.short_conv(*ys, *ws, head_dim=64)
+    with pytest.raises(ValueError, match="width"):
+        kda.short_conv(*ys, *(w[..., :3] for w in ws), head_dim=128)
+    assert counters().get("kda.conv.kernel") == 2
+    # a 4-layer forward (three KDA layers, then MLA): one launch of each KDA kernel a KDA layer
+    lin = {**CFG["linear_attn_config"], "head_dim": 128, "full_attn_layers": [4], "kda_layers": [1, 2, 3]}
+    model, params = tiny_card_model({**CFG, "num_hidden_layers": 4, "linear_attn_config": lin}, cuda_device)
+    reset("kda.conv.kernel", "kda.kernel")
+    with torch.no_grad():
+        logits, _ = model.apply(params, tokens(2, 40))
+    assert counters().get("kda.conv.kernel") == 3 and counters().get("kda.kernel") == 3
+    assert torch.isfinite(logits).all()

@@ -351,9 +351,10 @@ def test_kda_spans_and_counters_open_under_enable(tracer):
         model.apply(params, toks)
     snap = snapshot()
     calls = {name: snap["spans"][name]["calls"] for name in snap["spans"]}
-    # one forward of eight layers: KDA in six (the recurrence inside each), MLA in two, MoE in seven
-    assert calls == {"kda.attention": 6, "kda.recurrence": 6, "mla.attention": 2, "moe.route": 7, "moe.experts": 7,
-                     "moe.combine": 7, "moe.weighted_sum": 7}
+    # one forward of eight layers: KDA in six (the convolutions and the recurrence inside each), MLA in two, MoE
+    # in seven
+    assert calls == {"kda.attention": 6, "kda.short_conv": 6, "kda.recurrence": 6, "mla.attention": 2,
+                     "moe.route": 7, "moe.experts": 7, "moe.combine": 7, "moe.weighted_sum": 7}
     assert snap["counters"] == {"kda.token_heads": 6 * 2 * 12 * 2, "moe.routed_pairs": 7 * 2 * 12 * 4}
 
 
